@@ -1,0 +1,23 @@
+"""PyTorch / CUDA port of ``cistar_tpu`` for NVIDIA Hopper (H100, sm_90a).
+
+The layout mirrors the JAX package so each module's counterpart is found
+under the same path:
+
+  * ``ops/nn.py``, ``ops/blocks.py``   NHWC primitives and ``nn.Module`` blocks
+  * ``ops/quant_int8.py``              int8 quantizers and the plain versions
+                                       of the fused int8 residual blocks
+  * ``ops/head_conv.py``               the generator head (IN+ReLU → 7×7 → tanh)
+  * ``models/cyclegan.py``             ``ResnetGenerator``
+  * ``models/fast_infer.py``           the int8-trunk inference engine
+  * ``engines/cyclegan.py``            inference engine holding G_A2B / G_B2A
+  * ``core/convert.py``                JAX param tree (numpy) → ``state_dict``
+  * ``kernels/``, ``csrc/``            the hand-written CUDA kernels and their
+                                       ``nvcc`` build
+
+Public functions take and return NHWC tensors, as the JAX package's do.
+Entry points take ``device=None``, which means CUDA (see :mod:`.device`).
+"""
+
+from cistar_tpu_torch.device import resolve_device
+
+__all__ = ["resolve_device"]
