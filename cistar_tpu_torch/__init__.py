@@ -5,10 +5,11 @@ under the same path:
 
   * ``ops/nn.py``, ``ops/blocks.py``   NHWC primitives and ``nn.Module`` blocks
   * ``ops/quant_int8.py``              int8 quantizers and the plain versions
-                                       of the fused int8 residual blocks
+                                       of the fused int8 blocks K1/K2/K5/K6
   * ``ops/head_conv.py``               the generator head (IN+ReLU → 7×7 → tanh)
-  * ``models/cyclegan.py``             ``ResnetGenerator``
-  * ``models/fast_infer.py``           the int8-trunk inference engine
+  * ``models/cyclegan.py``             ``ResnetGenerator``,
+                                       ``MultiscaleBilinearGenerator``
+  * ``models/fast_infer.py``           their int8 inference engines
   * ``engines/cyclegan.py``            inference engine holding G_A2B / G_B2A
   * ``core/convert.py``                JAX param tree (numpy) → ``state_dict``
   * ``kernels/``, ``csrc/``            the hand-written CUDA kernels and their

@@ -20,18 +20,19 @@ from typing import Dict, Tuple
 import torch
 
 from cistar_tpu_torch.kernels import build
+from cistar_tpu_torch.kernels.build import (I, F, P, check_same_device,
+                                            check_tensor, raise_on, stream)
 
 launches: Dict[str, int] = {"conv3x3_reflect_s8": 0, "resblock_int8_bf16io": 0,
                             "resblock_int8": 0}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {
-    "cistar_resblock_workspace_bytes": ((_I, _I, _I, _I), ctypes.c_size_t),
-    "cistar_conv3x3_reflect_s8_acc": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "cistar_resblock_workspace_bytes": ((I, I, I, I), ctypes.c_size_t),
+    "cistar_conv3x3_reflect_s8_acc": ((P, P, P, I, I, I, I, P), I),
     "cistar_resblock_int8_bf16io": (
-        (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P), _I),
+        (P, I, P, P, P, P, P, I, I, I, I, F, P), I),
     "cistar_resblock_int8": (
-        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P), _I),
+        (P, P, P, P, P, P, P, P, I, I, I, I, F, P), I),
 }
 
 
@@ -42,22 +43,7 @@ def reset_launches() -> None:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.load("int8_resblock")
-    for name, (args, res) in _SIGS.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = list(args), res
-    return lib
-
-
-def _check(t: torch.Tensor, what: str, dtype, shape=None) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{what} must be {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{what} must be contiguous and 16-byte aligned")
+    return build.bind(build.load("int8_resblock"), _SIGS)
 
 
 def _check_shape(x: torch.Tensor) -> Tuple[int, int, int, int]:
@@ -72,38 +58,27 @@ def _check_shape(x: torch.Tensor) -> Tuple[int, int, int, int]:
 def _weights(qblk, c: int, device) -> Tuple[torch.Tensor, ...]:
     w1k, w2k, sb = qblk["w1k"], qblk["w2k"], qblk["sb"]
     for t, name in ((w1k, "w1k"), (w2k, "w2k")):
-        _check(t, name, torch.int8, (c, 9 * c))
-    _check(sb, "sb", torch.float32, (4, c))
-    if not (w1k.device == w2k.device == sb.device == device):
-        raise ValueError("weights and activations lie on different devices")
+        check_tensor(t, name, torch.int8, (c, 9 * c))
+    check_tensor(sb, "sb", torch.float32, (4, c))
+    check_same_device(device, w1k, w2k, sb)
     return w1k, w2k, sb
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} "
-                           f"({torch.cuda.get_device_name()})")
-
-
 def _workspace(lib, n: int, h: int, w: int, c: int, device) -> torch.Tensor:
-    nbytes = lib.cistar_resblock_workspace_bytes(n, h, w, c)
-    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+    return build.workspace(lib.cistar_resblock_workspace_bytes(n, h, w, c),
+                           device)
 
 
 def conv3x3_reflect_s8(xq: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
     """int8 (N,H,W,C) ``xq`` and (C, 9·C) ``wk`` → int32 (N,H,W,C)."""
-    _check(xq, "xq", torch.int8)
+    check_tensor(xq, "xq", torch.int8)
     n, h, w, c = _check_shape(xq)
-    _check(wk, "wk", torch.int8, (c, 9 * c))
+    check_tensor(wk, "wk", torch.int8, (c, 9 * c))
     lib = _lib()
     acc = torch.empty((n, h, w, c), dtype=torch.int32, device=xq.device)
     err = lib.cistar_conv3x3_reflect_s8_acc(
-        xq.data_ptr(), wk.data_ptr(), acc.data_ptr(), n, h, w, c, _stream())
-    _raise_on(err, "conv3x3_reflect_s8")
+        xq.data_ptr(), wk.data_ptr(), acc.data_ptr(), n, h, w, c, stream())
+    raise_on(err, "conv3x3_reflect_s8")
     launches["conv3x3_reflect_s8"] += 1
     return acc
 
@@ -113,7 +88,7 @@ def resblock_int8_bf16io(hx: torch.Tensor, qblk, eps: float
     """K1: bf16 or fp32 (N,H,W,C) carrier in, same dtype out."""
     if hx.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"K1 takes a bf16 or fp32 carrier, got {hx.dtype}")
-    _check(hx, "hx", hx.dtype)
+    check_tensor(hx, "hx", hx.dtype)
     n, h, w, c = _check_shape(hx)
     w1k, w2k, sb = _weights(qblk, c, hx.device)
     lib = _lib()
@@ -122,8 +97,8 @@ def resblock_int8_bf16io(hx: torch.Tensor, qblk, eps: float
     err = lib.cistar_resblock_int8_bf16io(
         hx.data_ptr(), int(hx.dtype == torch.bfloat16), w1k.data_ptr(),
         w2k.data_ptr(), sb.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        n, h, w, c, eps, _stream())
-    _raise_on(err, "resblock_int8_bf16io")
+        n, h, w, c, eps, stream())
+    raise_on(err, "resblock_int8_bf16io")
     launches["resblock_int8_bf16io"] += 1
     return out
 
@@ -131,9 +106,9 @@ def resblock_int8_bf16io(hx: torch.Tensor, qblk, eps: float
 def resblock_int8(hq: torch.Tensor, hs: torch.Tensor, qblk,
                   eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: int8 (N,H,W,C) + (N,1) fp32 scale in, the same pair out."""
-    _check(hq, "hq", torch.int8)
+    check_tensor(hq, "hq", torch.int8)
     n, h, w, c = _check_shape(hq)
-    _check(hs, "hs", torch.float32, (n, 1))
+    check_tensor(hs, "hs", torch.float32, (n, 1))
     w1k, w2k, sb = _weights(qblk, c, hq.device)
     lib = _lib()
     outq = torch.empty_like(hq)
@@ -142,7 +117,7 @@ def resblock_int8(hq: torch.Tensor, hs: torch.Tensor, qblk,
     err = lib.cistar_resblock_int8(
         hq.data_ptr(), hs.data_ptr(), w1k.data_ptr(), w2k.data_ptr(),
         sb.data_ptr(), outq.data_ptr(), outs.data_ptr(), ws.data_ptr(),
-        n, h, w, c, eps, _stream())
-    _raise_on(err, "resblock_int8")
+        n, h, w, c, eps, stream())
+    raise_on(err, "resblock_int8")
     launches["resblock_int8"] += 1
     return outq, outs

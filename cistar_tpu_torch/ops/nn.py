@@ -32,10 +32,11 @@ def _add_bias(out: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-           stride: int = 1, padding: int = 0) -> torch.Tensor:
+           stride: int = 1, padding: int = 0, dilation: int = 1
+           ) -> torch.Tensor:
     """2-D convolution: NHWC ``x``, OIHW ``w`` (``ops/nn.py::conv2d``)."""
     out = F.conv2d(_nchw(x), w.to(x.dtype), None, stride=stride,
-                   padding=padding)
+                   padding=padding, dilation=dilation)
     return _add_bias(_nhwc(out), b)
 
 
@@ -85,3 +86,64 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 
 def tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.tanh(x)
+
+
+def upsample_bilinear(x: torch.Tensor, scale_factor: int = 2) -> torch.Tensor:
+    """Bilinear upsample, half-pixel centres (``align_corners=False``,
+    ``nn.Upsample``'s default; ``ops/nn.py::upsample_bilinear``)."""
+    out = F.interpolate(_nchw(x), scale_factor=scale_factor, mode="bilinear",
+                        align_corners=False)
+    return _nhwc(out)
+
+
+def _up_taps() -> torch.Tensor:
+    """(2, 3, 3) ``A``: ``A[p, t, o + 1]`` is the weight of ``x[i + o]`` in
+    ``up[2i + p + t - 1]``, the row that tap ``t`` of a 3×3 conv reads at
+    output phase ``p``, where ``up`` is the 2× bilinear upsample
+    (``up[2j] = 0.25·x[j-1] + 0.75·x[j]``, ``up[2j+1] = 0.75·x[j] +
+    0.25·x[j+1]``). Built as ``ops/nn.py::upconv2x_bilinear`` builds it."""
+    rows = []
+    u = ({-1: 0.25, 0: 0.75}, {0: 0.75, 1: 0.25})
+    for p in (0, 1):
+        for t in range(3):
+            s = p + t - 1
+            j_off, pp = s >> 1, s & 1
+            row = [0.0, 0.0, 0.0]
+            for d, coef in u[pp].items():
+                row[j_off + d + 1] += coef
+            rows.append(row)
+    return torch.tensor(rows, dtype=torch.float32).reshape(2, 3, 3)
+
+
+def upconv2x_bilinear(x: torch.Tensor, w: torch.Tensor,
+                      b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``conv2d(upsample_bilinear(x, 2), w, padding=1)`` as one conv on the
+    low-resolution grid (``ops/nn.py::upconv2x_bilinear``), OIHW ``w``.
+
+    The 3×3 conv of the 2× upsample is, at each of the four output phases,
+    a 3×3 conv of ``x``: one conv to ``4·Cout`` channels, then a depth-to-
+    space. The upsample's edge clamp and the conv's zero pad make the two
+    outer rows and columns differ; they are recomputed from 3-row / 3-col
+    slabs of the two-op path and pasted over, top and bottom first, then
+    left and right, which overwrite the corners (the JAX order)."""
+    n, h, wd, cin = x.shape
+    cout = w.shape[0]
+    if h < 3 or wd < 3:
+        return conv2d(upsample_bilinear(x, 2), w, b, padding=1)
+    a = _up_taps().to(x.device)
+    # eff[p, q, o, i, a, b] = Σ_ty,tx w[o, i, ty, tx]·A[p, ty, a]·A[q, tx, b]
+    eff = torch.einsum("oiyx,pya,qxb->pqoiab", w.float(), a, a)
+    y4 = conv2d(x, eff.reshape(4 * cout, cin, 3, 3).to(x.dtype), None,
+                padding=1)
+    y = y4.reshape(n, h, wd, 2, 2, cout).permute(0, 1, 3, 2, 4, 5) \
+        .reshape(n, 2 * h, 2 * wd, cout)
+
+    def strip(xs):
+        return conv2d(xs, w, None, padding=1)
+
+    y[:, :2] = strip(upsample_bilinear(x[:, :3], 2)[:, :3])[:, :2]
+    y[:, -2:] = strip(upsample_bilinear(x[:, h - 3:], 2)[:, -3:])[:, -2:]
+    y[:, :, :2] = strip(upsample_bilinear(x[:, :, :3], 2)[:, :, :3])[:, :, :2]
+    y[:, :, -2:] = strip(
+        upsample_bilinear(x[:, :, wd - 3:], 2)[:, :, -3:])[:, :, -2:]
+    return _add_bias(y, b)

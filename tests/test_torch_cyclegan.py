@@ -111,7 +111,7 @@ def test_quantize_generators_match_jax(setup):
                 np.testing.assert_array_equal(np.asarray(jb[k]), tb[k].numpy())
 
 
-@pytest.mark.parametrize("gen_type", ["bilinear_content", "atrous", "unet"])
+@pytest.mark.parametrize("gen_type", ["atrous_dense", "atrous", "unet"])
 def test_other_generators_not_ported(gen_type):
     with pytest.raises(NotImplementedError, match="item 7"):
         CycleGANInference(gen_type, device="cpu")

@@ -12,7 +12,7 @@ import torch
 from cistar_tpu_torch.device import resolve_device
 from cistar_tpu_torch.engines.cyclegan import CycleGANInference
 from cistar_tpu_torch.kernels import int8_resblock as kr
-from cistar_tpu_torch.models.cyclegan import build_resnet_generator
+from cistar_tpu_torch.models.cyclegan import seeded_generator
 from cistar_tpu_torch.ops import quant_int8 as qi
 
 
@@ -57,9 +57,9 @@ def test_device_none_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="CUDA"):
-        build_resnet_generator(1, 8)
+        seeded_generator("p2p", 1, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
-        CycleGANInference("p2p", in_features=8, n_residual_blocks=1)
+        CycleGANInference(in_features=8, n_residual_blocks=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
