@@ -53,6 +53,33 @@ residual blocks, 512², random weights from seed 0.
     trunk, decoder + head), and K5 / K6 per launch beside their bound and
     their plain versions.
 
+The pix2pixHD paths (slice 3), random weights from seed 0, 512²:
+``global`` (``GlobalGenerator``) at the reference CLI's defaults, ngf 64,
+4 downsamplings, 9 resnet blocks (a 1024-channel trunk at 32², which the
+JAX engine's rule sends to the cout-tiled chain, K7); and ``UNet``
+(``UNetGeneratorHD``, the r2l_MSRB experiment's generator), 64 features,
+3 MSRB blocks at (B, 64, 64, 512), K8. Each path, as the two above:
+
+11. the kernels on the path's own trunk activation (``global`` at batch
+    4, ct 256; ``UNet`` at batch 2): the int32 accumulators of K7's conv 1
+    and of every group of its conv 2, and of both K8 branches in both
+    stages, equal the plain versions bit for bit; K7a's int8 output differs
+    by at most ``K7_MAX_LSB`` on at most ``K7_MAX_FRAC`` of the elements,
+    the K7 block is within ``K7_*`` of plain; K8's stage-1 int8 outputs and
+    tile scales are bit-exact, stage 2 within ``K8_*``; one block's
+    distance to the JAX package's family budget vs its fp32 module is
+    printed;
+12. the path at its checked batch (``global`` 4, ``UNet`` 2), counted:
+    one ``global`` call launches K7a 9 times and K7b 9 times, one ``UNet``
+    call K8 12 times, and no other kernel. Fidelity as in phase 4, against
+    the same engine with the plain K7 / K8;
+13. serve three requests through ``Pix2PixHDInference``: ``infer_step``
+    and ``infer_step_int8``;
+14. times with CUDA events at the JAX suite's shapes (``global`` batch 16,
+    ``UNet`` batch 8): img/s of both engines, one profile each, a
+    breakdown by segment (stem, downs, trunk, ups, head), and K7a / K7b /
+    K8 per launch beside their bounds and their plain versions.
+
 The fp32 reference forwards run with TF32 off, the rest under PyTorch's
 defaults. The line before the last is the card's name and power limit; the
 kernels' JSON line comes before it; the last line is
@@ -113,6 +140,30 @@ K5_REL, K5_ABS = 2.0 ** -7, 0.01
 # one ulp; 1e-4 absolute covers the values near 0, where 2^-7 of the value
 # is less than that order effect.
 K6_REL, K6_ABS = 2.0 ** -7, 1e-4
+
+# pix2pixHD at the reference CLI's defaults (apps/p2phd_options.py:87-89:
+# ngf 64, 4 downsamplings, 9 blocks) and the r2l_MSRB experiment
+# (checkpoints/r2l_MSRB_7/opt.txt: UNet, ngf 64, 3 blocks), 512²; the
+# checked batch, and the batch of the JAX suite's p2phd512_int8 /
+# unet512_int8 rows (benchmarks/run_suite.py)
+P2PHD = {"global": dict(ngf=64, n_downsample_global=4, n_blocks_global=9,
+                        batch=4, bench_batch=16),
+         "UNet": dict(ngf=64, n_downsample_global=3, n_blocks_global=3,
+                      batch=2, bench_batch=8)}
+P2P_SIZE, K7_TILE, K8_TILE = 512, 256, 128
+# The JAX package's family budgets (benchmarks/kernel_matrix_r5.json,
+# trunk_tiled and msrb): max-abs of one int8 block vs its fp32 module,
+# printed.
+TILED_BUDGET, MSRB_BUDGET = 0.35, 0.35
+# K7a vs its plain version: the IN statistics are summed with atomics in
+# another order, so a requantized LSB can flip (as K2's): at most one LSB
+# on at most 0.1% of the elements. The K7 block: one bf16 ulp + 0.01, K1's
+# rule.
+K7_MAX_LSB, K7_MAX_FRAC = 1, 1e-3
+K7_REL, K7_ABS = 2.0 ** -7, 0.01
+# K8 stage 2 vs its plain version: no statistics; the fp32 group sum and
+# dequantize are the same ops in the same order, so one bf16 ulp + 1e-4.
+K8_REL, K8_ABS = 2.0 ** -7, 1e-4
 
 # Peaks of an H100 SXM (NVIDIA data sheet; dense int8 tensor-core
 # operations, HBM bandwidth), for the bound of each kernel.
@@ -220,6 +271,24 @@ def k6_bound_ms(n: int, h: int, w: int, cin: int, cout: int,
     return bound(4 * 2 * n * h * w * 9 * cin * cout,
                  n * h * w * (cin + cout) * carrier_bytes
                  + 4 * 9 * cin * cout + 8 * cout * 4)
+
+
+def k7_bound_ms(n: int, h: int, w: int, c: int, half: str) -> tuple:
+    """K7a (``half`` "a") or K7b ("b"): one 3×3 conv over all of C against
+    K7a's bf16 input and int8 output, or K7b's int8 input, bf16 skip and
+    bf16 output, plus one int8 weight and the scale / bias rows."""
+    act = 2 + 1 if half == "a" else 1 + 2 + 2
+    return bound(2 * n * h * w * 9 * c * c,
+                 n * h * w * c * act + 9 * c * c + 4 * c * 4)
+
+
+def k8_bound_ms(n: int, h: int, w: int, cin: int, cout: int, kk: int,
+                quant_out: bool) -> tuple:
+    """One K8 branch: a kk×kk conv against its int8 input, its int8
+    (stage 1) or bf16 (stage 2) output and its int8 weight."""
+    return bound(2 * n * h * w * kk * kk * cin * cout,
+                 n * h * w * (cin + cout * (1 if quant_out else 2))
+                 + kk * kk * cin * cout + 2 * cout * 4)
 
 
 def resnet_path(dev, images, counters) -> list:
@@ -629,6 +698,367 @@ def breakdown(gen, qt, x, ins, outs) -> None:
               + f"; sum {sum(ms)!r}", flush=True)
 
 
+def p2phd_path(family: str, images, counters) -> list:
+    """Phases 11-14 for ``family`` "global" or "UNet"; the kernels' JSON
+    rows of K7a and K7b, or of K8."""
+    import torch
+
+    from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
+    from cistar_tpu_torch.kernels import int8_msrb as km
+    from cistar_tpu_torch.kernels import int8_tiled as kt
+    from cistar_tpu_torch.models import fast_infer as fi
+    from cistar_tpu_torch.ops import quant_int8 as qi
+
+    cfg = P2PHD[family]
+    n, size = cfg["batch"], P2P_SIZE
+    eng = Pix2PixHDInference(family, ngf=cfg["ngf"],
+                             n_downsample_global=cfg["n_downsample_global"],
+                             n_blocks_global=cfg["n_blocks_global"], seed=0)
+    gen, qb = eng.G, eng.quantize_generator()
+    label = f"{family} path"
+    if family == "global":
+        encode = fi.global_encode
+        def int8_engine(x):
+            return fi.global_generator_int8_trunk_apply(gen, qb, x)
+
+        def plain_engine(x):
+            h = fi.global_encode(gen, x)
+            for q in qb:
+                h = qi.resblock_int8_tiled_plain(h, q, K7_TILE)
+            return fi.global_decode(gen, h)
+    else:
+        def encode(g, x):
+            return fi.unet_encode(g, x)[-1]
+
+        def int8_engine(x):
+            return fi.unet_msrb_int8_apply(gen, qb, x)
+
+        def plain_engine(x):
+            skips = fi.unet_encode(gen, x)
+            h = skips[-1]
+            for q in qb:
+                h = qi.msrb_block_int8_plain(h, q, K8_TILE)
+            return fi.unet_decode(gen, h, skips)
+
+    x = images(n, size)
+    xb = x.bfloat16()
+
+    # 11. kernels on the path's own trunk activation
+    h = encode(gen, xb).contiguous()
+    q0 = qb[0]
+    if family == "global":
+        check(tuple(h.shape) == (n, 32, 32, 1024), f"trunk {tuple(h.shape)}")
+        check(not qi.whole_image_resblock_fits(32, 32, 1024)
+              and qi.pick_cout_tile(32 * 32, 1024) == K7_TILE,
+              "the JAX rule sends the 1024-channel trunk to K7 at ct 256")
+        t = 1024 // K7_TILE
+        hq, _ = qi.quantize_act(h)
+        check(torch.equal(kt.conv3x3_reflect_grouped_s8(hq, q0["w1k"], 1),
+                          qi.conv3x3_reflect_grouped_s8_plain(hq, q0["w1q"], 1)),
+              "K7 conv 1 int32 accumulators bit-exact")
+        rqk, rsk = kt.resblock_int8_tiled_a(h, q0, K7_TILE, qi.EPS)
+        rqp, rsp = qi.resblock_tiled_a_plain(h, q0, K7_TILE)
+        check(torch.equal(kt.conv3x3_reflect_grouped_s8(rqp, q0["w2k"], t),
+                          qi.conv3x3_reflect_grouped_s8_plain(rqp, q0["w2q"], t)),
+              f"K7 conv 2 int32 accumulators of all {t} groups bit-exact")
+        print(f"[kernels] conv3x3_reflect_grouped_s8 {tuple(hq.shape)}: "
+              f"int32 accumulators of conv 1 and of the {t} groups of conv 2 "
+              f"bit-exact vs plain", flush=True)
+        dq = (rqk.int() - rqp.int()).abs()
+        frac = (dq > 0).float().mean().item()
+        s_rel = ((rsk - rsp).abs() / rsp).max().item()
+
+        def dequant(rq, rs):
+            return rq.float() * rs.repeat_interleave(K7_TILE, 1)[:, None, None]
+        err_a = (dequant(rqk, rsk) - dequant(rqp, rsp)).abs().max().item()
+        # K7b alone, on the plain K7a's output
+        err_b = (kt.resblock_int8_tiled_b(rqp, rsp, h, q0, K7_TILE, qi.EPS)
+                 .float() - qi.resblock_tiled_b_plain(rqp, rsp, h, q0, K7_TILE)
+                 .float()).abs().max().item()
+        yk = qi.resblock_int8_tiled(h, q0, K7_TILE)
+        yp = qi.resblock_int8_tiled_plain(h, q0, K7_TILE)
+        d = (yk.float() - yp.float()).abs()
+        err = d.max().item()
+        over = (d - K7_REL * yp.float().abs()).max().item()
+        with fp32_exact():
+            fb = (yk.float() - gen.trunk.res[0](h.float())).abs().max().item()
+        print(f"[kernels] K7a {tuple(h.shape)} ct {K7_TILE}: max|dq| "
+              f"{dq.max().item()} LSB on {frac!r} of elements, tile scale rel "
+              f"err {s_rel!r}, max|dequant diff| {err_a!r}; K7b on the same "
+              f"rq max|kernel-plain| {err_b!r}; K7 block bf16 "
+              f"max|kernel-plain| {err!r}, max "
+              f"over one ulp {over!r} (tol {K7_ABS}); vs the fp32 block "
+              f"{fb!r}, {TILED_BUDGET} budget "
+              f"{'met' if fb <= TILED_BUDGET else 'missed'}", flush=True)
+        check(dq.max().item() <= K7_MAX_LSB and frac <= K7_MAX_FRAC,
+              "K7a within one LSB on 0.1% of plain")
+        check(over <= K7_ABS, "K7 within one bf16 ulp + 0.01 of plain")
+        rows_in = (h, rqp, rsp, {"a": err_a, "b": err_b})
+    else:
+        check(tuple(h.shape) == (n, 64, 64, 512), f"trunk {tuple(h.shape)}")
+        xq, xs = qi.quantize_act(h)
+        s1k = qi.msrb_stage(xq, xs, q0, "a", K8_TILE, True, None)
+        s1p = qi.msrb_stage_plain(xq, xs, q0["w3a"], q0["w5a"], q0["sb1"],
+                                  K8_TILE, True, None)
+        check(all(torch.equal(a, b) for a, b in zip(s1k, s1p)),
+              "K8 stage 1 int8 outputs and tile scales bit-exact")
+        cat = torch.cat(s1p[:2], -1).contiguous()
+        sc = torch.cat(s1p[2:], 1).contiguous()
+        for st, xin, g in (("a", xq, 1), ("b", cat, sc.shape[1])):
+            for kk in (3, 5):
+                check(torch.equal(
+                    km.conv_zero_grouped_s8(xin, q0[f"w{kk}{st}k"], kk, g),
+                    qi.conv_zero_grouped_s8_plain(xin, q0[f"w{kk}{st}"], kk, g)),
+                    f"K8 stage {st} {kk}x{kk} int32 accumulators bit-exact")
+        print(f"[kernels] conv_zero_grouped_s8 {tuple(xq.shape)} and "
+              f"{tuple(cat.shape)} in {sc.shape[1]} groups, 3x3 and 5x5: "
+              f"int32 accumulators bit-exact vs plain; K8 stage 1 int8 "
+              f"outputs and tile scales bit-exact", flush=True)
+        s2k = qi.msrb_stage(cat, sc, q0, "b", K8_TILE, False, torch.bfloat16)
+        s2p = qi.msrb_stage_plain(cat, sc, q0["w3b"], q0["w5b"], q0["sb2"],
+                                  K8_TILE, False, torch.bfloat16)
+        d = torch.stack([(a.float() - b.float()).abs()
+                         for a, b in zip(s2k[:2], s2p[:2])])
+        ref = torch.stack([b.float().abs() for b in s2p[:2]])
+        err = d.max().item()
+        over = (d - K8_REL * ref).max().item()
+        with fp32_exact():
+            fb = (qi.msrb_block_int8(h, q0).float()
+                  - gen.msrb[0](h.float())).abs().max().item()
+        print(f"[kernels] K8 stage 2 {tuple(cat.shape)} -> bf16: "
+              f"max|kernel-plain| {err!r}, max over one ulp {over!r} (tol "
+              f"{K8_ABS}); MSRB block vs the fp32 block {fb!r}, "
+              f"{MSRB_BUDGET} budget "
+              f"{'met' if fb <= MSRB_BUDGET else 'missed'}", flush=True)
+        check(over <= K8_ABS, "K8 stage 2 within one bf16 ulp + 1e-4 of plain")
+        rows_in = (xq, xs, cat, sc, err)
+
+    # 12. the path, counted
+    for m in counters:
+        m.reset_launches()
+    y_bf16 = gen(xb).float()
+    y_int8 = int8_engine(xb).float()
+    torch.cuda.synchronize()
+    launches = {k: v for m in counters for k, v in m.launches.items()}
+    print(f"[{label}] launches {launches}", flush=True)
+    want = ({"resblock_int8_tiled_a": cfg["n_blocks_global"],
+             "resblock_int8_tiled_b": cfg["n_blocks_global"]}
+            if family == "global" else
+            {"msrb_branch_int8": 4 * cfg["n_blocks_global"]})
+    check(all(launches[k] == want.get(k, 0) for k in launches),
+          f"one {family} call launches {want} and no other kernel")
+    with fp32_exact():
+        y32 = gen(x)
+    dk, dp = (y_int8 - y32).abs(), (plain_engine(xb).float() - y32).abs()
+    (mk, ak), (mp, ap) = ((d.max().item(), d.mean().item()) for d in (dk, dp))
+    print(f"[{label}] int8 engine vs fp32: max {mk!r} mean {ak!r}; with plain "
+          f"kernels max {mp!r} mean {ap!r}", flush=True)
+    check(ak <= KERNEL_MEAN_RATIO * ap and mk <= mp + KERNEL_MAX_EXCESS,
+          f"{label}: kernels add little to the plain error")
+    for name, y in (("bf16", y_bf16), ("int8", y_int8)):
+        check(tuple(y.shape) == (n, size, size, 1)
+              and bool(torch.isfinite(y).all()), f"{name} output shape/finite")
+        d = (y - y32).abs()
+        print(f"[{label}] {name} vs fp32: max {d.max().item()!r} mean "
+              f"{d.mean().item()!r}", flush=True)
+
+    # 13. serve three requests
+    for r in range(3):
+        lab = images(n, size)
+        t0 = time.perf_counter()
+        out = eng.infer_step(lab)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out8 = eng.infer_step_int8(qb, lab)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for o in (out, out8):
+            check(tuple(o.shape) == (n, size, size, 1)
+                  and o.dtype == torch.float32
+                  and bool(torch.isfinite(o).all()), f"{family} served output")
+        print(f"[serve {family}] request {r}: infer_step "
+              f"{1e3 * (t1 - t0):.3f} ms, infer_step_int8 {1e3 * (t2 - t1):.3f}"
+              f" ms, max|int8-bf16| {(out - out8).abs().max().item():.4f}",
+              flush=True)
+
+    # 14. times
+    nb = cfg["bench_batch"]
+    xbb = images(nb, size).bfloat16()
+    for name, fn in (("bf16", lambda: gen(xbb)),
+                     ("int8", lambda: int8_engine(xbb))):
+        print_times(f"{family} generator {name}", nb, fn)
+    p2phd_breakdown(family, gen, qb, xbb)
+
+    if family == "global":
+        hh, rqp, rsp, errs = rows_in
+        hb = fi.global_encode(gen, xbb).contiguous()
+        rqb, rsb = kt.resblock_int8_tiled_a(hb, q0, K7_TILE, qi.EPS)
+        rows = []
+        for name, line, half, kfn, kfn_b, pfn in (
+                ("resblock_int8_tiled_a", ":519", "a",
+                 lambda: kt.resblock_int8_tiled_a(hh, q0, K7_TILE, qi.EPS),
+                 lambda: kt.resblock_int8_tiled_a(hb, q0, K7_TILE, qi.EPS),
+                 lambda: qi.resblock_tiled_a_plain(hh, q0, K7_TILE)),
+                ("resblock_int8_tiled_b", ":532", "b",
+                 lambda: kt.resblock_int8_tiled_b(rqp, rsp, hh, q0, K7_TILE,
+                                                  qi.EPS),
+                 lambda: kt.resblock_int8_tiled_b(rqb, rsb, hb, q0, K7_TILE,
+                                                  qi.EPS),
+                 lambda: qi.resblock_tiled_b_plain(rqp, rsp, hh, q0,
+                                                   K7_TILE))):
+            bnd, by = k7_bound_ms(*hh.shape, half)
+            bnd_b, _ = k7_bound_ms(*hb.shape, half)
+            ms, ms_b = cuda_ms(kfn, 20), cuda_ms(kfn_b, 10)
+            plain_ms = cuda_ms(pfn, 5)
+            rows.append({"name": name, "route": "cuda",
+                         "source": "cistar_tpu_torch/csrc/int8_tiled.cu",
+                         "replaces": "cistar_tpu/ops/quant_pallas.py" + line,
+                         "launches": launches[name], "max_abs_err": errs[half],
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+                         "bound_by": by, "library_ms": None})
+            print(f"[times] {name} {tuple(hh.shape)}: {ms!r} ms, bound "
+                  f"{bnd!r} ms ({by}), plain {plain_ms!r} ms; "
+                  f"{tuple(hb.shape)}: {ms_b!r} ms, bound {bnd_b!r} ms",
+                  flush=True)
+        return rows
+
+    xq, xs, cat, sc, err = rows_in
+    hb = fi.unet_encode(gen, xbb)[-1].contiguous()
+    xqb, xsb = qi.quantize_act(hb)
+    s1b = qi.msrb_stage(xqb, xsb, q0, "a", K8_TILE, True, None)
+    catb, scb = torch.cat(s1b[:2], -1).contiguous(), torch.cat(s1b[2:], 1)
+    tot = {"ms": 0.0, "plain": 0.0, "bound": 0.0, "ms_b": 0.0, "bound_b": 0.0}
+    by = None
+    for st, (xin, xsc, xinb, xscb) in (("a", (xq, xs, xqb, xsb)),
+                                       ("b", (cat, sc, catb, scb))):
+        qo = st == "a"
+        sb = q0["sb1" if qo else "sb2"]
+        for row, kk in ((0, 3), (1, 5)):
+            wk, wq = q0[f"w{kk}{st}k"], q0[f"w{kk}{st}"]
+            odt = None if qo else torch.bfloat16
+            ms = cuda_ms(lambda: km.msrb_branch_int8(
+                xin, xsc, wk, sb, row, kk, K8_TILE, qo, odt), 20)
+            ms_b = cuda_ms(lambda: km.msrb_branch_int8(
+                xinb, xscb, wk, sb, row, kk, K8_TILE, qo, odt), 10)
+            plain_ms = cuda_ms(lambda: qi.msrb_branch_plain(
+                xin, xsc, wq, sb, row, kk, K8_TILE, qo, odt), 5)
+            bnd, by = k8_bound_ms(*xin.shape, wk.shape[0], kk, qo)
+            bnd_b, _ = k8_bound_ms(*xinb.shape, wk.shape[0], kk, qo)
+            for k, v in (("ms", ms), ("plain", plain_ms), ("bound", bnd),
+                         ("ms_b", ms_b), ("bound_b", bnd_b)):
+                tot[k] += v
+            print(f"[times] msrb_branch_int8 stage {st} {kk}x{kk} "
+                  f"{tuple(xin.shape)}: {ms!r} ms, bound {bnd!r} ms, plain "
+                  f"{plain_ms!r} ms; {tuple(xinb.shape)}: {ms_b!r} ms, bound "
+                  f"{bnd_b!r} ms", flush=True)
+    print(f"[times] msrb_branch_int8, the four launches of one block: "
+          f"{tot['ms']!r} ms at batch {n} (bound {tot['bound']!r}), "
+          f"{tot['ms_b']!r} ms at batch {nb} (bound {tot['bound_b']!r})",
+          flush=True)
+    # one row, per launch: the mean over one block's four launches
+    return [{"name": "msrb_branch_int8", "route": "cuda",
+             "source": "cistar_tpu_torch/csrc/int8_msrb.cu",
+             "replaces": "cistar_tpu/ops/quant_pallas.py:780",
+             "launches": launches["msrb_branch_int8"], "max_abs_err": err,
+             "ms": tot["ms"] / 4, "plain_ms": tot["plain"] / 4,
+             "bound_ms": tot["bound"] / 4, "bound_by": by,
+             "library_ms": None}]
+
+
+def p2phd_breakdown(family: str, gen, qb, x) -> None:
+    """Where the time of each pix2pixHD engine goes: CUDA-event ms of each
+    segment of one generator call, on the engine's own activations."""
+    import torch
+
+    from cistar_tpu_torch.models import fast_infer as fi
+    from cistar_tpu_torch.ops import nn as tnn
+    from cistar_tpu_torch.ops import quant_int8 as qi
+
+    def in_relu(v):
+        return tnn.relu(tnn.instance_norm(v))
+
+    def thin(conv, v):
+        return tnn.conv2d_reflect_thin(v, conv.weight, conv.bias)
+
+    if family == "global":
+        tr = gen.trunk
+        stem_out = tr.stem(x)
+        downs = [stem_out]
+        for m in tr.down:
+            downs.append(m(downs[-1]))
+        t_in = downs[-1]
+        t_out = fi.global_trunk_int8(t_in, qb)
+        ups = [t_out]
+        for m in tr.up:
+            ups.append(m(ups[-1]))
+
+        def run_downs():
+            for m, v in zip(tr.down, downs):
+                m(v)
+
+        def run_ups():
+            for m, v in zip(tr.up, ups):
+                m(v)
+
+        def bf16_trunk():
+            v = t_in
+            for m in tr.res:
+                v = m(v)
+            return v
+        segs = {"stem": (lambda: tr.stem(x),
+                         lambda: in_relu(thin(tr.stem.conv, x))),
+                "downs": (run_downs,) * 2,
+                "trunk": (bf16_trunk, lambda: fi.global_trunk_int8(t_in, qb)),
+                "ups": (run_ups,) * 2,
+                "head": (lambda: gen.head(ups[-1]),
+                         lambda: tnn.tanh(thin(gen.head.conv, ups[-1])))}
+    else:
+        stem_out = gen.init_block(x)
+        skips = fi.unet_encode(gen, x)
+        ins = [stem_out, *skips[:-1]]
+        t_in = skips[-1]
+        t_out = t_in
+        for q in qb:
+            t_out = qi.msrb_block_int8(t_out, q)
+        up_ins = [t_out]
+        for convt, skip in zip(gen.up_convt, reversed(skips)):
+            up_ins.append(in_relu(convt(torch.cat([up_ins[-1], skip], -1))))
+
+        def run_downs():
+            for conv, v in zip(gen.down_conv, ins):
+                in_relu(conv(v))
+
+        def run_ups():
+            for convt, v, skip in zip(gen.up_convt, up_ins, reversed(skips)):
+                in_relu(convt(torch.cat([v, skip], -1)))
+
+        def bf16_trunk():
+            v = t_in
+            for m in gen.msrb:
+                v = m(v)
+            return v
+
+        def int8_trunk():
+            v = t_in
+            for q in qb:
+                v = qi.msrb_block_int8(v, q)
+            return v
+        head_in = up_ins[-1]
+        segs = {"stem": (lambda: gen.init_block(x),
+                         lambda: in_relu(thin(gen.init_block.conv, x))),
+                "downs": (run_downs,) * 2,
+                "trunk": (bf16_trunk, int8_trunk),
+                "ups": (run_ups,) * 2,
+                "head": (lambda: gen.output_layer(head_in),
+                         lambda: tnn.tanh(thin(gen.output_layer.conv,
+                                               head_in)))}
+    for e, engine in enumerate(("bf16", "int8")):
+        ms = {k: cuda_ms(v[e], 5) for k, v in segs.items()}
+        print(f"[breakdown] {family} {engine} batch {x.shape[0]} (ms): "
+              + "; ".join(f"{k} {t!r}" for k, t in ms.items())
+              + f"; sum {sum(ms.values())!r}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -637,7 +1067,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from cistar_tpu_torch.kernels import build
     from cistar_tpu_torch.kernels import int8_atrous as ka
+    from cistar_tpu_torch.kernels import int8_msrb as km
     from cistar_tpu_torch.kernels import int8_resblock as kr
+    from cistar_tpu_torch.kernels import int8_tiled as kt
 
     torch.set_grad_enabled(False)
     dev = torch.device("cuda")
@@ -661,9 +1093,11 @@ def main() -> int:
         return (torch.rand(n, size, size, 1, generator=cpu_gen) * 2
                 - 1).to(dev)
 
-    counters = (kr, ka)
+    counters = (kr, ka, kt, km)
     rows = resnet_path(dev, images, counters)
     rows += bilinear_path(dev, images, counters)
+    rows += p2phd_path("global", images, counters)
+    rows += p2phd_path("UNet", images, counters)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -12,6 +12,7 @@ port's own copy so the port imports nothing of ``cistar_tpu``:
 
 from __future__ import annotations
 
+import re
 from typing import Any, Callable, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
@@ -50,22 +51,44 @@ def _conv_nodes(params: Mapping[str, Any], path: Tuple[str, ...] = ()
             yield from _conv_nodes(v, path + (k,))
 
 
+_UNET_NAME = re.compile(r"^(down|up)_(\d+)_(convt?)$|^(msrb)_(\d+)$")
+
+
+def _unet_key(path: Tuple[str, ...]) -> str:
+    """``UNetGeneratorHD`` path → ``state_dict`` prefix: ``down_i_conv`` /
+    ``up_i_convt`` / ``msrb_i`` become ``down_conv.i`` / ``up_convt.i`` /
+    ``msrb.i``; every other name is kept."""
+    parts = []
+    for p in path:
+        m = _UNET_NAME.match(p)
+        if m is None:
+            parts.append(p)
+        elif m.group(4):
+            parts += [m.group(4), m.group(5)]
+        else:
+            parts += [f"{m.group(1)}_{m.group(3)}", m.group(2)]
+    return ".".join(parts)
+
+
 def generator_from_jax(params: Mapping[str, Any],
                        transposed: Callable[[Tuple[str, ...]], bool]
-                       = lambda path: False) -> Dict[str, torch.Tensor]:
+                       = lambda path: False,
+                       key: Callable[[Tuple[str, ...]], str] = _torch_key
+                       ) -> Dict[str, torch.Tensor]:
     """A generator's JAX params → ``state_dict`` of its port counterpart
-    (:mod:`cistar_tpu_torch.models.cyclegan`). ``transposed(path)`` says
-    which nodes are transpose convs. A ``MultiscaleBilinearGenerator``
-    (``init_conv``, ``down_i/b{j}_conv``, ``res_i/atrous/b{j}_conv``,
-    ``res_i/conv``, ``up_i/conv``, ``out_conv``) has none."""
+    (:mod:`cistar_tpu_torch.models`). ``transposed(path)`` says which nodes
+    are transpose convs, ``key(path)`` names each node's module. A
+    ``MultiscaleBilinearGenerator`` (``init_conv``, ``down_i/b{j}_conv``,
+    ``res_i/atrous/b{j}_conv``, ``res_i/conv``, ``up_i/conv``,
+    ``out_conv``) has none, and the default names."""
     sd: Dict[str, torch.Tensor] = {}
     for path, node in _conv_nodes(params):
         w = np.asarray(node["w"], np.float32)
         w = conv_transpose_w_from_hwio(w) if transposed(path) \
             else conv_w_from_hwio(w)
-        key = _torch_key(path)
-        sd[f"{key}.weight"] = torch.from_numpy(w)
-        sd[f"{key}.bias"] = torch.from_numpy(
+        key_ = key(path)
+        sd[f"{key_}.weight"] = torch.from_numpy(w)
+        sd[f"{key_}.bias"] = torch.from_numpy(
             np.asarray(node["b"], np.float32).copy())
     return sd
 
@@ -78,3 +101,22 @@ def resnet_generator_from_jax(params: Mapping[str, Any]
     ResnetGenerator`."""
     return generator_from_jax(
         params, lambda path: len(path) == 1 and path[0].startswith("up_"))
+
+
+def global_generator_from_jax(params: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """pix2pixHD ``GlobalGenerator`` params (``trunk/stem/conv``,
+    ``trunk/down_i/conv``, ``trunk/res_i/conv{1,2}``, ``trunk/up_i/convt``
+    (transpose), ``head/conv``) → a ``state_dict`` for :class:`~
+    cistar_tpu_torch.models.pix2pixhd.GlobalGenerator`."""
+    return generator_from_jax(params, lambda path: path[-1] == "convt")
+
+
+def unet_generator_hd_from_jax(params: Mapping[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """pix2pixHD ``UNetGeneratorHD`` params (``init_block/conv``,
+    ``down_i_conv``, ``msrb_i/b{00,01,10,11}_conv``, ``msrb_i/out_conv``,
+    ``up_i_convt`` (transpose), ``output_layer/conv``) → a ``state_dict``
+    for :class:`~cistar_tpu_torch.models.pix2pixhd.UNetGeneratorHD`."""
+    return generator_from_jax(params, lambda path: path[-1].endswith("_convt"),
+                              _unet_key)

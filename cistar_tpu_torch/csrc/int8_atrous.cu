@@ -27,7 +27,7 @@
 //   absmax_kernel, quant_kernel   per-image quantize; K6 reads the
 //                                 full-resolution x at stride 2, so no
 //                                 subsampled copy is made
-//   conv3x3_s8_kernel (x4)        the implicit-GEMM int8 conv with zero
+//   conv_s8_kernel (x4)           the implicit-GEMM int8 conv with zero
 //                                 padding and a runtime dilation: taps
 //                                 outside the image are zero-filled in
 //                                 shared memory (cp.async with src-size 0),
@@ -39,7 +39,7 @@
 //   branch_sum_kernel             sum_b relu(IN f_b), in branch order; K5
 //                                 writes it over f_0 with its per-image
 //                                 absmax, K6 writes it out in the input dtype
-//   K5 only: quant_kernel (the branch sum) -> conv3x3_s8_kernel (reflect)
+//   K5 only: quant_kernel (the branch sum) -> conv_s8_kernel (reflect)
 //            -> in_stats_kernel -> in_skip_out_kernel.
 // K1's requantization shortcut (max |relu(IN f)| from per-channel maxima)
 // does not hold for a sum of four branches, so K5 reduces |sum| for real.
@@ -154,7 +154,7 @@ void branches(const AtrousWs& ws, const T* x, Sub sub, const int8_t* wbk,
                                                              ws.q, ws.xscale);
   cudaMemsetAsync(ws.st_sum, 0, 2 * NB * nc * 4, st);
   for (int b = 0; b < NB; ++b)
-    launch_conv<false, false, false>(
+    launch_conv<EPI_STATS, false, false>(
         ConvArgs{ws.q, wbk + static_cast<long>(b) * cout * 9 * cin, ws.xscale,
                  sb + 2 * b * cout, sb + (2 * b + 1) * cout, nullptr,
                  ws.f + b * mc, ws.st_sum + b * nc, ws.st_sq + b * nc, nullptr, n,
@@ -182,7 +182,7 @@ int atrous_resblock(const T* x, const int8_t* wbk, const int8_t* wck, const floa
       ws.f, per_image, dense(per_image), ws.samax, ws.q, ws.sscale);
   cudaMemsetAsync(ws.st_sum, 0, nc * 4, st);
   cudaMemsetAsync(ws.st_sq, 0, nc * 4, st);
-  launch_conv<false, false, true>(
+  launch_conv<EPI_STATS, false, true>(
       ConvArgs{ws.q, wck, ws.sscale, sb + 2 * NB * c, sb + (2 * NB + 1) * c, nullptr,
                ws.f, ws.st_sum, ws.st_sq, nullptr, n, h, w, c, c, 1},
       st);
@@ -225,7 +225,7 @@ int cistar_conv3x3_zero_s8_acc(const void* xq, const void* wk, void* acc, int n,
                                void* stream) {
   if (!conv_shape_ok(n, h, w, cin, cout) || dil < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  launch_conv<true, false, false>(
+  launch_conv<EPI_RAW, false, false>(
       ConvArgs{static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wk),
                nullptr, nullptr, nullptr, static_cast<int32_t*>(acc), nullptr,
                nullptr, nullptr, nullptr, n, h, w, cin, cout, dil},

@@ -1,7 +1,8 @@
 // Pieces shared by the port's int8 kernels (int8_resblock.cu: K1/K2,
-// int8_atrous.cu: K5/K6): per-image absmax and quantize, the implicit-GEMM
-// int8 3x3 conv with its instance-norm statistics epilogue, the IN
-// finalize and the IN + skip output pass.
+// int8_atrous.cu: K5/K6, int8_tiled.cu: K7, int8_msrb.cu: K8): per-image
+// absmax and quantize, the implicit-GEMM int8 conv with its epilogues (IN
+// statistics, grouped input scales, ReLU and tile maxima), the IN finalize,
+// the IN + ReLU requantize and the IN + skip output pass.
 //
 // Numerical rules, each matched to the plain PyTorch versions
 // (cistar_tpu_torch/ops/quant_int8.py):
@@ -137,6 +138,13 @@ __device__ __forceinline__ void store8<__nv_bfloat16>(__nv_bfloat16* p,
   reinterpret_cast<uint4*>(p)[0] = r;
 }
 
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 __device__ __forceinline__ int8_t to_s8(float v) {
   // clip(rint(v), -127, 127): rintf rounds half to even
   return static_cast<int8_t>(fminf(fmaxf(rintf(v), -127.f), 127.f));
@@ -192,18 +200,27 @@ __global__ void absmax_kernel(const T* __restrict__ x, long per_image, Sub sub,
 }
 
 // q = clip(rint(x * (127 / max(amax, 1e-6))), -127, 127); scale = amax / 127.
-// q is dense: (N, per_image).
+// q is dense: (N, per_image). With ct > 0 the scales are per (image, tile
+// of ct channels): amax and scale are (N, C / ct) and sub.c is C.
 template <typename T>
 __global__ void quant_kernel(const T* __restrict__ x, long per_image, Sub sub,
                              const float* __restrict__ amax,
                              int8_t* __restrict__ q,
-                             float* __restrict__ scale) {
+                             float* __restrict__ scale, int ct = 0) {
   const int n = blockIdx.y;
-  const float a = fmaxf(amax[n], 1e-6f);
-  const float inv = __fdiv_rn(127.f, a);
-  if (blockIdx.x == 0 && threadIdx.x == 0) scale[n] = __fdiv_rn(a, 127.f);
   const long e = (static_cast<long>(blockIdx.x) * EW_THREADS + threadIdx.x) * EW_VEC;
+  int k = n;  // which scale
+  if (ct > 0) {
+    const int tiles = sub.c / ct;
+    k = n * tiles + static_cast<int>(e % sub.c) / ct;
+    if (blockIdx.x == 0 && threadIdx.x < tiles)
+      scale[n * tiles + threadIdx.x] =
+          __fdiv_rn(fmaxf(amax[n * tiles + threadIdx.x], 1e-6f), 127.f);
+  } else if (blockIdx.x == 0 && threadIdx.x == 0) {
+    scale[n] = __fdiv_rn(fmaxf(amax[n], 1e-6f), 127.f);
+  }
   if (e >= per_image) return;
+  const float inv = __fdiv_rn(127.f, fmaxf(amax[k], 1e-6f));
   float v[EW_VEC];
   load8<T>(x + n * sub.in_per_image + src(e, sub), v);
 #pragma unroll
@@ -211,27 +228,56 @@ __global__ void quant_kernel(const T* __restrict__ x, long per_image, Sub sub,
   store8_s8(q + n * per_image + e, v);
 }
 
-// Implicit-GEMM 3x3 conv, stride 1, "same" size. xq (N,H,W,Cin) int8; wk
-// (Cout, 9*Cin) int8, K-contiguous with k = tap*Cin + cin, tap = 3*ky + kx;
-// tap (ky, kx) reads pixel (y + (ky-1)*dil, x + (kx-1)*dil). REFLECT:
-// reflect-pad-1 (dil must be 1), the index computed in the loader. Else
-// zero padding: a tap outside the image is zero-filled in shared memory and
-// nothing outside the tensor is read.
+// What a conv launch does with its accumulators.
+//   EPI_RAW     write the int32 accumulators of each input group to acc_out
+//               (groups, N*H*W, Cout)
+//   EPI_STATS   f = float(acc) * (xs[n] * ws[c]) + bias[c] into f (fp32), with
+//               per-(image, channel) sum, sum of squares and (WANT_MAX) max
+//               added to the statistics (K1, K2, K5, K6, K7a)
+//   EPI_GSTATS  f = (sum_g float(acc_g) * gs[n, g]) * ws[c] + bias[c], the
+//               group sum in fp32 in group order; the statistics as above (K7b)
+//   EPI_GRELU   the same f, then ReLU. WANT_MAX: f into f (fp32) and its max
+//               per (image, tile of ct channels) into st_max; else f into out
+//               as TO (K8)
+enum Epi { EPI_RAW = 0, EPI_STATS = 1, EPI_GSTATS = 2, EPI_GRELU = 3 };
+
+// One conv launch. Its operands; the pointers an epilogue does not use may
+// be null.
+struct ConvArgs {
+  const int8_t* xq;
+  const int8_t* wk;
+  const float* xs;
+  const float* ws;
+  const float* bias;
+  int32_t* acc_out;
+  float* f;
+  float* st_sum;
+  float* st_sq;
+  float* st_max;
+  int n, h, w, cin, cout, dil;
+  const float* gs = nullptr;  // (N, groups) scale of each input group
+  void* out = nullptr;        // EPI_GRELU without WANT_MAX
+  int groups = 1;             // input channel groups, each cin / groups wide
+  int ct = 0;                 // EPI_GRELU with WANT_MAX: tile of st_max
+};
+
+// Implicit-GEMM KKxKK conv, stride 1, "same" size. xq (N,H,W,Cin) int8; wk
+// (Cout, KK*KK*Cin) int8, K-contiguous with k = tap*Cin + cin, tap =
+// KK*ky + kx; tap (ky, kx) reads pixel (y + (ky - KK/2)*dil, x + (kx -
+// KK/2)*dil). REFLECT: reflect-pad-1 (KK 3, dil 1), the index computed in
+// the loader. Else zero padding: a tap outside the image is zero-filled in
+// shared memory and nothing outside the tensor is read.
+// The K loop runs group by group (cin = groups x cg channels), and inside
+// a group tap by tap: each group's exact int32 partial is flushed when its
+// last K-stage is done (written out, or added in fp32 times the group's
+// scale), and the next group starts again from 0. With one group this is
+// the plain tap-major K loop.
 // Tiles: BM pixels x BN couts x BK int8 of K per stage, double-buffered
-// cp.async, mma.sync.m16n8k32 s8 -> s32. A K-stage lies inside one tap, so
-// Cin % BK == 0; Cout % BN == 0; (H*W) % BM == 0 (a block's rows lie in one
-// image). The host launcher checks all three.
-// RAW: write the int32 accumulators to acc_out. Else: f = float(acc) *
-// (xs[n] * ws[c]) + bias[c] into f (fp32), with per-(image, channel) sum,
-// sum of squares and (WANT_MAX) max added to the statistics.
-template <int BN, int BK, bool RAW, bool WANT_MAX, bool REFLECT>
-__global__ void __launch_bounds__(CONV_THREADS)
-conv3x3_s8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wk,
-                  const float* __restrict__ xs, const float* __restrict__ ws,
-                  const float* __restrict__ bias, int32_t* __restrict__ acc_out,
-                  float* __restrict__ f, float* __restrict__ st_sum,
-                  float* __restrict__ st_sq, float* __restrict__ st_max, int H,
-                  int W, int Cin, int Cout, int dil) {
+// cp.async, mma.sync.m16n8k32 s8 -> s32. A K-stage lies inside one tap and
+// one group, so cg % BK == 0; Cout % BN == 0; (H*W) % BM == 0 (a block's
+// rows lie in one image). The host launcher checks all three.
+template <int BN, int BK, int KK, int EPI, bool WANT_MAX, bool REFLECT, typename TO>
+__global__ void __launch_bounds__(CONV_THREADS) conv_s8_kernel(const ConvArgs a) {
   constexpr int SROW = BK + 16;  // smem row stride (bytes): conflict-free
                                  // 32-bit fragment loads, 16-byte aligned
   constexpr int CPR = BK / 16;   // 16-byte chunks per smem row
@@ -240,13 +286,21 @@ conv3x3_s8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wk,
   constexpr int B_ITERS = (B_CHUNKS + CONV_THREADS - 1) / CONV_THREADS;
   constexpr int WN = BN / 4;     // columns per warp
   constexpr int NI = WN / 8;     // n fragments per warp
+  constexpr bool GROUPED = EPI == EPI_GSTATS || EPI == EPI_GRELU;
   __shared__ __align__(16) int8_t As[2][BM * SROW];
   __shared__ __align__(16) int8_t Bs[2][BN * SROW];
   __shared__ float red[2][3][BN];
 
+  const int H = a.h, W = a.w, Cin = a.cin, Cout = a.cout;
   const int HW = H * W;
-  const int K = 9 * Cin;
+  const long K = static_cast<long>(KK) * KK * Cin;
+  const int cg = Cin / a.groups;
+  const int CPG = cg / BK;          // K-stages per tap of one group
+  const int SPG = KK * KK * CPG;    // K-stages per group
+  const int KT = a.groups * SPG;
+  const long M = static_cast<long>(a.n) * HW;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int img = m0 / HW;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp >> 2, wn = warp & 3;
   const int g = lane >> 2, t = lane & 3;
@@ -265,10 +319,11 @@ conv3x3_s8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wk,
   }
 
   auto load_stage = [&](int kt, int buf) {
-    const int k0 = kt * BK;
-    const int tap = k0 / Cin;
-    const int cin0 = k0 - tap * Cin;
-    const int dy = (tap / 3 - 1) * dil, dx = (tap % 3 - 1) * dil;
+    const int grp = kt / SPG;
+    const int r = kt - grp * SPG;
+    const int tap = r / CPG;
+    const int cin0 = grp * cg + (r - tap * CPG) * BK;
+    const int dy = (tap / KK - KK / 2) * a.dil, dx = (tap % KK - KK / 2) * a.dil;
 #pragma unroll
     for (int i = 0; i < A_ITERS; ++i) {
       int yy = a_y[i] + dy, xx = a_x[i] + dx;
@@ -280,8 +335,8 @@ conv3x3_s8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wk,
         in = yy >= 0 && yy < H && xx >= 0 && xx < W;
       }
       const int8_t* s =
-          in ? xq + ((static_cast<long>(a_img[i]) * H + yy) * W + xx) * Cin + cin0 + a_col[i]
-             : xq;
+          in ? a.xq + ((static_cast<long>(a_img[i]) * H + yy) * W + xx) * Cin + cin0 + a_col[i]
+             : a.xq;
       cp_async16(&As[buf][a_row[i] * SROW + a_col[i]], s, in ? 16 : 0);
     }
 #pragma unroll
@@ -290,21 +345,27 @@ conv3x3_s8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wk,
       if (id < B_CHUNKS) {
         const int row = id / CPR, col = (id % CPR) * 16;
         cp_async16(&Bs[buf][row * SROW + col],
-                   wk + static_cast<long>(n0 + row) * K + k0 + col);
+                   a.wk + static_cast<long>(n0 + row) * K + static_cast<long>(tap) * Cin +
+                       cin0 + col);
       }
     }
     cp_async_commit();
   };
 
+  // Fragment (mi, ni, r): row = wm*64 + mi*16 + g + 8*(r >> 1),
+  // col = wn*WN + ni*8 + 2*t + (r & 1).
   int acc[4][NI][4];
+  float fv[4][NI][4];  // the group sum, then the epilogue's values
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < NI; ++j)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
+      for (int r = 0; r < 4; ++r) {
+        acc[i][j][r] = 0;
+        fv[i][j][r] = 0.f;
+      }
 
-  const int KT = K / BK;
   load_stage(0, 0);
   for (int kt = 0; kt < KT; ++kt) {
     const int buf = kt & 1;
@@ -342,35 +403,45 @@ conv3x3_s8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wk,
                  bf[ni][0], bf[ni][1]);
     }
     __syncthreads();
-  }
-
-  // Epilogue. Fragment (mi, ni, r): row = wm*64 + mi*16 + g + 8*(r >> 1),
-  // col = wn*WN + ni*8 + 2*t + (r & 1).
-  if (RAW) {
+    if ((EPI == EPI_RAW || GROUPED) && (kt + 1) % SPG == 0) {
+      // the last K-stage of group grp: flush its exact int32 partial
+      const int grp = kt / SPG;
+      const float gsc = GROUPED ? a.gs[img * a.groups + grp] : 0.f;
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
+      for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
+        for (int ni = 0; ni < NI; ++ni) {
+          if (EPI == EPI_RAW) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const long row = m0 + wm * 64 + mi * 16 + g + 8 * h;
-          const int col = n0 + wn * WN + ni * 8 + 2 * t;
-          *reinterpret_cast<int2*>(acc_out + row * Cout + col) =
-              make_int2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+            for (int h = 0; h < 2; ++h) {
+              const long row = m0 + wm * 64 + mi * 16 + g + 8 * h;
+              const int col = n0 + wn * WN + ni * 8 + 2 * t;
+              *reinterpret_cast<int2*>(a.acc_out + (grp * M + row) * Cout + col) =
+                  make_int2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+            }
+          } else {
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              fv[mi][ni][r] = __fadd_rn(
+                  fv[mi][ni][r], __fmul_rn(static_cast<float>(acc[mi][ni][r]), gsc));
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
         }
-    return;
+    }
   }
+  if (EPI == EPI_RAW) return;
 
-  const int img = m0 / HW;
-  const float xsc = xs[img];
+  // Epilogue: the dequantized value of each fragment element into fv.
+  const float xsc = EPI == EPI_STATS ? a.xs[img] : 0.f;
   float s[NI][2], sq[NI][2], mx[NI][2];
 #pragma unroll
   for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int col = n0 + wn * WN + ni * 8 + 2 * t + j;
-      const float scale = __fmul_rn(xsc, ws[col]);
-      const float b = bias[col];
+      const float scale = EPI == EPI_STATS ? __fmul_rn(xsc, a.ws[col]) : a.ws[col];
+      const float b = a.bias[col];
       s[ni][j] = 0.f;
       sq[ni][j] = 0.f;
       mx[ni][j] = -INFINITY;
@@ -378,9 +449,11 @@ conv3x3_s8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wk,
       for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const float v =
-              __fadd_rn(__fmul_rn(static_cast<float>(acc[mi][ni][2 * h + j]), scale), b);
-          acc[mi][ni][2 * h + j] = __float_as_int(v);  // keep v for the store
+          const float in = EPI == EPI_STATS ? static_cast<float>(acc[mi][ni][2 * h + j])
+                                            : fv[mi][ni][2 * h + j];
+          float v = __fadd_rn(__fmul_rn(in, scale), b);
+          if (EPI == EPI_GRELU) v = fmaxf(v, 0.f);
+          fv[mi][ni][2 * h + j] = v;
           s[ni][j] = __fadd_rn(s[ni][j], v);
           sq[ni][j] = __fadd_rn(sq[ni][j], __fmul_rn(v, v));
           mx[ni][j] = fmaxf(mx[ni][j], v);
@@ -394,10 +467,13 @@ conv3x3_s8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wk,
       for (int h = 0; h < 2; ++h) {
         const long row = m0 + wm * 64 + mi * 16 + g + 8 * h;
         const int col = n0 + wn * WN + ni * 8 + 2 * t;
-        *reinterpret_cast<float2*>(f + row * Cout + col) =
-            make_float2(__int_as_float(acc[mi][ni][2 * h]),
-                        __int_as_float(acc[mi][ni][2 * h + 1]));
+        if (EPI == EPI_GRELU && !WANT_MAX)
+          store2(static_cast<TO*>(a.out) + row * Cout + col, fv[mi][ni][2 * h],
+                 fv[mi][ni][2 * h + 1]);
+        else
+          store2(a.f + row * Cout + col, fv[mi][ni][2 * h], fv[mi][ni][2 * h + 1]);
       }
+  if (EPI == EPI_GRELU && !WANT_MAX) return;
   // Reduce over the 8 row groups of the warp (lane bits 2..4) ...
 #pragma unroll
   for (int ni = 0; ni < NI; ++ni)
@@ -423,45 +499,46 @@ conv3x3_s8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wk,
   }
   __syncthreads();
   if (tid < BN) {
+    const float m = fmaxf(red[0][2][tid], red[1][2][tid]);
+    if (EPI == EPI_GRELU) {
+      // m >= 0 after the ReLU: its bits order like ints
+      const int col = n0 + tid;
+      atomicMax(reinterpret_cast<int*>(a.st_max + static_cast<long>(img) * (Cout / a.ct) +
+                                       col / a.ct),
+                __float_as_int(m));
+      return;
+    }
     const long o = static_cast<long>(img) * Cout + n0 + tid;
-    atomicAdd(st_sum + o, __fadd_rn(red[0][0][tid], red[1][0][tid]));
-    atomicAdd(st_sq + o, __fadd_rn(red[0][1][tid], red[1][1][tid]));
-    if (WANT_MAX) atomic_max_float(st_max + o, fmaxf(red[0][2][tid], red[1][2][tid]));
+    atomicAdd(a.st_sum + o, __fadd_rn(red[0][0][tid], red[1][0][tid]));
+    atomicAdd(a.st_sq + o, __fadd_rn(red[0][1][tid], red[1][1][tid]));
+    if (WANT_MAX) atomic_max_float(a.st_max + o, m);
   }
 }
-
-// One conv launch. Its operands; the statistics pointers are unused when
-// RAW, acc_out unused otherwise.
-struct ConvArgs {
-  const int8_t* xq;
-  const int8_t* wk;
-  const float* xs;
-  const float* ws;
-  const float* bias;
-  int32_t* acc_out;
-  float* f;
-  float* st_sum;
-  float* st_sq;
-  float* st_max;
-  int n, h, w, cin, cout, dil;
-};
 
 bool conv_shape_ok(int n, int h, int w, int cin, int cout) {
   return n > 0 && h >= 2 && w >= 2 && cin % 32 == 0 && cout % 64 == 0 &&
          (h * w) % BM == 0;
 }
 
-// Picks the tile: BK 64 where Cin allows it, else 32; BN 128 where Cout
-// allows it, else 64.
-template <bool RAW, bool WANT_MAX, bool REFLECT>
-void launch_conv(const ConvArgs& a, cudaStream_t st) {
-  const bool bk64 = a.cin % 64 == 0, bn128 = a.cout % 128 == 0;
-  const dim3 grid(static_cast<unsigned>(static_cast<long>(a.n) * a.h * a.w / BM),
-                  a.cout / (bn128 ? 128 : 64));
+// The widest tiles only (BN 128, BK 64): the grouped entries (K7, K8)
+// take cin / groups % 64 == 0 and Cout % 128 == 0, and instantiate nothing
+// else.
+bool wide_shape_ok(int n, int h, int w, int cin, int cout, int groups) {
+  return groups > 0 && cin % groups == 0 && (cin / groups) % 64 == 0 &&
+         cout % 128 == 0 && conv_shape_ok(n, h, w, cin, cout);
+}
+
 #define CISTAR_CONV(BN_, BK_)                                                    \
-  conv3x3_s8_kernel<BN_, BK_, RAW, WANT_MAX, REFLECT><<<grid, CONV_THREADS, 0, st>>>( \
-      a.xq, a.wk, a.xs, a.ws, a.bias, a.acc_out, a.f, a.st_sum, a.st_sq,         \
-      a.st_max, a.h, a.w, a.cin, a.cout, a.dil)
+  conv_s8_kernel<BN_, BK_, KK, EPI, WANT_MAX, REFLECT, TO>                     \
+      <<<dim3(static_cast<unsigned>(static_cast<long>(a.n) * a.h * a.w / BM),   \
+              a.cout / BN_),                                                     \
+         CONV_THREADS, 0, st>>>(a)
+
+// Picks the tile: BK 64 where the group width allows it, else 32; BN 128
+// where Cout allows it, else 64.
+template <int EPI, bool WANT_MAX, bool REFLECT, int KK = 3, typename TO = float>
+void launch_conv(const ConvArgs& a, cudaStream_t st) {
+  const bool bk64 = (a.cin / a.groups) % 64 == 0, bn128 = a.cout % 128 == 0;
   if (bk64 && bn128)
     CISTAR_CONV(128, 64);
   else if (bk64)
@@ -470,12 +547,19 @@ void launch_conv(const ConvArgs& a, cudaStream_t st) {
     CISTAR_CONV(128, 32);
   else
     CISTAR_CONV(64, 32);
-#undef CISTAR_CONV
 }
 
+// BN 128, BK 64 only (wide_shape_ok).
+template <int EPI, bool WANT_MAX, bool REFLECT, int KK = 3, typename TO = float>
+void launch_conv_wide(const ConvArgs& a, cudaStream_t st) {
+  CISTAR_CONV(128, 64);
+}
+#undef CISTAR_CONV
+
 // IN finalize, one block per row of the (rows, C) statistics (a row is one
-// image, or one (branch, image) pair): mean and rsigma per channel; with
-// WANT_RMAX also the requantization scale of relu(IN(f)) from max f (K1).
+// image, one (branch, image) pair, or one (image, tile of C channels) of a
+// wider image): mean and rsigma per channel; with WANT_RMAX also the
+// requantization scale of relu(IN(f)) of the row from max f (K1, K7a).
 template <bool WANT_RMAX>
 __global__ void in_stats_kernel(const float* __restrict__ st_sum,
                                 const float* __restrict__ st_sq,
@@ -510,7 +594,30 @@ __global__ void in_stats_kernel(const float* __restrict__ st_sum,
   }
 }
 
-// out = (f - mean) * rsigma + skip, skip = float(x) (K1, K5) or
+// rq = clip(rint(relu((f - mean) * rsigma) * rinv), -127, 127), rinv per
+// (image, tile of ct channels): ct = C for one scale per image (K1), a
+// divisor of C for per-tile scales (K7a).
+__global__ void in_relu_quant_kernel(const float* __restrict__ f, long per_image,
+                                     int C, int ct, const float* __restrict__ mean,
+                                     const float* __restrict__ rsig,
+                                     const float* __restrict__ rinv,
+                                     int8_t* __restrict__ q) {
+  const int n = blockIdx.y;
+  const long e = (static_cast<long>(blockIdx.x) * EW_THREADS + threadIdx.x) * EW_VEC;
+  if (e >= per_image) return;
+  const int c0 = static_cast<int>(e % C);
+  const float inv = rinv[n * (C / ct) + c0 / ct];
+  const float* mu = mean + static_cast<long>(n) * C + c0;
+  const float* rs = rsig + static_cast<long>(n) * C + c0;
+  float v[EW_VEC];
+  load8<float>(f + n * per_image + e, v);
+#pragma unroll
+  for (int i = 0; i < EW_VEC; ++i)
+    v[i] = __fmul_rn(fmaxf(__fmul_rn(__fsub_rn(v[i], mu[i]), rs[i]), 0.f), inv);
+  store8_s8(q + n * per_image + e, v);
+}
+
+// out = (f - mean) * rsigma + skip, skip = float(x) (K1, K5, K7b) or
 // float(xq) * xscale[n] (K2, TS = int8). K2 writes fp32 hnew in place of f
 // and adds its per-image absmax to amax.
 template <typename TS, typename TO, bool ABSMAX>

@@ -17,12 +17,12 @@
 // shape (B, 32, 32, 512)) and does every reduction inside one grid step.
 // A Hopper block has at most 227 KB of shared memory and blocks run in
 // parallel in no order, so the block is split into launches on one stream
-// (all but in_relu_quant_kernel live in int8_common.cuh, shared with K5/K6):
+// (all in int8_common.cuh, shared with K5-K8):
 //
 //   absmax_kernel        per-image max |x| (atomicMax on the float bits,
 //                        valid because |x| >= 0)
 //   quant_kernel         x * (127 / amax) -> rint -> clip -> int8
-//   conv3x3_s8_kernel    implicit GEMM, M = N*H*W pixels, N = Cout,
+//   conv_s8_kernel       implicit GEMM, M = N*H*W pixels, N = Cout,
 //                        K = 9*Cin, tensor cores through
 //                        mma.sync.m16n8k32.s32.s8.s8.s32. The loader
 //                        computes the reflect index itself: no padded copy.
@@ -60,27 +60,6 @@
 #include "int8_common.cuh"
 
 namespace {
-
-// rq = clip(rint(relu((f - mean) * rsigma) * rinv), -127, 127)
-__global__ void in_relu_quant_kernel(const float* __restrict__ f, long per_image,
-                                     int C, const float* __restrict__ mean,
-                                     const float* __restrict__ rsig,
-                                     const float* __restrict__ rinv,
-                                     int8_t* __restrict__ q) {
-  const int n = blockIdx.y;
-  const long e = (static_cast<long>(blockIdx.x) * EW_THREADS + threadIdx.x) * EW_VEC;
-  if (e >= per_image) return;
-  const int c0 = static_cast<int>(e % C);
-  const float inv = rinv[n];
-  const float* mu = mean + static_cast<long>(n) * C + c0;
-  const float* rs = rsig + static_cast<long>(n) * C + c0;
-  float v[EW_VEC];
-  load8<float>(f + n * per_image + e, v);
-#pragma unroll
-  for (int i = 0; i < EW_VEC; ++i)
-    v[i] = __fmul_rn(fmaxf(__fmul_rn(__fsub_rn(v[i], mu[i]), rs[i]), 0.f), inv);
-  store8_s8(q + n * per_image + e, v);
-}
 
 // ---------------------------------------------------------------------------
 // Workspace layout, shared by both blocks (sizes in bytes, 256-aligned).
@@ -134,7 +113,7 @@ void conv_stats(const Workspace& ws, const int8_t* q, const int8_t* wk,
   const size_t nc = static_cast<size_t>(n) * c;
   cudaMemsetAsync(ws.st_sum, 0, 2 * nc * 4, st);
   if (WANT_MAX) cudaMemsetAsync(ws.st_max, 0xFF, nc * 4, st);
-  launch_conv<false, WANT_MAX, true>(
+  launch_conv<EPI_STATS, WANT_MAX, true>(
       ConvArgs{q, wk, xs, wscale, bias, nullptr, ws.f, ws.st_sum, ws.st_sq,
                ws.st_max, n, h, w, c, c, 1},
       st);
@@ -152,7 +131,7 @@ void block_body(const Workspace& ws, const int8_t* xq, const float* xs,
                                                   hw, eps, ws.mean, ws.rsig,
                                                   ws.rinv, ws.rscale);
   in_relu_quant_kernel<<<ew_grid(per_image, n), EW_THREADS, 0, st>>>(
-      ws.f, per_image, c, ws.mean, ws.rsig, ws.rinv, ws.q);
+      ws.f, per_image, c, c, ws.mean, ws.rsig, ws.rinv, ws.q);
   conv_stats<false>(ws, ws.q, w2k, ws.rscale, sb + 2 * c, sb + 3 * c, n, h, w, c, st);
   in_stats_kernel<false><<<n, EW_THREADS, 0, st>>>(ws.st_sum, ws.st_sq, nullptr, c,
                                                    hw, eps, ws.mean, ws.rsig,
@@ -190,7 +169,7 @@ size_t cistar_resblock_workspace_bytes(int n, int h, int w, int c) {
 int cistar_conv3x3_reflect_s8_acc(const void* xq, const void* wk, void* acc,
                                   int n, int h, int w, int c, void* stream) {
   if (!shape_ok(n, h, w, c)) return static_cast<int>(cudaErrorInvalidValue);
-  launch_conv<true, false, true>(
+  launch_conv<EPI_RAW, false, true>(
       ConvArgs{static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wk),
                nullptr, nullptr, nullptr, static_cast<int32_t*>(acc), nullptr,
                nullptr, nullptr, nullptr, n, h, w, c, c, 1},

@@ -1,0 +1,206 @@
+// Cout-tiled int8 residual block for Hopper (sm_90a): K7a and K7b of the
+// port, the two kernels of the pix2pixHD GlobalGenerator's int8 trunk at
+// its default width (1024 channels at 32x32 for a 512² input).
+//
+// Replaces the TPU kernels
+//   K7a cistar_tpu/ops/quant_pallas.py::_resblock_a_kernel
+//   K7b cistar_tpu/ops/quant_pallas.py::_resblock_b_kernel
+// both launched by _run_resblock_int8_tiled.
+//
+// K7a, per image: quantize the carrier (one absmax per image; quantize_act,
+//   which JAX runs in XLA before the kernel) -> reflect-pad-1 3x3 conv 1
+//   over all of Cin, int8 x int8 -> int32 -> dequantize (x_scale * w_scale)
+//   + bias -> IN -> ReLU -> int8 with one scale per (image, tile of ct
+//   output channels).
+// K7b, per image: reflect-pad-1 3x3 conv 2 whose K loop runs group by group
+//   (group g = K7a's tile g of ct input channels): the exact int32 partial
+//   of each group times that group's tile scale, summed in fp32 in group
+//   order -> * w_scale + bias -> IN -> + full-precision skip.
+//
+// Design. On the TPU a (batch, tile) grid keeps the whole image in VMEM
+// and streams one weight tile per step. Here each kernel is a short
+// sequence of launches built from int8_common.cuh:
+//   K7a: absmax_kernel, quant_kernel -> conv_s8_kernel (EPI_STATS: f, and
+//        each (image, channel)'s sum, sum of squares and max f) ->
+//        in_stats_kernel over (image, tile) rows, which gives mean, rsigma
+//        and the tile's requantization scale without a pass over f (IN
+//        then ReLU is monotone per channel, so max relu(IN f) over a tile
+//        is max_c relu((max f_c - mean_c) * rsigma_c), exactly, K1's rule
+//        per tile) -> in_relu_quant_kernel with the tile's scale.
+//   K7b: conv_s8_kernel (EPI_GSTATS: the grouped K loop, its fp32 group
+//        sum and the IN statistics) -> in_stats_kernel ->
+//        in_skip_out_kernel.
+// The numerical tile ct sets only the absmax groups and the scales; the
+// CUDA tiles (128 couts x 64 of K per stage) are independent of it.
+//
+// What bounds it. At (16, 32, 32, 1024) each kernel does one conv: 16 x
+// 1024 px x 9 x 1024 x 1024 MACs = 3.09e11 int8 operations, 0.156 ms at
+// 1,979 dense int8 TOPS, against 34 MB of bf16 carrier, 17 MB of int8 and
+// 9.4 MB of weights (under 0.03 ms at 3.35 TB/s): operation-bound. This
+// first version runs K1's mma.sync GEMM and sends fp32 f through device
+// memory; wgmma/TMA and keeping f on chip are work for a later change.
+//
+// Numerics: the rules of int8_common.cuh. The IN statistics are summed
+// with atomics in a changing order, so a requantized LSB of K7a can flip
+// against the plain version, and K7b's output moves by its effect. The
+// int32 accumulators of conv 1 and of every group of conv 2
+// (cistar_conv3x3_reflect_grouped_s8_acc) are compared bit for bit.
+//
+// Interface: plain C, loaded with ctypes. Every entry returns
+// cudaGetLastError() as an int. Nothing here allocates: the caller passes a
+// workspace of cistar_tiled_workspace_bytes() bytes.
+
+#include "int8_common.cuh"
+
+namespace {
+
+struct TiledWs {
+  int8_t* q;       // M*C int8: the quantized block input (K7a)
+  float* f;        // M*C fp32: conv output
+  float* st_sum;   // N*C, followed by
+  float* st_sq;    // N*C and
+  float* st_max;   // N*C (one memset clears the first two)
+  float* mean;     // N*C
+  float* rsig;     // N*C
+  float* amax;     // N: absmax of the block input
+  float* xscale;   // N: its quantization scale
+  float* rinv;     // N*t: 127 / rmax of each (image, tile)
+};
+
+size_t tiled_layout(long n, long hw, long c, char* base, TiledWs* w) {
+  const size_t mc = static_cast<size_t>(n * hw * c), nc = static_cast<size_t>(n * c);
+  Carver cv{base};
+  TiledWs ws;
+  ws.q = cv.take<int8_t>(mc);
+  ws.f = cv.take<float>(mc * 4);
+  ws.st_sum = cv.take<float>(3 * nc * 4);
+  ws.st_sq = ws.st_sum ? ws.st_sum + nc : nullptr;
+  ws.st_max = ws.st_sum ? ws.st_sum + 2 * nc : nullptr;
+  ws.mean = cv.take<float>(nc * 4);
+  ws.rsig = cv.take<float>(nc * 4);
+  ws.amax = cv.take<float>(n * 4);
+  ws.xscale = cv.take<float>(n * 4);
+  ws.rinv = cv.take<float>(nc * 4);  // N*t <= N*C
+  if (w != nullptr) *w = ws;
+  return cv.off;
+}
+
+bool tiled_shape_ok(int n, int h, int w, int c, int ct) {
+  return ct > 0 && c % ct == 0 && ct % 8 == 0 && c / ct <= EW_THREADS &&
+         wide_shape_ok(n, h, w, c, c, c / ct);
+}
+
+template <typename T>
+int tiled_a(const T* x, const int8_t* w1k, const float* sb, int8_t* rq, float* rs,
+            void* workspace, int n, int h, int w, int c, int ct, float eps,
+            cudaStream_t st) {
+  TiledWs ws;
+  tiled_layout(n, static_cast<long>(h) * w, c, static_cast<char*>(workspace), &ws);
+  const long per_image = static_cast<long>(h) * w * c;
+  const size_t nc = static_cast<size_t>(n) * c;
+  cudaMemsetAsync(ws.amax, 0, n * 4, st);
+  absmax_kernel<T><<<dim3(16, n), EW_THREADS, 0, st>>>(x, per_image, dense(per_image),
+                                                       ws.amax);
+  quant_kernel<T><<<ew_grid(per_image, n), EW_THREADS, 0, st>>>(
+      x, per_image, dense(per_image), ws.amax, ws.q, ws.xscale);
+  cudaMemsetAsync(ws.st_sum, 0, 2 * nc * 4, st);
+  cudaMemsetAsync(ws.st_max, 0xFF, nc * 4, st);
+  launch_conv_wide<EPI_STATS, true, true>(
+      ConvArgs{ws.q, w1k, ws.xscale, sb, sb + c, nullptr, ws.f, ws.st_sum, ws.st_sq,
+               ws.st_max, n, h, w, c, c, 1},
+      st);
+  // one row of statistics per (image, tile): C = ct
+  in_stats_kernel<true><<<n * (c / ct), EW_THREADS, 0, st>>>(
+      ws.st_sum, ws.st_sq, ws.st_max, ct, static_cast<float>(h * w), eps, ws.mean,
+      ws.rsig, ws.rinv, rs);
+  in_relu_quant_kernel<<<ew_grid(per_image, n), EW_THREADS, 0, st>>>(
+      ws.f, per_image, c, ct, ws.mean, ws.rsig, ws.rinv, rq);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int tiled_b(const int8_t* rq, const float* rs, const int8_t* w2k, const float* sb,
+            const T* x, T* out, void* workspace, int n, int h, int w, int c, int ct,
+            float eps, cudaStream_t st) {
+  TiledWs ws;
+  tiled_layout(n, static_cast<long>(h) * w, c, static_cast<char*>(workspace), &ws);
+  const long per_image = static_cast<long>(h) * w * c;
+  const size_t nc = static_cast<size_t>(n) * c;
+  cudaMemsetAsync(ws.st_sum, 0, 2 * nc * 4, st);
+  ConvArgs a{rq, w2k, nullptr, sb + 2 * c, sb + 3 * c, nullptr, ws.f, ws.st_sum,
+             ws.st_sq, nullptr, n, h, w, c, c, 1};
+  a.gs = rs;
+  a.groups = c / ct;
+  launch_conv_wide<EPI_GSTATS, false, true>(a, st);
+  in_stats_kernel<false><<<n, EW_THREADS, 0, st>>>(ws.st_sum, ws.st_sq, nullptr, c,
+                                                   static_cast<float>(h * w), eps,
+                                                   ws.mean, ws.rsig, nullptr, nullptr);
+  in_skip_out_kernel<T, T, false><<<ew_grid(per_image, n), EW_THREADS, 0, st>>>(
+      ws.f, per_image, c, ws.mean, ws.rsig, x, nullptr, out, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+size_t cistar_tiled_workspace_bytes(int n, int h, int w, int c) {
+  return tiled_layout(n, static_cast<long>(h) * w, c, nullptr, nullptr);
+}
+
+// int32 accumulators of the reflect-pad-1 3x3 conv, per input group: xq
+// (N,H,W,C) int8, wk (C, 9*C) int8 -> acc (groups, N,H,W,C) int32, group g
+// summing input channels [g*C/groups, (g+1)*C/groups).
+int cistar_conv3x3_reflect_grouped_s8_acc(const void* xq, const void* wk, void* acc,
+                                          int n, int h, int w, int c, int groups,
+                                          void* stream) {
+  if (!wide_shape_ok(n, h, w, c, c, groups))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ConvArgs a{static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wk),
+             nullptr, nullptr, nullptr, static_cast<int32_t*>(acc), nullptr,
+             nullptr, nullptr, nullptr, n, h, w, c, c, 1};
+  a.groups = groups;
+  launch_conv_wide<EPI_RAW, false, true>(a, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7a: x (N,H,W,C) bf16 (is_bf16 = 1) or fp32; w1k (C, 9*C) int8; sb (4, C)
+// fp32 rows [w1_scale, b1, w2_scale, b2] -> rq (N,H,W,C) int8 and rs
+// (N, C/ct) fp32, the scale of each (image, tile).
+int cistar_resblock_tiled_a(const void* x, int is_bf16, const void* w1k,
+                            const void* sb, void* rq, void* rs, void* workspace,
+                            int n, int h, int w, int c, int ct, float eps,
+                            void* stream) {
+  if (!tiled_shape_ok(n, h, w, c, ct)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* wk = static_cast<const int8_t*>(w1k);
+  const float* s = static_cast<const float*>(sb);
+  int8_t* q = static_cast<int8_t*>(rq);
+  float* r = static_cast<float*>(rs);
+  if (is_bf16)
+    return tiled_a(static_cast<const __nv_bfloat16*>(x), wk, s, q, r, workspace, n, h,
+                   w, c, ct, eps, st);
+  return tiled_a(static_cast<const float*>(x), wk, s, q, r, workspace, n, h, w, c, ct,
+                 eps, st);
+}
+
+// K7b: rq, rs from K7a; w2k (C, 9*C) int8; sb as K7a; x the block input
+// (the skip) -> out (N,H,W,C), both bf16 (is_bf16 = 1) or fp32.
+int cistar_resblock_tiled_b(const void* rq, const void* rs, const void* w2k,
+                            const void* sb, const void* x, int is_bf16, void* out,
+                            void* workspace, int n, int h, int w, int c, int ct,
+                            float eps, void* stream) {
+  if (!tiled_shape_ok(n, h, w, c, ct)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* q = static_cast<const int8_t*>(rq);
+  const float* r = static_cast<const float*>(rs);
+  const int8_t* wk = static_cast<const int8_t*>(w2k);
+  const float* s = static_cast<const float*>(sb);
+  if (is_bf16)
+    return tiled_b(q, r, wk, s, static_cast<const __nv_bfloat16*>(x),
+                   static_cast<__nv_bfloat16*>(out), workspace, n, h, w, c, ct, eps, st);
+  return tiled_b(q, r, wk, s, static_cast<const float*>(x), static_cast<float*>(out),
+                 workspace, n, h, w, c, ct, eps, st);
+}
+
+}  // extern "C"

@@ -1,5 +1,5 @@
-"""Int8-trunk inference forwards of the CycleGAN generators (counterpart of
-``cistar_tpu/models/fast_infer.py``).
+"""Int8-trunk inference forwards of the CycleGAN and pix2pixHD generators
+(counterpart of ``cistar_tpu/models/fast_infer.py``).
 
   * :func:`resnet_generator_int8_trunk_apply` (ResNet, 'p2p*'): the stem,
     the three down convs and the three transpose convs run in the input's
@@ -12,7 +12,17 @@
     upsample + conv is one low-resolution conv per stage.
 
 Both end in the head conv with the last stage's IN+ReLU inside it
-(:mod:`cistar_tpu_torch.ops.head_conv`). The kernels are those of
+(:mod:`cistar_tpu_torch.ops.head_conv`).
+
+  * :func:`global_generator_int8_trunk_apply` (pix2pixHD
+    ``GlobalGenerator``): the resnet trunk runs through K1 where the JAX
+    engine's rule (``whole_image_resblock_fits``) takes the whole-image
+    chain, else through K7 (the 1024-channel trunk of the default width);
+  * :func:`unet_msrb_int8_apply` (``UNetGeneratorHD``): the MSRB blocks
+    run through K8.
+
+Both take their 7×7 stem and head through ``conv2d_reflect_thin``, and
+the rest in the input's dtype. The kernels are those of
 :mod:`cistar_tpu_torch.ops.quant_int8`.
 
 There is no ``expect_kernel`` flag: the kernel path is structural. A CUDA
@@ -31,11 +41,15 @@ from cistar_tpu_torch.ops.head_conv import head_conv_tanh_prenorm
 from cistar_tpu_torch.ops.quant_int8 import (QBlock,
                                              atrous_resblock_chain_int8,
                                              atrous_stage_fits,
+                                             msrb_block_int8,
                                              multi_atrous_stage_int8,
                                              quantize_atrous_resblock,
+                                             quantize_msrb,
                                              quantize_multi_atrous_stage,
                                              resblock_chain_int8,
-                                             resblock_chain_int8_bf16io)
+                                             resblock_chain_int8_bf16io,
+                                             resblock_chain_int8_tiled,
+                                             whole_image_resblock_fits)
 
 
 def _stage_in_relu(h: torch.Tensor) -> torch.Tensor:
@@ -149,3 +163,87 @@ def bilinear_decode(gen, h: torch.Tensor, skips: Sequence[torch.Tensor]
         if i < len(gen.up) - 1:
             h = _stage_in_relu(h)
     return _head(gen, h)
+
+
+# --------------------------------------------------------------------------- #
+# pix2pixHD: GlobalGenerator ('global') and UNetGeneratorHD ('UNet')
+# --------------------------------------------------------------------------- #
+def _thin(conv, x: torch.Tensor) -> torch.Tensor:
+    return tnn.conv2d_reflect_thin(x, conv.weight, conv.bias)
+
+
+def global_encode(gen, x: torch.Tensor) -> torch.Tensor:
+    """The stem (``conv2d_reflect_thin``) and the downs, each with IN+ReLU:
+    the trunk's input."""
+    h = _stage_in_relu(_thin(gen.trunk.stem.conv, x))
+    for m in gen.trunk.down:
+        h = m(h)
+    return h
+
+
+def global_trunk_int8(h: torch.Tensor, qblocks: Sequence[QBlock],
+                      cout_tile: Optional[int] = None) -> torch.Tensor:
+    """The resnet trunk in int8: the whole-image chain (K1) where
+    ``whole_image_resblock_fits``, else the cout-tiled chain (K7)."""
+    if whole_image_resblock_fits(h.shape[1], h.shape[2], h.shape[3]):
+        return resblock_chain_int8_bf16io(h, qblocks)
+    return resblock_chain_int8_tiled(h, qblocks, cout_tile)
+
+
+def global_decode(gen, h: torch.Tensor) -> torch.Tensor:
+    """The ups with IN+ReLU, then the head (``conv2d_reflect_thin``) and
+    tanh."""
+    for m in gen.trunk.up:
+        h = m(h)
+    return tnn.tanh(_thin(gen.head.conv, h))
+
+
+def global_generator_int8_trunk_apply(gen, qblocks: Sequence[QBlock],
+                                      x: torch.Tensor,
+                                      cout_tile: Optional[int] = None
+                                      ) -> torch.Tensor:
+    """Forward of a port ``GlobalGenerator`` with its resnet trunk in int8
+    (``global_generator_int8_trunk_apply``). ``qblocks`` comes from
+    :func:`~cistar_tpu_torch.ops.quant_int8.quantize_global_trunk`;
+    ``cout_tile=None`` takes K7's tile as the JAX kernel path does. NHWC
+    in and out, compute dtype of ``x``."""
+    return global_decode(gen, global_trunk_int8(global_encode(gen, x),
+                                                qblocks, cout_tile))
+
+
+def quantize_unet_msrb(gen) -> List[QBlock]:
+    """Quantize the MSRB trunk of a port ``UNetGeneratorHD``
+    (``quantize_unet_msrb``)."""
+    return [quantize_msrb(m) for m in gen.msrb]
+
+
+def unet_encode(gen, x: torch.Tensor) -> List[torch.Tensor]:
+    """The stem (``conv2d_reflect_thin``) and the three downs, each with
+    IN+ReLU: the skips, the last of which is the trunk's input."""
+    h = _stage_in_relu(_thin(gen.init_block.conv, x))
+    skips = []
+    for conv in gen.down_conv:
+        h = _stage_in_relu(conv(h))
+        skips.append(h)
+    return skips
+
+
+def unet_decode(gen, h: torch.Tensor, skips: Sequence[torch.Tensor]
+                ) -> torch.Tensor:
+    """The ups on the skip concats, with IN+ReLU, then the head
+    (``conv2d_reflect_thin``) and tanh."""
+    for convt, skip in zip(gen.up_convt, reversed(skips)):
+        h = _stage_in_relu(convt(torch.cat([h, skip], dim=-1)))
+    return tnn.tanh(_thin(gen.output_layer.conv, h))
+
+
+def unet_msrb_int8_apply(gen, qblocks: Sequence[QBlock], x: torch.Tensor,
+                         cout_tile: int = 128) -> torch.Tensor:
+    """Forward of a port ``UNetGeneratorHD`` with its MSRB blocks in int8
+    (K8; ``unet_msrb_int8_apply``). ``qblocks`` comes from
+    :func:`quantize_unet_msrb`. NHWC in and out, compute dtype of ``x``."""
+    skips = unet_encode(gen, x)
+    h = skips[-1]
+    for q in qblocks:
+        h = msrb_block_int8(h, q, cout_tile)
+    return unet_decode(gen, h, skips)

@@ -109,3 +109,27 @@ class ResidualBlockAtrous(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + tnn.instance_norm(self.conv(self.atrous(x)))
+
+
+class MSRB(nn.Module):
+    """``ops/blocks.py::MSRB``, the multi-scale residual block of
+    ``p2pHD/models/networks.py:1028-1055``: 3×3 (``b00_conv``) and 5×5
+    (``b01_conv``) zero-pad branches with ReLU on the input, concatenated;
+    the same again (``b10_conv``, ``b11_conv``) on that; a 1×1 fuse
+    (``out_conv``). As in the reference, there is no residual add."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        n = features
+        self.b00_conv = Conv2d(n, n, 3, padding=1)
+        self.b01_conv = Conv2d(n, n, 5, padding=2)
+        self.b10_conv = Conv2d(2 * n, n, 3, padding=1)
+        self.b11_conv = Conv2d(2 * n, n, 5, padding=2)
+        self.out_conv = Conv2d(2 * n, n, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cat1 = torch.cat([tnn.relu(self.b00_conv(x)),
+                          tnn.relu(self.b01_conv(x))], dim=-1)
+        cat2 = torch.cat([tnn.relu(self.b10_conv(cat1)),
+                          tnn.relu(self.b11_conv(cat1))], dim=-1)
+        return self.out_conv(cat2)

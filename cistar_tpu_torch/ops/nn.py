@@ -52,6 +52,44 @@ def conv2d_reflect(x: torch.Tensor, w: torch.Tensor,
     return _add_bias(_nhwc(out), b)
 
 
+def conv2d_reflect_thin(x: torch.Tensor, w: torch.Tensor,
+                        b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Reflect-pad conv for one-channel ends, the c7s1 stem of a grayscale
+    input and the one-channel head (``ops/nn.py::conv2d_reflect_thin``),
+    with the JAX version's arithmetic, OIHW ``w``:
+
+      * Cout = 1: one (C → k²) matmul, then the k² shifted maps added in
+        ``x.dtype``, in tap order, from zeros (in bf16, one rounding per
+        tap);
+      * Cin = 1: the k² shifted maps stacked, then one (k² → Cout) matmul.
+
+    Any other conv is :func:`conv2d_reflect`."""
+    k = w.shape[-1]
+    if w.shape[-2] != k or k % 2 == 0 or k < 3:
+        return conv2d_reflect(x, w, b)
+    p = k // 2
+    n, h, wd = x.shape[:3]
+    cout, cin = w.shape[:2]
+    if cout == 1 and cin > 1:                   # head: many → 1
+        wm = w[0].reshape(cin, k * k)           # (C, k²), tap = ky·k + kx
+        z = torch.matmul(x, wm.to(x.dtype))     # (n, h, w, k²)
+        zp = _nhwc(F.pad(_nchw(z), (p, p, p, p), mode="reflect"))
+        out = torch.zeros(n, h, wd, dtype=x.dtype, device=x.device)
+        for t in range(k * k):
+            dy, dx = t // k, t % k
+            out = out + zp[:, dy:dy + h, dx:dx + wd, t]
+        out = out[..., None]
+    elif cin == 1 and cout > 1:                 # stem: 1 → many
+        xp = F.pad(x[None, ..., 0], (p, p, p, p), mode="reflect")[0]
+        cols = torch.stack([xp[:, t // k:t // k + h, t % k:t % k + wd]
+                            for t in range(k * k)], dim=-1)   # (n,h,w,k²)
+        wm = w[:, 0].reshape(cout, k * k).t()                  # (k², Cout)
+        out = torch.matmul(cols, wm.to(x.dtype))
+    else:
+        return conv2d_reflect(x, w, b)
+    return _add_bias(out, b)
+
+
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
                      b: Optional[torch.Tensor] = None, stride: int = 1,
                      padding: int = 0, output_padding: int = 0

@@ -15,14 +15,23 @@ int8 convolutions:
   * K6 :func:`multi_atrous_stage_int8` (TPU kernel
     ``_multi_atrous_stage_int8_kernel``): a stride-2 ``MultiAtrousConv``
     encoder stage.
+  * K7 :func:`resblock_int8_tiled` (TPU kernels ``_resblock_a_kernel`` and
+    ``_resblock_b_kernel``): a residual block tiled over its output
+    channels, with per-(image, tile) requantization scales (pix2pixHD's
+    1024-channel GlobalGenerator trunk).
+  * K8 :func:`msrb_stage` (TPU kernel ``_msrb_branch_kernel``, once per
+    branch): one stage of an MSRB block, its 3×3 and 5×5 zero-pad branches
+    with per-input-group scales (the UNet-MSRB trunk).
 
 On a CUDA tensor each launches the hand-written kernels of
 :mod:`cistar_tpu_torch.kernels.int8_resblock` /
-:mod:`~cistar_tpu_torch.kernels.int8_atrous` (or raises); on a CPU tensor it
+:mod:`~cistar_tpu_torch.kernels.int8_atrous` /
+:mod:`~cistar_tpu_torch.kernels.int8_tiled` /
+:mod:`~cistar_tpu_torch.kernels.int8_msrb` (or raises); on a CPU tensor it
 runs the plain PyTorch version here, which mirrors the JAX emulation
 (``_resblock_int8_bf16io_emulate``, ``_resblock_int8_emulate``,
-``_atrous_resblock_int8_emulate``, ``_multi_atrous_stage_int8_emulate``) op
-for op.
+``_atrous_resblock_int8_emulate``, ``_multi_atrous_stage_int8_emulate``,
+``_resblock_int8_tiled_emulate``, ``_msrb_stage_emulate``) op for op.
 
 Numerics kept exactly as in JAX:
 
@@ -37,7 +46,7 @@ Numerics kept exactly as in JAX:
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -98,6 +107,33 @@ def quantize_resnet_trunk(gen) -> List[QBlock]:
     return [quantize_resblock(b) for b in gen.res]
 
 
+def quantize_global_trunk(gen) -> List[QBlock]:
+    """Quantize the residual blocks of a port ``GlobalGenerator``, which
+    live under ``trunk`` (``quantize_global_trunk``)."""
+    return [quantize_resblock(b) for b in gen.trunk.res]
+
+
+def quantize_msrb(blk) -> QBlock:
+    """Quantize one :class:`~cistar_tpu_torch.ops.blocks.MSRB`
+    (``quantize_msrb``): ``w3a`` (9, n, n), ``w5a`` (25, n, n), ``w3b``
+    (9, 2n, n), ``w5b`` (25, 2n, n) int8 and the stages' ``sb1`` / ``sb2``
+    rows [s3, b3, s5, b5]; ``w*k`` (n, kk²·Cin) are the CUDA conv's
+    operands. The 1×1 ``out_conv`` stays fp32: ``w1x1`` (2n, n), ``b1x1``."""
+    q: QBlock = {}
+    for stage, (c3, c5) in (("a", (blk.b00_conv, blk.b01_conv)),
+                            ("b", (blk.b10_conv, blk.b11_conv))):
+        rows = []
+        for kk, conv in ((3, c3), (5, c5)):
+            wq, s, wk = quantize_kernel_taps(conv.weight)
+            q[f"w{kk}{stage}"], q[f"w{kk}{stage}k"] = wq, wk
+            rows += [s, conv.bias.detach().float()]
+        q["sb1" if stage == "a" else "sb2"] = torch.stack(rows).contiguous()
+    w1x1 = blk.out_conv.weight.detach().float()[:, :, 0, 0]
+    q["w1x1"] = w1x1.t().contiguous()
+    q["b1x1"] = blk.out_conv.bias.detach().float()
+    return q
+
+
 def _quantize_branches(mac) -> Tuple[List[torch.Tensor], ...]:
     """Per branch of a ``MultiAtrousConv``: int8 taps, GEMM operand, and
     the [scale, bias] rows of ``sb``."""
@@ -146,6 +182,30 @@ def atrous_stage_fits(h: int, w: int, cin: int, cout: int,
         and h > 2 * max_r2 and w > 2 * max_r2
 
 
+def whole_image_resblock_fits(h: int, w: int, c: int) -> bool:
+    """The JAX engine's rule between the whole-image res-block chain (K1)
+    and the cout-tiled one (K7) (``whole_image_resblock_fits``): whether
+    the whole-image TPU kernel fits a TPU v5e's VMEM. The two chains give
+    different numbers (one requantization scale per image, or per tile),
+    so the port routes the same way."""
+    return (h * w * c * 14 + 2 * 9 * c * c + 16 * c
+            <= 13 * 1024 * 1024 and h >= 3 and w >= 3)
+
+
+def pick_cout_tile(hw: int, c: int, budget: int = 12 * 1024 * 1024) -> int:
+    """The JAX kernel path's cout tile (``pick_cout_tile``): the largest of
+    512/256/128/64 that divides C and whose TPU kernel-B working set fits
+    ``budget``. The tile sets the requantization groups, so it is a
+    numerical parameter; raises ValueError where no tile fits."""
+    for ct in (512, 256, 128, 64):
+        if ct <= c and c % ct == 0 \
+                and 2.2 * hw * c + 9 * c * ct + 12 * hw * ct <= budget:
+            return ct
+    raise ValueError(
+        f"no cout tile in (512,256,128,64) both divides C={c} and fits the "
+        f"VMEM budget ({budget} B) at hw={hw}")
+
+
 def quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-image symmetric int8: (B,H,W,C) → (int8 (B,H,W,C), (B,1) scale)
     (``quantize_act``)."""
@@ -162,21 +222,48 @@ def _reflect_index(n: int, device) -> torch.Tensor:
     return torch.tensor([1] + list(range(n)) + [n - 2], device=device)
 
 
-def _conv9_plain(xp: torch.Tensor, wq: torch.Tensor, h: int, w: int,
-                 rate: int) -> torch.Tensor:
-    """The 9 taps, ``rate`` apart, of a 3×3 conv over a padded int8 NHWC
-    ``xp`` → int32 (N, h, w, Cout).
+def _conv_plain(xp: torch.Tensor, wq: torch.Tensor, h: int, w: int,
+                kk: int, rate: int = 1, groups: int = 1) -> torch.Tensor:
+    """The kk² taps, ``rate`` apart, of a kk×kk conv over a padded int8 NHWC
+    ``xp`` with (kk², Cin, Cout) ``wq`` → int32 (groups, N, h, w, Cout), the
+    partial sum over each group of Cin / groups input channels.
 
     Products are summed in float64, which holds every partial sum of
-    ≤ 9·Cin products of int8 values exactly (|sum| < 2^53), in any order."""
+    ≤ kk²·Cin products of int8 values exactly (|sum| < 2^53), in any
+    order."""
     n, c = xp.shape[0], xp.shape[-1]
-    acc = torch.zeros(n * h * w, wq.shape[-1], dtype=torch.float64,
-                      device=xp.device)
-    for k in range(9):
-        dy, dx = (k // 3) * rate, (k % 3) * rate
-        patch = xp[:, dy:dy + h, dx:dx + w, :].reshape(n * h * w, c)
-        acc += patch.double() @ wq[k].double()
-    return acc.to(torch.int32).reshape(n, h, w, -1)
+    cg = c // groups
+    out = []
+    for g in range(groups):
+        lo = g * cg
+        acc = torch.zeros(n * h * w, wq.shape[-1], dtype=torch.float64,
+                          device=xp.device)
+        for k in range(kk * kk):
+            dy, dx = (k // kk) * rate, (k % kk) * rate
+            patch = xp[:, dy:dy + h, dx:dx + w, lo:lo + cg].reshape(n * h * w,
+                                                                   cg)
+            acc += patch.double() @ wq[k, lo:lo + cg].double()
+        out.append(acc.to(torch.int32).reshape(n, h, w, -1))
+    return torch.stack(out)
+
+
+def _conv9_plain(xp: torch.Tensor, wq: torch.Tensor, h: int, w: int,
+                 rate: int) -> torch.Tensor:
+    """:func:`_conv_plain` of a 3×3 conv, one group → int32 (N,h,w,Cout)."""
+    return _conv_plain(xp, wq, h, w, 3, rate)[0]
+
+
+def _reflect_pad1(xq: torch.Tensor) -> torch.Tensor:
+    n, h, w, c = xq.shape
+    return xq[:, _reflect_index(h, xq.device)][:, :,
+                                                _reflect_index(w, xq.device)]
+
+
+def _zero_pad(xq: torch.Tensor, p: int) -> torch.Tensor:
+    n, h, w, c = xq.shape
+    xp = xq.new_zeros(n, h + 2 * p, w + 2 * p, c)
+    xp[:, p:p + h, p:p + w] = xq
+    return xp
 
 
 def conv3x3_reflect_s8_plain(xq: torch.Tensor, wq: torch.Tensor
@@ -184,8 +271,24 @@ def conv3x3_reflect_s8_plain(xq: torch.Tensor, wq: torch.Tensor
     """Reflect-pad-1 3×3 conv of int8 NHWC ``xq`` with (9, Cin, Cout) int8
     ``wq`` → int32 (N,H,W,Cout) (``_conv9_int8``)."""
     n, h, w, c = xq.shape
-    xp = xq[:, _reflect_index(h, xq.device)][:, :, _reflect_index(w, xq.device)]
-    return _conv9_plain(xp, wq, h, w, 1)
+    return _conv9_plain(_reflect_pad1(xq), wq, h, w, 1)
+
+
+def conv3x3_reflect_grouped_s8_plain(xq: torch.Tensor, wq: torch.Tensor,
+                                     groups: int) -> torch.Tensor:
+    """:func:`conv3x3_reflect_s8_plain` with one int32 partial per group of
+    C / groups input channels → (groups, N,H,W,Cout) (the K loop of K7b)."""
+    n, h, w, c = xq.shape
+    return _conv_plain(_reflect_pad1(xq), wq, h, w, 3, 1, groups)
+
+
+def conv_zero_grouped_s8_plain(xq: torch.Tensor, wq: torch.Tensor, kk: int,
+                               groups: int) -> torch.Tensor:
+    """Zero-pad (kk // 2) kk×kk conv of int8 NHWC ``xq`` with (kk², Cin,
+    Cout) ``wq``, one int32 partial per group of input channels → (groups,
+    N,H,W,Cout) (the K loop of K8)."""
+    n, h, w, c = xq.shape
+    return _conv_plain(_zero_pad(xq, kk // 2), wq, h, w, kk, 1, groups)
 
 
 def conv3x3_dilated_s8_plain(xq: torch.Tensor, wq: torch.Tensor, rate: int
@@ -194,9 +297,7 @@ def conv3x3_dilated_s8_plain(xq: torch.Tensor, wq: torch.Tensor, rate: int
     of int8 NHWC ``xq`` with (9, Cin, Cout) int8 ``wq`` → int32
     (N,H,W,Cout) (the branch conv of ``_atrous_resblock_int8_emulate``)."""
     n, h, w, c = xq.shape
-    xp = xq.new_zeros(n, h + 2 * rate, w + 2 * rate, c)
-    xp[:, rate:rate + h, rate:rate + w] = xq
-    return _conv9_plain(xp, wq, h, w, rate)
+    return _conv9_plain(_zero_pad(xq, rate), wq, h, w, rate)
 
 
 def _inorm(f: torch.Tensor) -> torch.Tensor:
@@ -295,6 +396,96 @@ def multi_atrous_stage_int8_plain(xs: torch.Tensor, qstage: QBlock,
     return ssum.reshape(n, h, w, -1).to(xs.dtype)
 
 
+def _group_sum(acc: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Σ_g float(acc[g]) · scales[:, g], in fp32 in group order from 0:
+    (groups, N,H,W,C) int32 and (N, groups) → (N, H·W, C)."""
+    groups, n = acc.shape[:2]
+    f = torch.zeros(n, acc[0, 0].numel() // acc.shape[-1], acc.shape[-1],
+                    dtype=torch.float32, device=acc.device)
+    for g in range(groups):
+        f = f + acc[g].float().reshape(f.shape) * scales[:, g, None, None]
+    return f
+
+
+def _quant_tiles(r: torch.Tensor, ct: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(n, hw, C) fp32 → (int8 (n, hw, C), (n, C/ct) scales), one absmax
+    per (image, tile of ct channels)."""
+    n, hw, c = r.shape
+    rt = r.reshape(n, hw, c // ct, ct)
+    amax = torch.clamp(rt.abs().amax(dim=(1, 3), keepdim=True), min=1e-6)
+    q = _to_int8(rt * _div(127.0, amax)).reshape(n, hw, c)
+    return q, _div(amax, 127.0).reshape(n, c // ct)
+
+
+def resblock_tiled_a_plain(hx: torch.Tensor, qblk: QBlock, ct: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K7a, the first half of ``_resblock_int8_tiled_emulate``: the
+    int8 relu(IN(conv 1)) (N,H,W,C) and its (N, C/ct) tile scales."""
+    n, h, w, c = hx.shape
+    sb = qblk["sb"]
+    hq, hs = quantize_act(hx)
+    f = _conv_dequant(hq, qblk["w1q"], hs[:, :, None], sb[0], sb[1])
+    rq, rs = _quant_tiles(torch.relu(_inorm(f)), ct)
+    return rq.reshape(n, h, w, c), rs
+
+
+def resblock_tiled_b_plain(rq: torch.Tensor, rs: torch.Tensor,
+                           hx: torch.Tensor, qblk: QBlock, ct: int
+                           ) -> torch.Tensor:
+    """Plain K7b, the second half of ``_resblock_int8_tiled_emulate``:
+    conv 2 group by group, each group's int32 partial times its tile scale,
+    then the weight scale and bias, IN and the skip ``hx``."""
+    n, h, w, c = hx.shape
+    sb = qblk["sb"]
+    acc = conv3x3_reflect_grouped_s8_plain(rq, qblk["w2q"], c // ct)
+    f2 = _group_sum(acc, rs) * sb[2] + sb[3]
+    return (_inorm(f2) + hx.float().reshape(n, h * w, c)) \
+        .reshape(n, h, w, c).to(hx.dtype)
+
+
+def resblock_int8_tiled_plain(hx: torch.Tensor, qblk: QBlock, ct: int
+                              ) -> torch.Tensor:
+    """Plain K7, mirroring ``_resblock_int8_tiled_emulate``."""
+    rq, rs = resblock_tiled_a_plain(hx, qblk, ct)
+    return resblock_tiled_b_plain(rq, rs, hx, qblk, ct)
+
+
+def msrb_branch_plain(xq: torch.Tensor, xscales: torch.Tensor,
+                      wq: torch.Tensor, sb: torch.Tensor, sb_row: int,
+                      kk: int, ct: int, quant_out: bool,
+                      out_dtype: Optional[torch.dtype]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K8, one branch of ``_msrb_stage_emulate``: the kk×kk zero-pad
+    conv of int8 ``xq`` group by group with the (N, gin) ``xscales``, then
+    ``f * sb[2r] + sb[2r + 1]`` and ReLU → (int8, (N, Cout/ct) scales) with
+    ``quant_out``, else (``out_dtype``, ones)."""
+    n, h, w, _ = xq.shape
+    nf = wq.shape[-1]
+    acc = conv_zero_grouped_s8_plain(xq, wq, kk, xscales.shape[1])
+    f = torch.relu(_group_sum(acc, xscales) * sb[2 * sb_row]
+                   + sb[2 * sb_row + 1])
+    if not quant_out:
+        return (f.reshape(n, h, w, nf).to(out_dtype),
+                torch.ones(n, nf // ct, device=xq.device))
+    q, s = _quant_tiles(f, ct)
+    return q.reshape(n, h, w, nf), s
+
+
+def msrb_stage_plain(xq: torch.Tensor, xscales: torch.Tensor,
+                     w3q: torch.Tensor, w5q: torch.Tensor, sb: torch.Tensor,
+                     ct: int, quant_out: bool,
+                     out_dtype: Optional[torch.dtype]
+                     ) -> Tuple[torch.Tensor, ...]:
+    """Plain MSRB stage, mirroring ``_msrb_stage_emulate``: (o3, o5, s3,
+    s5), the 3×3 branch on ``sb`` rows 0-1, the 5×5 on rows 2-3."""
+    o3, s3 = msrb_branch_plain(xq, xscales, w3q, sb, 0, 3, ct, quant_out,
+                               out_dtype)
+    o5, s5 = msrb_branch_plain(xq, xscales, w5q, sb, 1, 5, ct, quant_out,
+                               out_dtype)
+    return o3, o5, s3, s5
+
+
 # --------------------------------------------------------------------------- #
 # Dispatch: CPU tensors → plain version; CUDA tensors → the kernels.
 # --------------------------------------------------------------------------- #
@@ -377,3 +568,99 @@ def multi_atrous_stage_int8(x: torch.Tensor, qstage: QBlock,
         return int8_atrous.multi_atrous_stage_int8(x.contiguous(), qstage,
                                                    rates2, EPS)
     return multi_atrous_stage_int8_plain(x[:, ::2, ::2], qstage, rates2)
+
+
+def resblock_int8_tiled(hx: torch.Tensor, qblk: QBlock, ct: int
+                        ) -> torch.Tensor:
+    """K7: one cout-tiled int8 residual block, full-precision carrier; on
+    CUDA its two kernels, K7a then K7b."""
+    if _on_cuda(hx):
+        from cistar_tpu_torch.kernels import int8_tiled
+        hx = hx.contiguous()
+        rq, rs = int8_tiled.resblock_int8_tiled_a(hx, qblk, ct, EPS)
+        return int8_tiled.resblock_int8_tiled_b(rq, rs, hx, qblk, ct, EPS)
+    return resblock_int8_tiled_plain(hx, qblk, ct)
+
+
+def resblock_chain_int8_tiled(x: torch.Tensor, qblocks: Sequence[QBlock],
+                              cout_tile: Optional[int] = None,
+                              bn: bool = False) -> torch.Tensor:
+    """Res-block chain through K7 (``resblock_chain_int8_tiled``).
+
+    ``cout_tile=None`` takes the JAX kernel path's tile on every device:
+    :func:`pick_cout_tile`, and where that raises, the first of
+    512/256/128/64 that divides C. (JAX off the TPU takes the first divisor
+    alone, which differs at the 1024-channel trunk: ROADMAP queue 3.)"""
+    if bn:
+        raise NotImplementedError(
+            "the bn=True (folded BatchNorm) form of K7 comes with the "
+            "multiscale family (ROADMAP queue 1, item 9)")
+    n, h, w, c = x.shape
+    if cout_tile is None:
+        try:
+            cout_tile = pick_cout_tile(h * w, c)
+        except ValueError:
+            cout_tile = next((ct for ct in (512, 256, 128, 64)
+                              if ct <= c and c % ct == 0), c)
+    if c % cout_tile:
+        raise ValueError(f"cout_tile {cout_tile} must divide C={c}")
+    for qblk in qblocks:
+        x = resblock_int8_tiled(x, qblk, cout_tile)
+    return x
+
+
+def msrb_stage(xq: torch.Tensor, xscales: torch.Tensor, qblk: QBlock,
+               stage: str, ct: int, quant_out: bool,
+               out_dtype: Optional[torch.dtype]) -> Tuple[torch.Tensor, ...]:
+    """K8 twice: stage ``"a"`` (1) or ``"b"`` (2) of an MSRB block, its 3×3
+    and 5×5 branches → (o3, o5, s3, s5) (``_run_msrb_stage``)."""
+    sb = qblk["sb1" if stage == "a" else "sb2"]
+    outs = []
+    for row, kk in ((0, 3), (1, 5)):
+        key = f"w{kk}{stage}"
+        if _on_cuda(xq):
+            from cistar_tpu_torch.kernels import int8_msrb
+            outs.append(int8_msrb.msrb_branch_int8(
+                xq.contiguous(), xscales.contiguous(), qblk[key + "k"], sb,
+                row, kk, ct, quant_out, out_dtype))
+        else:
+            outs.append(msrb_branch_plain(xq, xscales, qblk[key], sb, row, kk,
+                                          ct, quant_out, out_dtype))
+    (o3, s3), (o5, s5) = outs
+    return o3, o5, s3, s5
+
+
+def _msrb_block(x: torch.Tensor, qblk: QBlock, cout_tile: int, stage
+                ) -> torch.Tensor:
+    nf = qblk["w3a"].shape[-1]
+    ct = min(cout_tile, nf)
+    if nf % ct:
+        raise ValueError(f"cout_tile {ct} must divide the MSRB width {nf}")
+    xq, xs = quantize_act(x)
+    o3, o5, s3, s5 = stage(xq, xs, qblk, "a", ct, True, None)
+    c3, c5, _, _ = stage(torch.cat([o3, o5], dim=-1),
+                         torch.cat([s3, s5], dim=1), qblk, "b", ct, False,
+                         x.dtype)
+    cat2 = torch.cat([c3, c5], dim=-1).float()
+    return (torch.matmul(cat2, qblk["w1x1"]) + qblk["b1x1"]).to(x.dtype)
+
+
+def msrb_block_int8(x: torch.Tensor, qblk: QBlock, cout_tile: int = 128
+                    ) -> torch.Tensor:
+    """One MSRB block with both conv stages in int8 (K8, four launches on
+    CUDA) and the 1×1 fuse in fp32 plain ops (``msrb_block_int8``): stage
+    1 on ``x`` quantized per image, stage 2 on its two int8 outputs side by
+    side with their tile scales as group scales. ``torch.matmul`` runs the
+    fuse in full fp32 under PyTorch's default matmul precision, as XLA does
+    in JAX. Returns ``x.dtype``."""
+    return _msrb_block(x, qblk, cout_tile, msrb_stage)
+
+
+def msrb_block_int8_plain(x: torch.Tensor, qblk: QBlock,
+                          cout_tile: int = 128) -> torch.Tensor:
+    """:func:`msrb_block_int8` with the plain K8 on any device."""
+    def stage(xq, xscales, q, st, ct, quant_out, out_dtype):
+        return msrb_stage_plain(xq, xscales, q[f"w3{st}"], q[f"w5{st}"],
+                                q["sb1" if st == "a" else "sb2"], ct,
+                                quant_out, out_dtype)
+    return _msrb_block(x, qblk, cout_tile, stage)

@@ -11,7 +11,10 @@ import torch
 
 from cistar_tpu_torch.device import resolve_device
 from cistar_tpu_torch.engines.cyclegan import CycleGANInference
+from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
+from cistar_tpu_torch.kernels import int8_msrb as km
 from cistar_tpu_torch.kernels import int8_resblock as kr
+from cistar_tpu_torch.kernels import int8_tiled as kt
 from cistar_tpu_torch.models.cyclegan import seeded_generator
 from cistar_tpu_torch.ops import quant_int8 as qi
 
@@ -60,6 +63,10 @@ def test_device_none_raises_without_cuda(monkeypatch):
         seeded_generator("p2p", 1, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         CycleGANInference(in_features=8, n_residual_blocks=1)
+    for net_g in ("global", "UNet"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Pix2PixHDInference(net_g, ngf=4, n_downsample_global=1,
+                               n_blocks_global=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
@@ -76,6 +83,26 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kr.conv3x3_reflect_s8(x.to(torch.int8), torch.zeros(128, 9 * 128,
                                                             dtype=torch.int8))
+
+
+def test_slice3_kernel_wrappers_refuse_cpu_tensors():
+    # K7a / K7b / K8 and their grouped int32 convs take CUDA tensors only
+    x = torch.zeros(1, 16, 8, 256)
+    xq = x.to(torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        kt.resblock_int8_tiled_a(x, {}, 128, 1e-5)
+    with pytest.raises(ValueError, match="CUDA"):
+        kt.resblock_int8_tiled_b(xq, torch.ones(1, 2), x, {}, 128, 1e-5)
+    with pytest.raises(ValueError, match="CUDA"):
+        kt.conv3x3_reflect_grouped_s8(xq, torch.zeros(256, 9 * 256,
+                                                      dtype=torch.int8), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        km.msrb_branch_int8(xq, torch.ones(1, 1), torch.zeros(
+            128, 9 * 256, dtype=torch.int8), torch.zeros(4, 128), 0, 3, 128,
+            True, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        km.conv_zero_grouped_s8(xq, torch.zeros(128, 25 * 256,
+                                                dtype=torch.int8), 5, 2)
 
 
 def test_dispatch_refuses_other_devices():
