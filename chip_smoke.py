@@ -80,6 +80,36 @@ JAX engine's rule sends to the cout-tiled chain, K7); and ``UNet``
     breakdown by segment (stem, downs, trunk, ups, head), and K7a / K7b /
     K8 per launch beside their bounds and their plain versions.
 
+The fused-kernel paths of ResNet-9 (slice 4), the phase-4 generator
+(64 features, 9 blocks, 256², seed 0), batch 8 checked and 64 timed:
+
+15. K3, K4 and K9 on the main path's own activations against their plain
+    versions: K3 (``fused_conv3x3_in_act``) on the trunk input (8, 32, 32,
+    512) with bf16 weights, conv 1 with ReLU and conv 2 with the residual,
+    within ``K3_*``, and in fp32 at (8, 32, 32, 64), a shape whose fp32
+    weights the JAX rule sends to K3, within ``K3_FP32_ABS``; K4
+    (``fused_instance_norm_act``) on the raw down_1, down_2 and up_0
+    outputs with ReLU, and on down_2 in the leaky, tanh and residual forms,
+    within ``K4_*``; K9 on the raw up_2 output (8, 256, 256, 64), with and
+    without ``pre_in``, within ``K9_*``;
+16. the bf16 fast forward (``resnet_generator_fast_apply``) of the module
+    with bf16 weights, counted: 18 K3 launches and no other kernel; the
+    same forward of the fp32-weight module: no K3 launch, equal to the bf16
+    module forward. Its distance to the fp32 forward within the rule of
+    phase 4 of the bf16 module forward's; img/s of both at batch 64, K3
+    per launch beside its bound;
+17. the int8 engine (``resnet_generator_int8_trunk_apply``) under
+    ``_FUSED_STAGE_IN = "1"``: 9 K1 + 3 K4 launches per generator call;
+    then under each K9 variant of ``_HEAD_KERNEL``: 9 K1 + 1 K9. Each
+    against the same engine with the plain K4 / K9: max-abs to the
+    default engine and to the fp32 forward within the plain's + 0.1,
+    mean-abs to fp32 within 1.1×; three requests served through
+    ``CycleGANInference("p2p")`` (counted: three generator calls each),
+    img/s at batch 64;
+18. ``global_generator_fast_apply`` at the pix2pixHD CLI defaults, batch
+    4: no K3 launch (the 1024-channel weights exceed the JAX rule), equal
+    to the bf16 ``GlobalGenerator`` forward.
+
 The fp32 reference forwards run with TF32 off, the rest under PyTorch's
 defaults. The line before the last is the card's name and power limit; the
 kernels' JSON line comes before it; the last line is
@@ -165,9 +195,25 @@ K7_REL, K7_ABS = 2.0 ** -7, 0.01
 # dequantize are the same ops in the same order, so one bf16 ulp + 1e-4.
 K8_REL, K8_ABS = 2.0 ** -7, 1e-4
 
-# Peaks of an H100 SXM (NVIDIA data sheet; dense int8 tensor-core
+# K3 (bf16) and K4 vs their plain versions: the same fp32 math, summed in
+# another order (the statistics by atomics), then one cast: one bf16 ulp
+# of the value plus 1e-4 (8.6e-6 over one ulp seen). K3 in fp32, TF32 off
+# on the plain side: the order of sums (6.7e-6 seen).
+K3_REL, K3_ABS, K3_FP32_ABS = 2.0 ** -7, 1e-4, 1e-4
+K4_REL, K4_ABS = 2.0 ** -7, 1e-4
+# K9 as K3 without pre_in (3.2e-6 over one ulp seen). With pre_in the IN
+# statistics, summed in another order, can round a normalized input to the
+# neighbouring bf16 value; each such input moves the output by its tap
+# weight times one input ulp (1.1e-3 over one ulp seen at (8, 256, 256,
+# 64), 4e-3 allowed).
+K9_REL, K9_ABS, K9_PRE_ABS = 2.0 ** -7, 1e-4, 4e-3
+# The K9 variants of fast_infer._HEAD_KERNEL (the JAX switch
+# CISTAR_HEAD_KERNEL); "shift" and "xla" run no kernel.
+HEAD_VARIANTS = ("tap_matmul", "loop", "maskedloop", "masked")
+
+# Peaks of an H100 SXM (NVIDIA data sheet; dense int8 and bf16 tensor-core
 # operations, HBM bandwidth), for the bound of each kernel.
-PEAK_INT8_OPS, PEAK_BYTES = 1979e12, 3.35e12
+PEAK_INT8_OPS, PEAK_BF16_FLOPS, PEAK_BYTES = 1979e12, 989e12, 3.35e12
 
 
 @contextlib.contextmanager
@@ -241,11 +287,32 @@ def print_times(label: str, batch: int, fn) -> None:
           + "; ".join(f"{k[:48]} {t!r}" for t, k in top), flush=True)
 
 
-def bound(ops: float, nbytes: float) -> tuple:
-    """(least ms, what bounds it) for ``ops`` int8 operations moving
-    ``nbytes`` bytes."""
-    t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(ops: float, nbytes: float, peak: float = PEAK_INT8_OPS) -> tuple:
+    """(least ms, what bounds it) for ``ops`` operations at ``peak`` (int8
+    by default) moving ``nbytes`` bytes."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k3_bound_ms(x, w, res) -> tuple:
+    """K3: the 3×3 conv's operations at the bf16 rate against x, w, the
+    bias, the output and the residual."""
+    n, h, wd, cin = x.shape
+    cout = w.shape[0]
+    out = n * h * wd * cout * x.element_size()
+    return bound(2 * n * h * wd * 9 * cin * cout,
+                 x.numel() * x.element_size() + w.numel() * w.element_size()
+                 + cout * 4 + out * (2 if res is not None else 1),
+                 PEAK_BF16_FLOPS)
+
+
+def k9_bound_ms(x) -> tuple:
+    """K9: 49·Cin multiply-adds a pixel at the bf16 rate against x, the
+    (49, Cin) fp32 taps and the one-channel output."""
+    n, h, w, c = x.shape
+    return bound(2 * n * h * w * 49 * c,
+                 x.numel() * x.element_size() + 49 * c * 4
+                 + n * h * w * x.element_size(), PEAK_BF16_FLOPS)
 
 
 def k_bound_ms(n: int, h: int, w: int, c: int, carrier_bytes: int) -> tuple:
@@ -1059,6 +1126,287 @@ def p2phd_breakdown(family: str, gen, qb, x) -> None:
               + f"; sum {sum(ms.values())!r}", flush=True)
 
 
+def fused_path(dev, images, counters) -> list:
+    """Phases 15-18; the kernels' JSON rows of K3, K4 and K9."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    from cistar_tpu_torch.engines.cyclegan import CycleGANInference
+    from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
+    from cistar_tpu_torch.models import fast_infer as fi
+    from cistar_tpu_torch.models.cyclegan import seeded_generator
+    from cistar_tpu_torch.ops import fused
+    from cistar_tpu_torch.ops import quant_int8 as qi
+    from cistar_tpu_torch.ops.head_conv import head_conv_tanh_pallas
+
+    gen = seeded_generator("p2p", BLOCKS, FEATURES, seed=0, device=dev)
+    gen16 = copy.deepcopy(gen).bfloat16()
+    qblocks = qi.quantize_resnet_trunk(gen)
+    x = images(BATCH, SIZE)
+    xb = x.bfloat16()
+
+    def counted(fn):
+        """``fn()`` with every launch counter set to 0 just before; its
+        result and the counts just after."""
+        for m in counters:
+            m.reset_launches()
+        y = fn()
+        torch.cuda.synchronize()
+        return y, {k: v for m in counters for k, v in m.launches.items()}
+
+    def within(label, yk, yp, rel, tol):
+        d = (yk.float() - yp.float()).abs()
+        err = d.max().item()
+        over = (d - rel * yp.float().abs()).max().item()
+        print(f"[kernels] {label} {tuple(yk.shape)} {yk.dtype}: "
+              f"max|kernel-plain| {err!r}, max over one ulp {over!r} (tol "
+              f"{tol})", flush=True)
+        check(over <= tol, f"{label} within tolerance of plain")
+        return err
+
+    # 15. kernels on the main path's own activations
+    h = fi._in_relu(gen16.init_conv(xb))
+    for m in gen16.down:
+        h = fi._in_relu(m(h))
+    h = h.contiguous()
+    check(tuple(h.shape) == (BATCH, 32, 32, 512), f"trunk {tuple(h.shape)}")
+    c1, c2 = gen16.res[0].conv1, gen16.res[0].conv2
+    check(fused.conv3x3_in_act_fits(h, c1.weight)
+          and not fused.conv3x3_in_act_fits(h, gen.res[0].conv1.weight),
+          "the JAX rule sends the trunk to K3 with bf16 weights only")
+    r_p = fused.fused_conv3x3_in_act_plain(h, c1.weight, c1.bias, "relu")
+    k3_err = max(
+        within("K3 conv 1, relu", fused.fused_conv3x3_in_act(
+            h, c1.weight, c1.bias, "relu"), r_p, K3_REL, K3_ABS),
+        within("K3 conv 2, none + residual", fused.fused_conv3x3_in_act(
+            r_p, c2.weight, c2.bias, "none", h), fused.fused_conv3x3_in_act_plain(
+            r_p, c2.weight, c2.bias, "none", h), K3_REL, K3_ABS))
+    g32 = torch.Generator(device=dev).manual_seed(0)
+    x64 = torch.randn(BATCH, 32, 32, 64, device=dev, generator=g32)
+    w64 = 0.05 * torch.randn(64, 64, 3, 3, device=dev, generator=g32)
+    b64 = 0.1 * torch.randn(64, device=dev, generator=g32)
+    check(fused.conv3x3_in_act_fits(x64, w64), "fp32 K3 shape fits the rule")
+    with fp32_exact():
+        p64 = fused.fused_conv3x3_in_act_plain(x64, w64, b64, "relu",
+                                               x64, "zero")
+    within("K3 fp32, zero pad, relu + residual", fused.fused_conv3x3_in_act(
+        x64, w64, b64, "relu", x64, "zero"), p64, 0.0, K3_FP32_ABS)
+
+    hs = fi._in_relu(gen.init_conv(xb))
+    d1 = gen.down[1](fi._in_relu(gen.down[0](hs)))
+    d2 = gen.down[2](fi._in_relu(d1))
+    t = qi.resblock_chain_int8_bf16io(fi._in_relu(d2), qblocks)
+    u0 = gen.up[0](t)
+    u2 = gen.up[2](fi._in_relu(gen.up[1](fi._in_relu(u0)))).contiguous()
+    k4_err = 0.0
+    for label, v, act, res in (("down_1", d1, "relu", None),
+                               ("down_2", d2, "relu", None),
+                               ("up_0", u0, "relu", None),
+                               ("down_2", d2, "leaky", None),
+                               ("down_2", d2, "tanh", None),
+                               ("down_2 + residual", d2, "relu", t),
+                               ("down_2 + residual", d2, "tanh", t)):
+        check(fused.in_act_fits(v, res), f"K4 rule: {label} fits")
+        k4_err = max(k4_err, within(
+            f"K4 {label}, {act}",
+            fused.fused_instance_norm_act(v, act, residual=res),
+            fused.fused_instance_norm_act_plain(v, act, residual=res),
+            K4_REL, K4_ABS))
+    wh, bh = gen.out_conv.weight, gen.out_conv.bias
+    u2n = fi._in_relu(u2)
+    k9_err = max(
+        within("K9 (loop / masked), tanh", fused.conv2d_reflect_cout1_loop(
+            u2n, wh, bh, "tanh"), fused.conv2d_reflect_cout1_plain(
+            u2n, wh, bh, "tanh"), K9_REL, K9_ABS),
+        within("K9 (tap_matmul) pre_in, tanh", head_conv_tanh_pallas(
+            u2, wh, bh, pre_in=True), fused.conv2d_reflect_cout1_plain(
+            u2, wh, bh, "tanh", pre_in=True), K9_REL, K9_PRE_ABS))
+
+    # 16. the bf16 fast forward, counted
+    y_fast, n16 = counted(lambda: fi.resnet_generator_fast_apply(gen16, xb))
+    print(f"[fast forward] launches {n16}", flush=True)
+    check(all(v == (2 * BLOCKS if k == "conv3x3_in_act" else 0)
+              for k, v in n16.items()),
+          f"{2 * BLOCKS} K3 launches per call and no other kernel")
+    y_fw32, n32 = counted(lambda: fi.resnet_generator_fast_apply(gen, xb))
+    y_bf16 = gen(xb)
+    check(all(v == 0 for v in n32.values())
+          and torch.equal(y_fw32, y_bf16),
+          "fp32 weights: no K3, equal to the bf16 module forward")
+    with fp32_exact():
+        y32 = gen(x)
+    check(tuple(y_fast.shape) == (BATCH, SIZE, SIZE, 1)
+          and bool(torch.isfinite(y_fast).all()), "fast forward output")
+    (mf, af), (mb, ab) = ((d.max().item(), d.mean().item()) for d in (
+        (y_fast.float() - y32).abs(), (y_bf16.float() - y32).abs()))
+    print(f"[fast forward] vs fp32: max {mf!r} mean {af!r}; the bf16 module "
+          f"forward max {mb!r} mean {ab!r}", flush=True)
+    check(af <= KERNEL_MEAN_RATIO * ab and mf <= mb + KERNEL_MAX_EXCESS,
+          "the fast forward about as far from fp32 as the bf16 forward")
+    xbb = images(BENCH_BATCH, SIZE).bfloat16()
+    for name, fn in (("bf16 module", lambda: gen(xbb)),
+                     ("bf16 fast (K3)",
+                      lambda: fi.resnet_generator_fast_apply(gen16, xbb))):
+        print_times(f"resnet generator {name}", BENCH_BATCH, fn)
+    hb = fi._in_relu(gen16.init_conv(xbb))
+    for m in gen16.down:
+        hb = fi._in_relu(m(hb))
+    hb = hb.contiguous()
+    ms_b = cuda_ms(lambda: fused.fused_conv3x3_in_act(
+        hb, c1.weight, c1.bias, "relu"), 10)
+    bnd_b, _ = k3_bound_ms(hb, c1.weight, None)
+    print(f"[times] conv3x3_in_act {tuple(hb.shape)}: {ms_b!r} ms, bound "
+          f"{bnd_b!r} ms, {2 * hb.numel() * 9 * 512 / ms_b * 1e-9!r} TFLOP/s",
+          flush=True)
+
+    # 17. the int8 engine under the switches
+    engine = fi.resnet_generator_int8_trunk_apply
+    y0 = engine(gen, qblocks, xb).float()
+
+    def plain_engine(stage, head):
+        """The int8 engine with ``stage`` for its stage IN+ReLU and
+        ``head`` on the last stage's raw output."""
+        v = stage(gen.init_conv(xb))
+        for m in gen.down:
+            v = stage(m(v))
+        v = qi.resblock_chain_int8_bf16io(v, qblocks)
+        for i, m in enumerate(gen.up):
+            v = m(v)
+            if i < len(gen.up) - 1:
+                v = stage(v)
+        return head(v).float()
+
+    def plain_k4(v):
+        return fused.fused_instance_norm_act_plain(v, "relu") \
+            if fused.in_act_fits(v) else fi._in_relu(v)
+
+    def plain_k9(v):
+        return fused.conv2d_reflect_cout1_plain(fi._in_relu(v), wh, bh,
+                                                "tanh")
+
+    def default_head(v):
+        return fi._head_conv_tanh(v, gen.out_conv, raw_in=True)
+
+    serve_eng = CycleGANInference("p2p", in_features=FEATURES,
+                                  n_residual_blocks=BLOCKS, seed=1)
+    saved = fi._FUSED_STAGE_IN, fi._HEAD_KERNEL
+    k4_launches, k9_launches = 0, 0
+    try:
+        for stage_in, variant in (("1", ""),
+                                  *(("", v) for v in HEAD_VARIANTS)):
+            fi._FUSED_STAGE_IN, fi._HEAD_KERNEL = stage_in, variant
+            label = "fused stage IN" if stage_in else f"head {variant}"
+            kname = "in_act" if stage_in else "head_cout1"
+            per_call = 3 if stage_in else 1
+            yk, n = counted(lambda: engine(gen, qblocks, xb).float())
+            print(f"[int8 engine, {label}] launches {n}", flush=True)
+            want = {"resblock_int8_bf16io": BLOCKS, kname: per_call}
+            check(all(v == want.get(k, 0) for k, v in n.items()),
+                  f"{label}: one call launches {want} and no other kernel")
+            if stage_in:
+                k4_launches = n[kname]
+            else:
+                k9_launches += n[kname]
+            yp = plain_engine(plain_k4, default_head) if stage_in \
+                else plain_engine(fi._in_relu, plain_k9)
+            for ref, what in ((y0, "the default engine"), (y32, "fp32")):
+                (mk, ak), (mp, ap) = ((d.max().item(), d.mean().item())
+                                      for d in ((yk - ref).abs(),
+                                                (yp - ref).abs()))
+                print(f"[int8 engine, {label}] vs {what}: max {mk!r} mean "
+                      f"{ak!r}; with the plain {kname} max {mp!r} mean "
+                      f"{ap!r}", flush=True)
+                check(mk <= mp + KERNEL_MAX_EXCESS,
+                      f"{label}: max-abs vs {what} within the plain's + 0.1")
+            # the mean, as in phase 4, against fp32, whose error dominates;
+            # against the default engine both differences are the noise of
+            # flipped requantized LSBs, and their ratio is not stable
+            check(ak <= KERNEL_MEAN_RATIO * ap,
+                  f"{label}: mean-abs vs fp32 within 1.1x the plain's")
+            _, ns = counted(lambda: serve(serve_eng, images, BATCH, SIZE,
+                                          f"resnet, {label}"))
+            check(ns["resblock_int8_bf16io"] == 3 * 3 * BLOCKS
+                  and ns[kname] == 3 * 3 * per_call,
+                  f"{label}: three generator calls a request")
+            print_times(f"resnet int8 engine, {label}", BENCH_BATCH,
+                        lambda: engine(gen, qblocks, xbb))
+    finally:
+        fi._FUSED_STAGE_IN, fi._HEAD_KERNEL = saved
+
+    # 18. global_generator_fast_apply at the CLI defaults
+    cfg = P2PHD["global"]
+    geng = Pix2PixHDInference("global", ngf=cfg["ngf"],
+                              n_downsample_global=cfg["n_downsample_global"],
+                              n_blocks_global=cfg["n_blocks_global"],
+                              seed=0).G
+    xg = images(cfg["batch"], P2P_SIZE).bfloat16()
+    yg, ng = counted(lambda: fi.global_generator_fast_apply(geng, xg))
+    yg_fw = geng(xg)
+    print(f"[global fast forward] launches {ng}; max|fast-forward| "
+          f"{(yg.float() - yg_fw.float()).abs().max().item()!r}", flush=True)
+    check(all(v == 0 for v in ng.values()) and torch.equal(yg, yg_fw),
+          "global at the CLI defaults: no K3, equal to the bf16 forward")
+
+    # the kernels' rows, at the checked batch
+    rows = []
+    v4 = d1.contiguous()
+    u2c = u2n.contiguous()
+    for (name, src, replaces, launches, err, kfn, pfn, (bnd, by), lib) in (
+            ("conv3x3_in_act", "conv3x3_in_act.cu", "pallas_kernels.py:224",
+             n16["conv3x3_in_act"], k3_err,
+             lambda: fused.fused_conv3x3_in_act(h, c1.weight, c1.bias),
+             lambda: fused.fused_conv3x3_in_act_plain(h, c1.weight, c1.bias),
+             k3_bound_ms(h, c1.weight, None), None),
+            ("in_act", "in_act.cu", "pallas_kernels.py:111", k4_launches,
+             k4_err, lambda: fused.fused_instance_norm_act(v4, "relu"),
+             lambda: fused.fused_instance_norm_act_plain(v4, "relu"),
+             bound(0, 2 * v4.numel() * v4.element_size()),
+             lambda: F.instance_norm(v4.permute(0, 3, 1, 2))),
+            ("head_cout1", "head_cout1.cu", "head_conv.py:341", k9_launches,
+             k9_err,
+             lambda: fused.conv2d_reflect_cout1_loop(u2c, wh, bh, "tanh"),
+             lambda: fused.conv2d_reflect_cout1_plain(u2c, wh, bh, "tanh"),
+             k9_bound_ms(u2c), None)):
+        ms, plain_ms = cuda_ms(kfn, 20), cuda_ms(pfn, 5)
+        lib_ms = None if lib is None else cuda_ms(lib, 20)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "cistar_tpu_torch/csrc/" + src,
+                     "replaces": "cistar_tpu/ops/" + replaces,
+                     "launches": launches, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                     "library_ms": lib_ms})
+        print(f"[times] {name} at the checked shape: {ms!r} ms, bound {bnd!r} "
+              f"ms ({by}), plain {plain_ms!r} ms, library {lib_ms!r} ms",
+              flush=True)
+    xb64 = images(BENCH_BATCH, SIZE).bfloat16()
+    v4b = gen.down[1](fi._in_relu(gen.down[0](fi._in_relu(
+        gen.init_conv(xb64))))).contiguous()
+    d2b = gen.down[2](fi._in_relu(v4b)).contiguous()
+    u2b = torch.relu(torch.randn(BENCH_BATCH, SIZE, SIZE, FEATURES, device=dev,
+                                 dtype=torch.bfloat16, generator=g32))
+    for name, fn, (bnd, by) in (
+            (f"in_act {tuple(v4b.shape)}",
+             lambda: fused.fused_instance_norm_act(v4b, "relu"),
+             bound(0, 2 * v4b.numel() * 2)),
+            (f"in_act {tuple(d2b.shape)}",
+             lambda: fused.fused_instance_norm_act(d2b, "relu"),
+             bound(0, 2 * d2b.numel() * 2)),
+            (f"head_cout1 {tuple(u2b.shape)}",
+             lambda: fused.conv2d_reflect_cout1_loop(u2b, wh, bh, "tanh"),
+             k9_bound_ms(u2b)),
+            (f"head_cout1 pre_in {tuple(u2b.shape)}",
+             lambda: head_conv_tanh_pallas(u2b, wh, bh, pre_in=True),
+             k9_bound_ms(u2b))):
+        print(f"[times] {name}: {cuda_ms(fn, 10)!r} ms, bound {bnd!r} ms "
+              f"({by})", flush=True)
+    print(f"[times] F.instance_norm {tuple(v4b.shape)}: "
+          f"{cuda_ms(lambda: F.instance_norm(v4b.permute(0, 3, 1, 2)), 10)!r}"
+          f" ms", flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1066,6 +1414,9 @@ def main() -> int:
         sys.exit("chip_smoke.py: no CUDA device, nothing run")
     sys.path.insert(0, ROOT)
     from cistar_tpu_torch.kernels import build
+    from cistar_tpu_torch.kernels import fused_conv as kf
+    from cistar_tpu_torch.kernels import head_cout1 as kh
+    from cistar_tpu_torch.kernels import in_act as kn
     from cistar_tpu_torch.kernels import int8_atrous as ka
     from cistar_tpu_torch.kernels import int8_msrb as km
     from cistar_tpu_torch.kernels import int8_resblock as kr
@@ -1093,11 +1444,12 @@ def main() -> int:
         return (torch.rand(n, size, size, 1, generator=cpu_gen) * 2
                 - 1).to(dev)
 
-    counters = (kr, ka, kt, km)
+    counters = (kr, ka, kt, km, kf, kn, kh)
     rows = resnet_path(dev, images, counters)
     rows += bilinear_path(dev, images, counters)
     rows += p2phd_path("global", images, counters)
     rows += p2phd_path("UNet", images, counters)
+    rows += fused_path(dev, images, counters)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -26,3 +26,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
     return dev
+
+
+def on_cuda(x: torch.Tensor) -> bool:
+    """The kernels' dispatch rule: a CUDA tensor goes to the CUDA kernel (or
+    raises), a CPU tensor to the plain PyTorch version; any other device
+    raises."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"the kernels run on cuda or cpu, got {x.device}")

@@ -1,6 +1,11 @@
-"""Int8-trunk inference forwards of the CycleGAN and pix2pixHD generators
-(counterpart of ``cistar_tpu/models/fast_infer.py``).
+"""Fused-kernel and int8-trunk inference forwards of the CycleGAN and
+pix2pixHD generators (counterpart of ``cistar_tpu/models/fast_infer.py``).
 
+  * :func:`resnet_generator_fast_apply` / :func:`global_generator_fast_apply`:
+    the bf16 fast forwards, each residual block as two K3 calls
+    (:func:`~cistar_tpu_torch.ops.fused.fused_conv3x3_in_act`), where the
+    JAX rule puts K3 (it reads the weights' dtype: at ResNet-9 width only a
+    module with bf16 weights runs K3).
   * :func:`resnet_generator_int8_trunk_apply` (ResNet, 'p2p*'): the stem,
     the three down convs and the three transpose convs run in the input's
     dtype (bf16 on the main path) as plain PyTorch ops; the residual blocks
@@ -11,8 +16,8 @@
     dtype; the atrous residual blocks run through K5; the decoder's
     upsample + conv is one low-resolution conv per stage.
 
-Both end in the head conv with the last stage's IN+ReLU inside it
-(:mod:`cistar_tpu_torch.ops.head_conv`).
+Both end in :func:`_head_conv_tanh`: by default the head conv with the
+last stage's IN+ReLU inside it (:mod:`cistar_tpu_torch.ops.head_conv`).
 
   * :func:`global_generator_int8_trunk_apply` (pix2pixHD
     ``GlobalGenerator``): the resnet trunk runs through K1 where the JAX
@@ -25,6 +30,19 @@ Both take their 7×7 stem and head through ``conv2d_reflect_thin``, and
 the rest in the input's dtype. The kernels are those of
 :mod:`cistar_tpu_torch.ops.quant_int8`.
 
+Two switches, read once at import from the environment as in JAX
+(``fast_infer.py:38-39``); tests and ``chip_smoke.py`` set the module
+attributes and restore them:
+
+  * ``CISTAR_FUSED_STAGE_IN=1`` (``_FUSED_STAGE_IN``): the ResNet engine's
+    stage IN+ReLU (:func:`_stage_in_relu`) goes through K4 where the JAX
+    rule puts it: at 256² in bf16, down_1, down_2 and up_0. The other
+    engines call the plain IN, as in JAX.
+  * ``CISTAR_HEAD_KERNEL`` (``_HEAD_KERNEL``, one of ``_HEAD_VARIANTS``):
+    ``tap_matmul`` / ``loop`` / ``maskedloop`` / ``masked`` run the head of
+    the ResNet and bilinear engines through K9 after a separate stage
+    IN+ReLU; ``shift`` and ``xla`` are the JAX package's plain heads.
+
 There is no ``expect_kernel`` flag: the kernel path is structural. A CUDA
 tensor always goes through the CUDA kernels (or raises), a CPU tensor
 through their plain versions.
@@ -32,12 +50,19 @@ through their plain versions.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from cistar_tpu_torch.ops import nn as tnn
-from cistar_tpu_torch.ops.head_conv import head_conv_tanh_prenorm
+from cistar_tpu_torch.ops.fused import (conv2d_reflect_cout1_loop,
+                                        conv2d_reflect_cout1_masked,
+                                        fused_conv3x3_in_act,
+                                        fused_instance_norm_act)
+from cistar_tpu_torch.ops.head_conv import (head_conv_tanh_pallas,
+                                            head_conv_tanh_prenorm,
+                                            head_conv_tanh_shift)
 from cistar_tpu_torch.ops.quant_int8 import (QBlock,
                                              atrous_resblock_chain_int8,
                                              atrous_stage_fits,
@@ -52,34 +77,118 @@ from cistar_tpu_torch.ops.quant_int8 import (QBlock,
                                              whole_image_resblock_fits)
 
 
-def _stage_in_relu(h: torch.Tensor) -> torch.Tensor:
-    """Stage IN+ReLU between the plain segments (``_stage_in_relu``)."""
+_FUSED_STAGE_IN = os.environ.get("CISTAR_FUSED_STAGE_IN", "")
+_HEAD_KERNEL = os.environ.get("CISTAR_HEAD_KERNEL", "")
+
+#: The head variants of ``_head_conv_tanh`` (``fast_infer.py:63-64``).
+_HEAD_VARIANTS = ("", "shift", "xla", "tap_matmul", "loop", "maskedloop",
+                  "masked")
+
+
+def _in_relu(h: torch.Tensor) -> torch.Tensor:
+    """relu(IN(h)) in ``h``'s dtype, where JAX calls
+    ``tnn.relu(tnn.instance_norm(h))``."""
     return tnn.relu(tnn.instance_norm(h))
 
 
+def _stage_in_relu(h: torch.Tensor) -> torch.Tensor:
+    """Stage IN+ReLU of the ResNet engine and of the head's non-default
+    variants (``_stage_in_relu``): through K4 (where it fits) under
+    ``_FUSED_STAGE_IN == "1"``, else :func:`_in_relu`."""
+    if _FUSED_STAGE_IN == "1":
+        return fused_instance_norm_act(h, act="relu")
+    return _in_relu(h)
+
+
+def _head_conv_tanh(h: torch.Tensor, conv, raw_in: bool = False
+                    ) -> torch.Tensor:
+    """Final 7×7 reflect conv → 1 channel + tanh, by ``_HEAD_KERNEL``
+    (``_head_conv_tanh``). ``raw_in``: ``h`` is the last stage's raw conv
+    output, its IN+ReLU still pending; the default variant takes it inside
+    the head conv, the others apply :func:`_stage_in_relu` first."""
+    variant = _HEAD_KERNEL
+    if variant not in _HEAD_VARIANTS:
+        raise ValueError(
+            f"CISTAR_HEAD_KERNEL={variant!r} is not a known head-conv "
+            f"variant; valid values: {', '.join(v for v in _HEAD_VARIANTS if v)}")
+    w, b = conv.weight, conv.bias
+    is7 = w.shape[2] == 7 and w.shape[0] == 1
+    div8 = h.shape[1] % 8 == 0 and h.shape[2] % 8 == 0
+    if raw_in:
+        if variant == "" and is7 and div8 and h.shape[1] > 16 \
+                and h.shape[2] > 16:
+            mean, rsigma = tnn.instance_norm_stats(h)
+            return head_conv_tanh_prenorm(h, mean, rsigma, w, b)
+        h = _stage_in_relu(h)
+    if variant in ("loop", "maskedloop", "masked") and is7:
+        fn = conv2d_reflect_cout1_masked if variant == "masked" \
+            else conv2d_reflect_cout1_loop
+        return fn(h, w, b, act="tanh")
+    if variant == "tap_matmul" and is7:
+        return head_conv_tanh_pallas(h, w, b, act="tanh")
+    if variant in ("", "shift") and is7 and div8:
+        return head_conv_tanh_shift(h, w, b, act="tanh")
+    return tnn.tanh(tnn.conv2d_reflect(h, w, b))
+
+
+def _fused_res_trunk(blocks, h: torch.Tensor) -> torch.Tensor:
+    """Residual blocks as two K3 calls each: conv 1 + IN + ReLU, then
+    conv 2 + IN + the skip."""
+    for blk in blocks:
+        c1, c2 = blk.conv1, blk.conv2
+        r = fused_conv3x3_in_act(h, c1.weight, c1.bias, act="relu",
+                                 pad_mode="reflect")
+        h = fused_conv3x3_in_act(r, c2.weight, c2.bias, act="none",
+                                 residual=h, pad_mode="reflect")
+    return h
+
+
+def resnet_generator_fast_apply(gen, x: torch.Tensor) -> torch.Tensor:
+    """Fast forward of a port ``ResnetGenerator`` with its residual blocks
+    in K3 (``resnet_generator_fast_apply``). NHWC in and out, ``x.dtype``;
+    K3 runs where the JAX rule puts it, which at ResNet-9 width needs bf16
+    weights (``gen.bfloat16()``)."""
+    h = _in_relu(gen.init_conv(x))
+    for m in gen.down:
+        h = _in_relu(m(h))
+    h = _fused_res_trunk(gen.res, h)
+    for m in gen.up:
+        h = _in_relu(m(h))
+    return tnn.tanh(gen.out_conv(h))
+
+
+def global_generator_fast_apply(gen, x: torch.Tensor) -> torch.Tensor:
+    """Fast forward of a port ``GlobalGenerator`` with its resnet blocks in
+    K3 (``global_generator_fast_apply``). At the CLI defaults (a 1024-
+    channel trunk) the weights alone exceed the JAX rule, so every block
+    runs the composition, on a TPU as on the card."""
+    tr = gen.trunk
+    h = _in_relu(tr.stem.conv(x))
+    for m in tr.down:
+        h = _in_relu(m.conv(h))
+    h = _fused_res_trunk(tr.res, h)
+    for m in tr.up:
+        h = _in_relu(m.convt(h))
+    return tnn.tanh(gen.head.conv(h))
+
+
 def resnet_encode(gen, x: torch.Tensor) -> torch.Tensor:
-    """Stem and three down convs, each with IN+ReLU: the trunk's input."""
+    """Stem and three down convs, each with the stage IN+ReLU: the trunk's
+    input."""
     h = _stage_in_relu(gen.init_conv(x))
     for m in gen.down:
         h = _stage_in_relu(m(h))
     return h
 
 
-def _head(gen, h: torch.Tensor) -> torch.Tensor:
-    """The head conv on the last stage's raw output, its IN+ReLU inside."""
-    mean, rsigma = tnn.instance_norm_stats(h)
-    out = gen.out_conv
-    return head_conv_tanh_prenorm(h, mean, rsigma, out.weight, out.bias)
-
-
 def resnet_decode(gen, h: torch.Tensor) -> torch.Tensor:
-    """Three transpose convs and the head; the last stage's IN+ReLU rides
-    inside the head conv."""
+    """Three transpose convs and the head; the last stage's IN+ReLU is left
+    to the head (``raw_in``)."""
     for i, m in enumerate(gen.up):
         h = m(h)
         if i < len(gen.up) - 1:
             h = _stage_in_relu(h)
-    return _head(gen, h)
+    return _head_conv_tanh(h, gen.out_conv, raw_in=True)
 
 
 def resnet_generator_int8_trunk_apply(gen, qblocks: Sequence[QBlock],
@@ -139,7 +248,7 @@ def bilinear_generator_int8_trunk_apply(gen, qtrunk: Union[QTrunk,
     engine's routing rule puts them; the decoder runs in ``x``'s dtype
     (``bilinear_generator_int8_trunk_apply``). NHWC in and out."""
     qres, qenc = _q_parts(qtrunk)
-    h = _stage_in_relu(gen.init_conv(x))
+    h = _in_relu(gen.init_conv(x))
     skips = []
     for i, stage in enumerate(gen.down):
         if qenc is not None and stage_kernel_fits(h, qenc[i]):
@@ -154,15 +263,15 @@ def bilinear_decode(gen, h: torch.Tensor, skips: Sequence[torch.Tensor]
                     ) -> torch.Tensor:
     """The decoder of a ``MultiscaleBilinearGenerator`` from the trunk's
     output ``h`` and the encoder outputs ``skips``: each stage's upsample +
-    conv as one low-resolution conv (``upconv2x_bilinear``), then the head,
-    with the last stage's IN+ReLU inside it."""
+    conv as one low-resolution conv (``upconv2x_bilinear``), then the head
+    on the last stage's raw output (``raw_in``)."""
     for i, (up, skip) in enumerate(zip(gen.up, reversed(skips))):
         conv = up.conv
         h = tnn.upconv2x_bilinear(torch.cat([h, skip], dim=-1), conv.weight,
                                   conv.bias)
         if i < len(gen.up) - 1:
-            h = _stage_in_relu(h)
-    return _head(gen, h)
+            h = _in_relu(h)
+    return _head_conv_tanh(h, gen.out_conv, raw_in=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -175,7 +284,7 @@ def _thin(conv, x: torch.Tensor) -> torch.Tensor:
 def global_encode(gen, x: torch.Tensor) -> torch.Tensor:
     """The stem (``conv2d_reflect_thin``) and the downs, each with IN+ReLU:
     the trunk's input."""
-    h = _stage_in_relu(_thin(gen.trunk.stem.conv, x))
+    h = _in_relu(_thin(gen.trunk.stem.conv, x))
     for m in gen.trunk.down:
         h = m(h)
     return h
@@ -220,10 +329,10 @@ def quantize_unet_msrb(gen) -> List[QBlock]:
 def unet_encode(gen, x: torch.Tensor) -> List[torch.Tensor]:
     """The stem (``conv2d_reflect_thin``) and the three downs, each with
     IN+ReLU: the skips, the last of which is the trunk's input."""
-    h = _stage_in_relu(_thin(gen.init_block.conv, x))
+    h = _in_relu(_thin(gen.init_block.conv, x))
     skips = []
     for conv in gen.down_conv:
-        h = _stage_in_relu(conv(h))
+        h = _in_relu(conv(h))
         skips.append(h)
     return skips
 
@@ -233,7 +342,7 @@ def unet_decode(gen, h: torch.Tensor, skips: Sequence[torch.Tensor]
     """The ups on the skip concats, with IN+ReLU, then the head
     (``conv2d_reflect_thin``) and tanh."""
     for convt, skip in zip(gen.up_convt, reversed(skips)):
-        h = _stage_in_relu(convt(torch.cat([h, skip], dim=-1)))
+        h = _in_relu(convt(torch.cat([h, skip], dim=-1)))
     return tnn.tanh(_thin(gen.output_layer.conv, h))
 
 

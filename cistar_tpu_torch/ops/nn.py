@@ -118,8 +118,26 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return ((x.float() - mean) * rsigma).to(x.dtype)
 
 
+def instance_norm_act(x: torch.Tensor, act: str = "none",
+                      residual: Optional[torch.Tensor] = None,
+                      eps: float = 1e-5,
+                      negative_slope: float = 0.2) -> torch.Tensor:
+    """Instance norm + activation (+ residual) through K4 where the JAX
+    rule puts it (``ops/nn.py::instance_norm_act``; see
+    :func:`cistar_tpu_torch.ops.fused.fused_instance_norm_act`)."""
+    from cistar_tpu_torch.ops.fused import fused_instance_norm_act
+
+    return fused_instance_norm_act(x, act=act, eps=eps,
+                                   negative_slope=negative_slope,
+                                   residual=residual)
+
+
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+    return torch.where(x >= 0, x, x * negative_slope)
 
 
 def tanh(x: torch.Tensor) -> torch.Tensor:

@@ -50,6 +50,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from cistar_tpu_torch.device import on_cuda
+
 EPS = 1e-5   # instance-norm epsilon (``nn.InstanceNorm2d``'s default)
 RATES = (2, 4, 6, 8)   # the atrous branches' dilations (``MultiAtrousConv``)
 
@@ -489,17 +491,9 @@ def msrb_stage_plain(xq: torch.Tensor, xscales: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # Dispatch: CPU tensors → plain version; CUDA tensors → the kernels.
 # --------------------------------------------------------------------------- #
-def _on_cuda(x: torch.Tensor) -> bool:
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"the int8 blocks run on cuda or cpu, got {x.device}")
-
-
 def resblock_int8_bf16io(hx: torch.Tensor, qblk: QBlock) -> torch.Tensor:
     """K1: one int8 residual block with a full-precision carrier."""
-    if _on_cuda(hx):
+    if on_cuda(hx):
         from cistar_tpu_torch.kernels import int8_resblock
         return int8_resblock.resblock_int8_bf16io(hx.contiguous(), qblk, EPS)
     return resblock_int8_bf16io_plain(hx, qblk)
@@ -508,7 +502,7 @@ def resblock_int8_bf16io(hx: torch.Tensor, qblk: QBlock) -> torch.Tensor:
 def resblock_int8(hq: torch.Tensor, hs: torch.Tensor, qblk: QBlock
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: one int8 residual block with an int8 carrier."""
-    if _on_cuda(hq):
+    if on_cuda(hq):
         from cistar_tpu_torch.kernels import int8_resblock
         return int8_resblock.resblock_int8(hq.contiguous(), hs.contiguous(),
                                            qblk, EPS)
@@ -536,7 +530,7 @@ def resblock_chain_int8(x: torch.Tensor, qblocks: Sequence[QBlock]
 def atrous_resblock_int8(hx: torch.Tensor, qblk: QBlock,
                          rates: Sequence[int] = RATES) -> torch.Tensor:
     """K5: one int8 atrous residual block with a full-precision carrier."""
-    if _on_cuda(hx):
+    if on_cuda(hx):
         from cistar_tpu_torch.kernels import int8_atrous
         return int8_atrous.atrous_resblock_int8(hx.contiguous(), qblk, rates,
                                                 EPS)
@@ -563,7 +557,7 @@ def multi_atrous_stage_int8(x: torch.Tensor, qstage: QBlock,
         raise NotImplementedError("stage kernel requires stride=2 and even "
                                   f"rates; got stride={stride} rates={rates}")
     rates2 = tuple(r // 2 for r in rates)
-    if _on_cuda(x):
+    if on_cuda(x):
         from cistar_tpu_torch.kernels import int8_atrous
         return int8_atrous.multi_atrous_stage_int8(x.contiguous(), qstage,
                                                    rates2, EPS)
@@ -574,7 +568,7 @@ def resblock_int8_tiled(hx: torch.Tensor, qblk: QBlock, ct: int
                         ) -> torch.Tensor:
     """K7: one cout-tiled int8 residual block, full-precision carrier; on
     CUDA its two kernels, K7a then K7b."""
-    if _on_cuda(hx):
+    if on_cuda(hx):
         from cistar_tpu_torch.kernels import int8_tiled
         hx = hx.contiguous()
         rq, rs = int8_tiled.resblock_int8_tiled_a(hx, qblk, ct, EPS)
@@ -618,7 +612,7 @@ def msrb_stage(xq: torch.Tensor, xscales: torch.Tensor, qblk: QBlock,
     outs = []
     for row, kk in ((0, 3), (1, 5)):
         key = f"w{kk}{stage}"
-        if _on_cuda(xq):
+        if on_cuda(xq):
             from cistar_tpu_torch.kernels import int8_msrb
             outs.append(int8_msrb.msrb_branch_int8(
                 xq.contiguous(), xscales.contiguous(), qblk[key + "k"], sb,

@@ -12,10 +12,14 @@ import torch
 from cistar_tpu_torch.device import resolve_device
 from cistar_tpu_torch.engines.cyclegan import CycleGANInference
 from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
+from cistar_tpu_torch.kernels import fused_conv as kf
+from cistar_tpu_torch.kernels import head_cout1 as kh
+from cistar_tpu_torch.kernels import in_act as kn
 from cistar_tpu_torch.kernels import int8_msrb as km
 from cistar_tpu_torch.kernels import int8_resblock as kr
 from cistar_tpu_torch.kernels import int8_tiled as kt
 from cistar_tpu_torch.models.cyclegan import seeded_generator
+from cistar_tpu_torch.ops import fused
 from cistar_tpu_torch.ops import quant_int8 as qi
 
 
@@ -51,6 +55,10 @@ def test_no_jax_imports(rel):
 
 def test_scan_sees_the_port():
     assert "cistar_tpu_torch/ops/quant_int8.py" in PORT_FILES
+    assert {"cistar_tpu_torch/ops/fused.py",
+            "cistar_tpu_torch/kernels/fused_conv.py",
+            "cistar_tpu_torch/kernels/in_act.py",
+            "cistar_tpu_torch/kernels/head_cout1.py"} <= set(PORT_FILES)
     assert "cistar_tpu" not in set(_imported_roots(
         ROOT / "cistar_tpu_torch/ops/quant_int8.py"))
 
@@ -105,6 +113,20 @@ def test_slice3_kernel_wrappers_refuse_cpu_tensors():
                                                 dtype=torch.int8), 5, 2)
 
 
+def test_slice4_kernel_wrappers_refuse_cpu_tensors():
+    # K3 / K4 / K9 take CUDA tensors only
+    x = torch.zeros(1, 8, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        kf.conv3x3_in_act(x, torch.zeros(16, 9 * 16), torch.zeros(16), True,
+                          None, True, 1e-5)
+    with pytest.raises(ValueError, match="CUDA"):
+        kn.in_act(x, "relu", 0.2, None, 1e-5)
+    with pytest.raises(ValueError, match="CUDA"):
+        kh.head_cout1(x, torch.zeros(49, 16), None, True, False, 1e-5)
+
+
 def test_dispatch_refuses_other_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         qi.resblock_int8_bf16io(torch.zeros(1, 2, 2, 1, device="meta"), {})
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fused.fused_instance_norm_act(torch.zeros(1, 4, 4, 8, device="meta"))
