@@ -110,6 +110,35 @@ The fused-kernel paths of ResNet-9 (slice 4), the phase-4 generator
     4: no K3 launch (the 1024-channel weights exceed the JAX rule), equal
     to the bf16 ``GlobalGenerator`` forward.
 
+The pix2pixHD ``multiscale`` and ``local`` paths (slice 5), random weights
+from seed 0: ``multiscale`` (``MultiscaleGlobalGenerator``, always
+BatchNorm; the r2l experiment's netG: ngf 64, 9 blocks) at 512², whose
+(B, 64, 64, 512) trunk the JAX rule sends to the ``bn=True`` form of K7 at
+ct 128, and at 256², whose (B, 32, 32, 512) trunk fits K1's ``bn=True``
+form; ``local`` (``LocalEnhancer``, the JAX suite's ``p2phd1024_int8``:
+ngf 32, one enhancer, 3 global downs, 9 global and 3 local blocks) at
+1024², whose global trunk is (B, 64, 64, 512) with instance norm: K7 at
+ct 128. Random running statistics (0, 1) normalize nothing, so each
+BatchNorm's statistics are set from a seeded calibration batch, layer by
+layer (``calibrate``).
+
+19. the kernels on the paths' own trunk activations: K7a-bn and K7b-bn at
+    (2, 64, 64, 512), ct 128, and K1-bn at (8, 32, 32, 512), each equal to
+    its plain version bit for bit (rq, rs and the block output); K7 (IN)
+    at ct 128 on ``local``'s trunk (2, 64, 64, 512) under K7's rules; each
+    block's distance to the tiled family budget (0.35) vs its fp32 module
+    is printed;
+20. each path, counted: ``multiscale`` 512² batch 2 launches 9 K7a-bn + 9
+    K7b-bn, ``multiscale`` 256² batch 8 9 K1-bn, ``local`` 1024² batch 2 9
+    K7a + 9 K7b, and no other kernel; fidelity as in phase 4, against the
+    same engine with the plain kernels;
+21. three requests served per family through ``Pix2PixHDInference``
+    (``infer_step`` and ``infer_step_int8``), counted;
+22. times with CUDA events: img/s of both engines, ``multiscale`` at batch
+    8 (512²) and ``local`` at batch 4 (1024², the suite's
+    ``p2phd1024_int8``), one profile each, a breakdown by segment, and the
+    kernels per launch beside their bounds and their plain versions.
+
 The fp32 reference forwards run with TF32 off, the rest under PyTorch's
 defaults. The line before the last is the card's name and power limit; the
 kernels' JSON line comes before it; the last line is
@@ -210,6 +239,19 @@ K9_REL, K9_ABS, K9_PRE_ABS = 2.0 ** -7, 1e-4, 4e-3
 # The K9 variants of fast_infer._HEAD_KERNEL (the JAX switch
 # CISTAR_HEAD_KERNEL); "shift" and "xla" run no kernel.
 HEAD_VARIANTS = ("tap_matmul", "loop", "maskedloop", "masked")
+
+# pix2pixHD multiscale (the r2l experiment's netG, SURVEY.md:158: 9
+# blocks, 1 channel, the default ngf 64) and local (benchmarks/run_suite.py
+# p2phd1024_int8: ngf 32, 1024², batch 4; the defaults of one enhancer, 3
+# global downs and 3 local blocks): the checked batches and the timed ones.
+MULTISCALE = dict(ngf=64, n_blocks_global=9, size=512, batch=2,
+                  small_size=256, small_batch=8, bench_batch=8)
+LOCAL = dict(ngf=32, n_downsample_global=3, n_blocks_global=9,
+             n_local_enhancers=1, n_blocks_local=3, size=1024, batch=2,
+             bench_batch=4)
+# K7's tile at 64²×512, the JAX kernel path's pick_cout_tile; the images of
+# the BatchNorm calibration batch
+BN_TILE, CALIB_BATCH = 128, 4
 
 # Peaks of an H100 SXM (NVIDIA data sheet; dense int8 and bf16 tensor-core
 # operations, HBM bandwidth), for the bound of each kernel.
@@ -1407,6 +1449,349 @@ def fused_path(dev, images, counters) -> list:
     return rows
 
 
+def calibrate(gen, x) -> None:
+    """Set each BatchNorm's running statistics, layer by layer, to the batch
+    mean and biased variance of its input under the fp32 forward of ``x``
+    (TF32 off; a shared layer keeps the first input it sees)."""
+    import torch
+
+    from cistar_tpu_torch.models.pix2pixhd import BatchNorm
+
+    seen, hooks = set(), []
+
+    def pre(m, args):
+        if m not in seen:
+            seen.add(m)
+            v = args[0].float()
+            m.running_mean.copy_(v.mean(dim=(0, 1, 2)))
+            m.running_var.copy_(v.var(dim=(0, 1, 2), unbiased=False))
+    for m in gen.modules():
+        if isinstance(m, BatchNorm):
+            hooks.append(m.register_forward_pre_hook(pre))
+    try:
+        with fp32_exact(), torch.no_grad():
+            gen(x.float())
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def bn_local_path(images, counters) -> list:
+    """Phases 19-22; the kernels' JSON rows of K1-bn, K7a-bn and K7b-bn."""
+    import torch
+
+    from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
+    from cistar_tpu_torch.kernels import int8_resblock as kr
+    from cistar_tpu_torch.kernels import int8_tiled as kt
+    from cistar_tpu_torch.models import fast_infer as fi
+    from cistar_tpu_torch.ops import quant_int8 as qi
+
+    def counted(fn):
+        """``fn()`` with every launch counter set to 0 just before; its
+        result and the counts just after."""
+        for m in counters:
+            m.reset_launches()
+        y = fn()
+        torch.cuda.synchronize()
+        return y, {k: v for m in counters for k, v in m.launches.items()}
+
+    ms_cfg, lo_cfg = MULTISCALE, LOCAL
+    ms_eng = Pix2PixHDInference("multiscale", ngf=ms_cfg["ngf"],
+                                n_blocks_global=ms_cfg["n_blocks_global"],
+                                seed=0)
+    msg = ms_eng.G
+    calibrate(msg, images(CALIB_BATCH, ms_cfg["size"]))
+    ms_q = ms_eng.quantize_generator()
+    lo_eng = Pix2PixHDInference(
+        "local", **{k: lo_cfg[k] for k in (
+            "ngf", "n_downsample_global", "n_blocks_global",
+            "n_local_enhancers", "n_blocks_local")}, seed=0)
+    log, lo_q = lo_eng.G, lo_eng.quantize_generator()
+    nb = ms_cfg["n_blocks_global"]
+
+    def fp32_block(blk, h):
+        with fp32_exact():
+            return blk(h.float())
+
+    def bit_exact(label, yk, yp):
+        err = (yk.float() - yp.float()).abs().max().item()
+        print(f"[kernels] {label} {tuple(yk.shape)} {yk.dtype}: "
+              f"max|kernel-plain| {err!r}, bit-exact {torch.equal(yk, yp)}",
+              flush=True)
+        check(torch.equal(yk, yp), f"{label} bit-exact vs plain")
+        return err
+
+    def budget(label, y, y32):
+        fb = (y.float() - y32).abs().max().item()
+        print(f"[kernels] {label} vs the fp32 block {fb!r}, {TILED_BUDGET} "
+              f"budget {'met' if fb <= TILED_BUDGET else 'missed'}",
+              flush=True)
+
+    # 19. kernels on the paths' own trunk activations
+    size, n = ms_cfg["size"], ms_cfg["batch"]
+    x_ms = images(n, size)
+    h7 = fi.multiscale_encode(msg, x_ms.bfloat16()).contiguous()
+    check(tuple(h7.shape) == (n, 64, 64, 512), f"trunk {tuple(h7.shape)}")
+    check(not qi.whole_image_resblock_fits(64, 64, 512)
+          and qi.pick_cout_tile(64 * 64, 512) == BN_TILE,
+          "the JAX rule sends the 64²×512 trunk to K7 at ct 128")
+    q0 = ms_q[0]
+    rqk, rsk = kt.resblock_int8_tiled_a(h7, q0, BN_TILE, qi.EPS, bn=True)
+    rqp, rsp = qi.resblock_tiled_a_plain(h7, q0, BN_TILE, bn=True)
+    check(torch.equal(rqk, rqp) and torch.equal(rsk, rsp),
+          "K7a-bn rq and rs bit-exact vs plain")
+    errs = {"a": (rqk.float() - rqp.float()).abs().max().item()}
+    print(f"[kernels] K7a-bn {tuple(h7.shape)} ct {BN_TILE}: int8 rq and "
+          f"the {rsk.shape[1]} tile scales bit-exact vs plain", flush=True)
+    errs["b"] = bit_exact("K7b-bn (on the plain rq)", kt.resblock_int8_tiled_b(
+        rqp, rsp, h7, q0, BN_TILE, qi.EPS, bn=True), qi.resblock_tiled_b_plain(
+        rqp, rsp, h7, q0, BN_TILE, bn=True))
+    y7 = qi.resblock_int8_tiled(h7, q0, BN_TILE, bn=True)
+    bit_exact("K7-bn block", y7,
+              qi.resblock_int8_tiled_plain(h7, q0, BN_TILE, bn=True))
+    budget("K7-bn block", y7, fp32_block(msg.res[0], h7))
+
+    n1, size1 = ms_cfg["small_batch"], ms_cfg["small_size"]
+    x_ms1 = images(n1, size1)
+    h1 = fi.multiscale_encode(msg, x_ms1.bfloat16()).contiguous()
+    check(tuple(h1.shape) == (n1, 32, 32, 512)
+          and qi.whole_image_resblock_fits(32, 32, 512),
+          f"the 256² trunk {tuple(h1.shape)} fits K1")
+    y1 = kr.resblock_int8_bf16io(h1, q0, qi.EPS, bn=True)
+    errs["k1"] = bit_exact("K1-bn", y1,
+                           qi.resblock_int8_bf16io_plain(h1, q0, bn=True))
+    budget("K1-bn block", y1, fp32_block(msg.res[0], h1))
+
+    x_lo = images(lo_cfg["batch"], lo_cfg["size"])
+    hl = fi.trunk_encode(log.global_trunk, log.pyramid(x_lo.bfloat16())[-1]) \
+        .contiguous()
+    check(tuple(hl.shape) == (lo_cfg["batch"], 64, 64, 512),
+          f"local trunk {tuple(hl.shape)}")
+    ql = lo_q[0]
+    rqk, rsk = kt.resblock_int8_tiled_a(hl, ql, BN_TILE, qi.EPS)
+    rqp, rsp = qi.resblock_tiled_a_plain(hl, ql, BN_TILE)
+    dq = (rqk.int() - rqp.int()).abs()
+    frac = (dq > 0).float().mean().item()
+    yl = qi.resblock_int8_tiled(hl, ql, BN_TILE)
+    d = (yl.float() - qi.resblock_int8_tiled_plain(hl, ql, BN_TILE).float()) \
+        .abs()
+    over = (d - K7_REL * yl.float().abs()).max().item()
+    print(f"[kernels] K7a {tuple(hl.shape)} ct {BN_TILE}: max|dq| "
+          f"{dq.max().item()} LSB on {frac!r} of elements; K7 block bf16 "
+          f"max|kernel-plain| {d.max().item()!r}, max over one ulp {over!r} "
+          f"(tol {K7_ABS})", flush=True)
+    check(dq.max().item() <= K7_MAX_LSB and frac <= K7_MAX_FRAC,
+          "K7a at ct 128 within one LSB on 0.1% of plain")
+    check(over <= K7_ABS, "K7 at ct 128 within one bf16 ulp + 0.01 of plain")
+    budget("K7 block (local)", yl, fp32_block(log.global_trunk.res[0], hl))
+
+    # 20. each path, counted
+    def plain_ms(x):
+        h = fi.multiscale_encode(msg, x)
+        for q in ms_q:
+            h = (qi.resblock_int8_bf16io_plain(h, q, bn=True)
+                 if qi.whole_image_resblock_fits(*h.shape[1:])
+                 else qi.resblock_int8_tiled_plain(h, q, BN_TILE, bn=True))
+        return fi.multiscale_decode(msg, h)
+
+    def plain_lo(x):
+        pyr = log.pyramid(x)
+        h = fi.trunk_encode(log.global_trunk, pyr[-1])
+        for q in lo_q:
+            h = qi.resblock_int8_tiled_plain(h, q, BN_TILE)
+        return fi.local_decode(log, h, pyr)
+
+    launches = {}
+    for label, gen, engine, plain, x, want in (
+            ("multiscale 512²", msg,
+             lambda v: fi.multiscale_global_int8_apply(msg, ms_q, v),
+             plain_ms, x_ms, {"resblock_int8_tiled_a_bn": nb,
+                              "resblock_int8_tiled_b_bn": nb}),
+            ("multiscale 256²", msg,
+             lambda v: fi.multiscale_global_int8_apply(msg, ms_q, v),
+             plain_ms, x_ms1, {"resblock_int8_bf16io_bn": nb}),
+            ("local 1024²", log,
+             lambda v: fi.local_enhancer_int8_apply(log, lo_q, v),
+             plain_lo, x_lo, {"resblock_int8_tiled_a": nb,
+                              "resblock_int8_tiled_b": nb})):
+        xb = x.bfloat16()
+        (y_bf16, y_int8), cnt = counted(lambda: (gen(xb).float(),
+                                                 engine(xb).float()))
+        print(f"[{label} path] launches {cnt}", flush=True)
+        check(all(v == want.get(k, 0) for k, v in cnt.items()),
+              f"one {label} call launches {want} and no other kernel")
+        for k in want:
+            launches[k] = launches.get(k, 0) + cnt[k]
+        with fp32_exact():
+            y32 = gen(x)
+        dk, dp = (y_int8 - y32).abs(), (plain(xb).float() - y32).abs()
+        (mk, ak), (mp, ap) = ((v.max().item(), v.mean().item())
+                              for v in (dk, dp))
+        print(f"[{label} path] int8 engine vs fp32: max {mk!r} mean {ak!r}; "
+              f"with plain kernels max {mp!r} mean {ap!r}", flush=True)
+        check(ak <= KERNEL_MEAN_RATIO * ap and mk <= mp + KERNEL_MAX_EXCESS,
+              f"{label}: kernels add little to the plain error")
+        for name, y in (("bf16", y_bf16), ("int8", y_int8)):
+            check(tuple(y.shape) == tuple(x.shape)
+                  and bool(torch.isfinite(y).all()),
+                  f"{label} {name} output shape/finite")
+            dd = (y - y32).abs()
+            print(f"[{label} path] {name} vs fp32: max {dd.max().item()!r} "
+                  f"mean {dd.mean().item()!r}", flush=True)
+
+    # 21. three requests per family
+    for family, eng, qb, n_req, sz, want in (
+            ("multiscale", ms_eng, ms_q, n, size,
+             {"resblock_int8_tiled_a_bn": nb, "resblock_int8_tiled_b_bn": nb}),
+            ("local", lo_eng, lo_q, lo_cfg["batch"], lo_cfg["size"],
+             {"resblock_int8_tiled_a": nb, "resblock_int8_tiled_b": nb})):
+        for r in range(3):
+            lab = images(n_req, sz)
+            t0 = time.perf_counter()
+            out = eng.infer_step(lab)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out8, cnt = counted(lambda: eng.infer_step_int8(qb, lab))
+            t2 = time.perf_counter()
+            check(all(v == want.get(k, 0) for k, v in cnt.items()),
+                  f"{family} request: one generator call's launches")
+            for o in (out, out8):
+                check(tuple(o.shape) == (n_req, sz, sz, 1)
+                      and o.dtype == torch.float32
+                      and bool(torch.isfinite(o).all()),
+                      f"{family} served output")
+            print(f"[serve {family}] request {r}: infer_step "
+                  f"{1e3 * (t1 - t0):.3f} ms, infer_step_int8 "
+                  f"{1e3 * (t2 - t1):.3f} ms, max|int8-bf16| "
+                  f"{(out - out8).abs().max().item():.4f}", flush=True)
+
+    # 22. times
+    xmb = images(ms_cfg["bench_batch"], size).bfloat16()
+    xlb = images(lo_cfg["bench_batch"], lo_cfg["size"]).bfloat16()
+    for label, nbat, gen, fn in (
+            ("multiscale", ms_cfg["bench_batch"], msg,
+             lambda: fi.multiscale_global_int8_apply(msg, ms_q, xmb)),
+            ("local", lo_cfg["bench_batch"], log,
+             lambda: fi.local_enhancer_int8_apply(log, lo_q, xlb))):
+        xx = xmb if label == "multiscale" else xlb
+        print_times(f"{label} generator bf16", nbat, lambda: gen(xx))
+        print_times(f"{label} generator int8", nbat, fn)
+    bn_local_breakdown(msg, ms_q, xmb, log, lo_q, xlb)
+
+    hmb = fi.multiscale_encode(msg, xmb).contiguous()
+    rqb, rsb = qi.resblock_tiled_a_plain(hmb, q0, BN_TILE, bn=True)
+    rq7, rs7 = qi.resblock_tiled_a_plain(h7, q0, BN_TILE, bn=True)
+    rows = []
+    for name, line, src, err, kfn, kfn_b, pfn, (bnd, by), (bnd_b, _) in (
+            ("resblock_int8_bf16io_bn", ":240", "int8_resblock.cu", errs["k1"],
+             lambda: kr.resblock_int8_bf16io(h1, q0, qi.EPS, bn=True), None,
+             lambda: qi.resblock_int8_bf16io_plain(h1, q0, bn=True),
+             k_bound_ms(*h1.shape, 2), (None, None)),
+            ("resblock_int8_tiled_a_bn", ":519", "int8_tiled.cu", errs["a"],
+             lambda: kt.resblock_int8_tiled_a(h7, q0, BN_TILE, qi.EPS, bn=True),
+             lambda: kt.resblock_int8_tiled_a(hmb, q0, BN_TILE, qi.EPS,
+                                              bn=True),
+             lambda: qi.resblock_tiled_a_plain(h7, q0, BN_TILE, bn=True),
+             k7_bound_ms(*h7.shape, "a"), k7_bound_ms(*hmb.shape, "a")),
+            ("resblock_int8_tiled_b_bn", ":532", "int8_tiled.cu", errs["b"],
+             lambda: kt.resblock_int8_tiled_b(rq7, rs7, h7, q0, BN_TILE,
+                                              qi.EPS, bn=True),
+             lambda: kt.resblock_int8_tiled_b(rqb, rsb, hmb, q0, BN_TILE,
+                                              qi.EPS, bn=True),
+             lambda: qi.resblock_tiled_b_plain(rq7, rs7, h7, q0, BN_TILE,
+                                               bn=True),
+             k7_bound_ms(*h7.shape, "b"), k7_bound_ms(*hmb.shape, "b"))):
+        ms, plain_ms_ = cuda_ms(kfn, 20), cuda_ms(pfn, 5)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "cistar_tpu_torch/csrc/" + src,
+                     "replaces": "cistar_tpu/ops/quant_pallas.py" + line,
+                     "launches": launches[name], "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms_, "bound_ms": bnd,
+                     "bound_by": by, "library_ms": None})
+        extra = "" if kfn_b is None else (
+            f"; {tuple(hmb.shape)}: {cuda_ms(kfn_b, 10)!r} ms, bound "
+            f"{bnd_b!r} ms")
+        print(f"[times] {name} at the checked shape: {ms!r} ms, bound "
+              f"{bnd!r} ms ({by}), plain {plain_ms_!r} ms{extra}", flush=True)
+    hlb = fi.trunk_encode(log.global_trunk, log.pyramid(xlb)[-1]).contiguous()
+    rqlb, rslb = kt.resblock_int8_tiled_a(hlb, ql, BN_TILE, qi.EPS)
+    for name, fn, (bnd, by) in (
+            (f"resblock_int8_tiled_a ct {BN_TILE} {tuple(hlb.shape)}",
+             lambda: kt.resblock_int8_tiled_a(hlb, ql, BN_TILE, qi.EPS),
+             k7_bound_ms(*hlb.shape, "a")),
+            (f"resblock_int8_tiled_b ct {BN_TILE} {tuple(hlb.shape)}",
+             lambda: kt.resblock_int8_tiled_b(rqlb, rslb, hlb, ql, BN_TILE,
+                                              qi.EPS),
+             k7_bound_ms(*hlb.shape, "b"))):
+        print(f"[times] {name}: {cuda_ms(fn, 10)!r} ms, bound {bnd!r} ms "
+              f"({by})", flush=True)
+    return rows
+
+
+def bn_local_breakdown(msg, ms_q, xm, log, lo_q, xl) -> None:
+    """Where the time of the ``multiscale`` and ``local`` engines goes:
+    CUDA-event ms of each segment of one generator call, on the engine's
+    own activations."""
+    from cistar_tpu_torch.models import fast_infer as fi
+    from cistar_tpu_torch.ops import nn as tnn
+
+    t_in = fi.multiscale_encode(msg, xm)
+    t_out = fi.global_trunk_int8(t_in, ms_q, bn=True)
+    ups = [t_out]
+    for m in msg.up:
+        ups.append(m(ups[-1]))
+
+    def run(mods, v):
+        for m in mods:
+            v = m(v)
+        return v
+
+    def run_ups(stage):
+        for m, v in zip(msg.up, ups):
+            stage(m, v)
+    segs = {"branches + fuse": (lambda: msg.encode(xm),
+                                lambda: fi.multiscale_encode(msg, xm)),
+            "trunk": (lambda: run(msg.res, t_in),
+                      lambda: fi.global_trunk_int8(t_in, ms_q, bn=True)),
+            "ups": (lambda: run_ups(lambda m, v: m(v)),
+                    lambda: run_ups(fi._bn_stage)),
+            "head": (lambda: msg.head(ups[-1]),
+                     lambda: tnn.tanh(msg.head.conv(ups[-1])))}
+    for e, engine in enumerate(("bf16", "int8")):
+        ms = {k: cuda_ms(v[e], 5) for k, v in segs.items()}
+        print(f"[breakdown] multiscale {engine} batch {xm.shape[0]} (ms): "
+              + "; ".join(f"{k} {t!r}" for k, t in ms.items())
+              + f"; sum {sum(ms.values())!r}", flush=True)
+
+    tr = log.global_trunk
+    pyr = log.pyramid(xl)
+    g_in = fi.trunk_encode(log.global_trunk, pyr[-1])
+    g_out = fi.global_trunk_int8(g_in, lo_q)
+    e_in = run(tr.up, g_out)
+    segs = {"pyramid": (lambda: log.pyramid(xl),) * 2,
+            "global stem + downs": (
+                lambda: run(tr.down, tr.stem(pyr[-1])),
+                lambda: fi.trunk_encode(log.global_trunk, pyr[-1])),
+            "global trunk": (lambda: run(tr.res, g_in),
+                             lambda: fi.global_trunk_int8(g_in, lo_q)),
+            "global ups": (lambda: run(tr.up, g_out),) * 2,
+            "enhancer + head": (
+                lambda: log.head(run([log.enhancer(1, f"res_{i}") for i in
+                                      range(log.n_blocks_local)]
+                                     + [log.enhancer(1, "up")],
+                                     log.enhancer(1, "down")(
+                                         log.enhancer(1, "stem")(pyr[0]))
+                                     + e_in)),
+                lambda: fi.local_decode(log, g_out, pyr))}
+    for e, engine in enumerate(("bf16", "int8")):
+        ms = {k: cuda_ms(v[e], 5) for k, v in segs.items()}
+        if e == 1:   # the int8 decode includes the global ups
+            ms["enhancer + head"] -= ms["global ups"]
+        print(f"[breakdown] local {engine} batch {xl.shape[0]} (ms): "
+              + "; ".join(f"{k} {t!r}" for k, t in ms.items())
+              + f"; sum {sum(ms.values())!r}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1450,6 +1835,7 @@ def main() -> int:
     rows += p2phd_path("global", images, counters)
     rows += p2phd_path("UNet", images, counters)
     rows += fused_path(dev, images, counters)
+    rows += bn_local_path(images, counters)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -8,12 +8,16 @@ port's own copy so the port imports nothing of ``cistar_tpu``:
   * conv weight            HWIO → OIHW              (``transpose(3, 2, 0, 1)``)
   * transpose-conv weight  HWIO (I=in, O=out) → (in, out, kh, kw)
                            (``transpose(2, 3, 0, 1)``, no spatial flip)
+  * BatchNorm              ``gamma`` (stored as γ−1) + 1 → ``weight``,
+                           ``beta`` → ``bias``; the ``batch_stats`` tree's
+                           ``mean`` / ``var`` → ``running_mean`` /
+                           ``running_var``
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Callable, Dict, Iterator, Mapping, Tuple
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,14 +45,19 @@ def _torch_key(path: Tuple[str, ...]) -> str:
     return ".".join(parts)
 
 
-def _conv_nodes(params: Mapping[str, Any], path: Tuple[str, ...] = ()
-                ) -> Iterator[Tuple[Tuple[str, ...], Mapping[str, Any]]]:
-    """Every ``{"w", "b"}`` node of a param tree, with its path."""
+def _nodes(params: Mapping[str, Any], path: Tuple[str, ...] = ()
+           ) -> Iterator[Tuple[Tuple[str, ...], Mapping[str, Any]]]:
+    """Every conv ``{"w", "b"}`` and BatchNorm ``{"gamma", "beta"}`` node
+    of a param tree, with its path."""
     for k, v in params.items():
-        if "w" in v:
+        if "w" in v or "gamma" in v:
             yield path + (k,), v
         else:
-            yield from _conv_nodes(v, path + (k,))
+            yield from _nodes(v, path + (k,))
+
+
+def _f32(a: Any) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
 
 
 _UNET_NAME = re.compile(r"^(down|up)_(\d+)_(convt?)$|^(msrb)_(\d+)$")
@@ -73,23 +82,37 @@ def _unet_key(path: Tuple[str, ...]) -> str:
 def generator_from_jax(params: Mapping[str, Any],
                        transposed: Callable[[Tuple[str, ...]], bool]
                        = lambda path: False,
-                       key: Callable[[Tuple[str, ...]], str] = _torch_key
+                       key: Callable[[Tuple[str, ...]], str] = _torch_key,
+                       batch_stats: Optional[Mapping[str, Any]] = None
                        ) -> Dict[str, torch.Tensor]:
     """A generator's JAX params → ``state_dict`` of its port counterpart
     (:mod:`cistar_tpu_torch.models`). ``transposed(path)`` says which nodes
     are transpose convs, ``key(path)`` names each node's module. A
     ``MultiscaleBilinearGenerator`` (``init_conv``, ``down_i/b{j}_conv``,
     ``res_i/atrous/b{j}_conv``, ``res_i/conv``, ``up_i/conv``,
-    ``out_conv``) has none, and the default names."""
+    ``out_conv``) has none, and the default names. A BatchNorm node takes
+    its running statistics from ``batch_stats`` at the same path."""
     sd: Dict[str, torch.Tensor] = {}
-    for path, node in _conv_nodes(params):
+    for path, node in _nodes(params):
+        key_ = key(path)
+        if "gamma" in node:
+            if batch_stats is None:
+                raise ValueError(f"BatchNorm {'/'.join(path)} needs the "
+                                 "generator's batch_stats")
+            st = batch_stats
+            for p in path:
+                st = st[p]
+            sd[f"{key_}.weight"] = _f32(np.asarray(node["gamma"], np.float32)
+                                        + np.float32(1.0))
+            sd[f"{key_}.bias"] = _f32(node["beta"])
+            sd[f"{key_}.running_mean"] = _f32(st["mean"])
+            sd[f"{key_}.running_var"] = _f32(st["var"])
+            continue
         w = np.asarray(node["w"], np.float32)
         w = conv_transpose_w_from_hwio(w) if transposed(path) \
             else conv_w_from_hwio(w)
-        key_ = key(path)
         sd[f"{key_}.weight"] = torch.from_numpy(w)
-        sd[f"{key_}.bias"] = torch.from_numpy(
-            np.asarray(node["b"], np.float32).copy())
+        sd[f"{key_}.bias"] = _f32(node["b"])
     return sd
 
 
@@ -110,6 +133,29 @@ def global_generator_from_jax(params: Mapping[str, Any]
     (transpose), ``head/conv``) → a ``state_dict`` for :class:`~
     cistar_tpu_torch.models.pix2pixhd.GlobalGenerator`."""
     return generator_from_jax(params, lambda path: path[-1] == "convt")
+
+
+def local_enhancer_from_jax(params: Mapping[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """pix2pixHD ``LocalEnhancer`` params (``global/…`` as a
+    ``GlobalGeneratorTrunk``, ``enh{n}_stem/conv``, ``enh{n}_down/conv``,
+    ``enh{n}_res_{i}/conv{1,2}``, ``enh{n}_up/convt`` (transpose),
+    ``head/conv``) → a ``state_dict`` for :class:`~cistar_tpu_torch.models.
+    pix2pixhd.LocalEnhancer`."""
+    return generator_from_jax(params, lambda path: path[-1] == "convt")
+
+
+def multiscale_global_generator_from_jax(params: Mapping[str, Any],
+                                         batch_stats: Mapping[str, Any]
+                                         ) -> Dict[str, torch.Tensor]:
+    """pix2pixHD ``MultiscaleGlobalGenerator`` params (``b1_stem``,
+    ``b1_down``, ``feat_stem``, ``connect_b12``, ``connect_b23``, each
+    ``{conv, norm}``; ``res_i/{conv1,norm1,conv2,norm2}``,
+    ``up_i/{convt,norm}`` (transpose), ``head/conv``) and its
+    ``batch_stats`` tree → a ``state_dict`` for :class:`~cistar_tpu_torch.
+    models.pix2pixhd.MultiscaleGlobalGenerator`."""
+    return generator_from_jax(params, lambda path: path[-1] == "convt",
+                              batch_stats=batch_stats)
 
 
 def unet_generator_hd_from_jax(params: Mapping[str, Any]

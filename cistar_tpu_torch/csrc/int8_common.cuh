@@ -236,6 +236,9 @@ __global__ void quant_kernel(const T* __restrict__ x, long per_image, Sub sub,
 //               added to the statistics (K1, K2, K5, K6, K7a)
 //   EPI_GSTATS  f = (sum_g float(acc_g) * gs[n, g]) * ws[c] + bias[c], the
 //               group sum in fp32 in group order; the statistics as above (K7b)
+//   With st_sum null (the BatchNorm forms of K1 / K7, whose norm is folded
+//   into ws and bias), EPI_STATS / EPI_GSTATS write f and add no sum, only
+//   the max where WANT_MAX.
 //   EPI_GRELU   the same f, then ReLU. WANT_MAX: f into f (fp32) and its max
 //               per (image, tile of ct channels) into st_max; else f into out
 //               as TO (K8)
@@ -474,6 +477,8 @@ __global__ void __launch_bounds__(CONV_THREADS) conv_s8_kernel(const ConvArgs a)
           store2(a.f + row * Cout + col, fv[mi][ni][2 * h], fv[mi][ni][2 * h + 1]);
       }
   if (EPI == EPI_GRELU && !WANT_MAX) return;
+  const bool sums = a.st_sum != nullptr;
+  if (!sums && !WANT_MAX) return;
   // Reduce over the 8 row groups of the warp (lane bits 2..4) ...
 #pragma unroll
   for (int ni = 0; ni < NI; ++ni)
@@ -509,8 +514,10 @@ __global__ void __launch_bounds__(CONV_THREADS) conv_s8_kernel(const ConvArgs a)
       return;
     }
     const long o = static_cast<long>(img) * Cout + n0 + tid;
-    atomicAdd(a.st_sum + o, __fadd_rn(red[0][0][tid], red[1][0][tid]));
-    atomicAdd(a.st_sq + o, __fadd_rn(red[0][1][tid], red[1][1][tid]));
+    if (sums) {
+      atomicAdd(a.st_sum + o, __fadd_rn(red[0][0][tid], red[1][0][tid]));
+      atomicAdd(a.st_sq + o, __fadd_rn(red[0][1][tid], red[1][1][tid]));
+    }
     if (WANT_MAX) atomic_max_float(a.st_max + o, m);
   }
 }
@@ -560,6 +567,10 @@ void launch_conv_wide(const ConvArgs& a, cudaStream_t st) {
 // image, one (branch, image) pair, or one (image, tile of C channels) of a
 // wider image): mean and rsigma per channel; with WANT_RMAX also the
 // requantization scale of relu(IN(f)) of the row from max f (K1, K7a).
+// bn: the BatchNorm forms (K1 / K7 with bn=True), whose affine is already
+// in f; mean 0 and rsigma 1, which the passes below apply exactly ((f - 0)
+// * 1 == f), and the scale from max(0, max_c max f_c), exact as well since
+// ReLU is monotone.
 template <bool WANT_RMAX>
 __global__ void in_stats_kernel(const float* __restrict__ st_sum,
                                 const float* __restrict__ st_sq,
@@ -567,15 +578,18 @@ __global__ void in_stats_kernel(const float* __restrict__ st_sum,
                                 float hw, float eps, float* __restrict__ mean,
                                 float* __restrict__ rsig,
                                 float* __restrict__ rinv,
-                                float* __restrict__ rscale) {
+                                float* __restrict__ rscale, bool bn = false) {
   const int n = blockIdx.x;
   float m = 0.f;
   for (int c = threadIdx.x; c < C; c += EW_THREADS) {
     const long o = static_cast<long>(n) * C + c;
-    const float mu = __fdiv_rn(st_sum[o], hw);
-    const float msq = __fdiv_rn(st_sq[o], hw);
-    const float var = fmaxf(__fsub_rn(msq, __fmul_rn(mu, mu)), 0.f);
-    const float rs = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
+    float mu = 0.f, rs = 1.f;
+    if (!bn) {
+      mu = __fdiv_rn(st_sum[o], hw);
+      const float msq = __fdiv_rn(st_sq[o], hw);
+      const float var = fmaxf(__fsub_rn(msq, __fmul_rn(mu, mu)), 0.f);
+      rs = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
+    }
     mean[o] = mu;
     rsig[o] = rs;
     if (WANT_RMAX) m = fmaxf(m, fmaxf(__fmul_rn(__fsub_rn(st_max[o], mu), rs), 0.f));

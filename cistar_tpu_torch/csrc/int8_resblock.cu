@@ -53,6 +53,16 @@
 // within a tolerance, the int32 accumulators of the conv
 // (conv3x3_reflect_s8_acc) bit for bit.
 //
+// K1's bn form (bn = 1; the TPU kernel's bn=True, the BatchNorm ResnetBlock
+// of pix2pixHD's MultiscaleGlobalGenerator): the inference BatchNorm is an
+// affine already folded into the sb rows (quantize_resblock_bn), so there is
+// no IN. Each conv's epilogue adds no statistic; conv 1 keeps the max f of
+// each (image, channel), which gives the requantization scale
+// max(0, max_c max f_c) / 127 exactly. The IN passes then run with mean 0
+// and rsigma 1, which leave f unchanged. The only reduction across CTAs is
+// a max, which does not depend on order: the bn form equals its plain
+// version bit for bit.
+//
 // Interface: plain C, loaded with ctypes. Every entry returns
 // cudaGetLastError() as an int. Nothing here allocates: the caller passes
 // a workspace of cistar_resblock_workspace_bytes() bytes.
@@ -105,43 +115,46 @@ bool shape_ok(int n, int h, int w, int c) {
 }
 
 // Clears the statistics (sum, sum of squares: 0; max: 0xFF bytes, which
-// atomic_max_float treats as below every value), then one conv.
+// atomic_max_float treats as below every value), then one conv. bn: no
+// sums, the max only.
 template <bool WANT_MAX>
 void conv_stats(const Workspace& ws, const int8_t* q, const int8_t* wk,
                 const float* xs, const float* wscale, const float* bias, int n,
-                int h, int w, int c, cudaStream_t st) {
+                int h, int w, int c, bool bn, cudaStream_t st) {
   const size_t nc = static_cast<size_t>(n) * c;
-  cudaMemsetAsync(ws.st_sum, 0, 2 * nc * 4, st);
+  if (!bn) cudaMemsetAsync(ws.st_sum, 0, 2 * nc * 4, st);
   if (WANT_MAX) cudaMemsetAsync(ws.st_max, 0xFF, nc * 4, st);
   launch_conv<EPI_STATS, WANT_MAX, true>(
-      ConvArgs{q, wk, xs, wscale, bias, nullptr, ws.f, ws.st_sum, ws.st_sq,
-               ws.st_max, n, h, w, c, c, 1},
+      ConvArgs{q, wk, xs, wscale, bias, nullptr, ws.f, bn ? nullptr : ws.st_sum,
+               bn ? nullptr : ws.st_sq, ws.st_max, n, h, w, c, c, 1},
       st);
 }
 
-// conv 1 -> IN -> ReLU -> requantize into ws.q -> conv 2, leaving f2 in
-// ws.f and its IN statistics in ws.mean / ws.rsig. xs: conv 1 input scale.
+// conv 1 -> IN (bn: the folded affine) -> ReLU -> requantize into ws.q ->
+// conv 2, leaving f2 in ws.f and its IN statistics in ws.mean / ws.rsig
+// (bn: 0 and 1). xs: conv 1 input scale.
 void block_body(const Workspace& ws, const int8_t* xq, const float* xs,
                 const int8_t* w1k, const int8_t* w2k, const float* sb, int n,
-                int h, int w, int c, float eps, cudaStream_t st) {
+                int h, int w, int c, float eps, bool bn, cudaStream_t st) {
   const long per_image = static_cast<long>(h) * w * c;
   const float hw = static_cast<float>(h * w);
-  conv_stats<true>(ws, xq, w1k, xs, sb, sb + c, n, h, w, c, st);
+  conv_stats<true>(ws, xq, w1k, xs, sb, sb + c, n, h, w, c, bn, st);
   in_stats_kernel<true><<<n, EW_THREADS, 0, st>>>(ws.st_sum, ws.st_sq, ws.st_max, c,
                                                   hw, eps, ws.mean, ws.rsig,
-                                                  ws.rinv, ws.rscale);
+                                                  ws.rinv, ws.rscale, bn);
   in_relu_quant_kernel<<<ew_grid(per_image, n), EW_THREADS, 0, st>>>(
       ws.f, per_image, c, c, ws.mean, ws.rsig, ws.rinv, ws.q);
-  conv_stats<false>(ws, ws.q, w2k, ws.rscale, sb + 2 * c, sb + 3 * c, n, h, w, c, st);
+  conv_stats<false>(ws, ws.q, w2k, ws.rscale, sb + 2 * c, sb + 3 * c, n, h, w, c, bn,
+                    st);
   in_stats_kernel<false><<<n, EW_THREADS, 0, st>>>(ws.st_sum, ws.st_sq, nullptr, c,
                                                    hw, eps, ws.mean, ws.rsig,
-                                                   nullptr, nullptr);
+                                                   nullptr, nullptr, bn);
 }
 
 template <typename T>
 int resblock_bf16io(const T* x, const int8_t* w1k, const int8_t* w2k,
                     const float* sb, T* out, void* workspace, int n, int h, int w,
-                    int c, float eps, cudaStream_t st) {
+                    int c, float eps, bool bn, cudaStream_t st) {
   Workspace ws;
   workspace_layout(n, static_cast<long>(h) * w, c, static_cast<char*>(workspace), &ws);
   const long per_image = static_cast<long>(h) * w * c;
@@ -150,7 +163,7 @@ int resblock_bf16io(const T* x, const int8_t* w1k, const int8_t* w2k,
                                                        ws.amax);
   quant_kernel<T><<<ew_grid(per_image, n), EW_THREADS, 0, st>>>(
       x, per_image, dense(per_image), ws.amax, ws.q, ws.xscale);
-  block_body(ws, ws.q, ws.xscale, w1k, w2k, sb, n, h, w, c, eps, st);
+  block_body(ws, ws.q, ws.xscale, w1k, w2k, sb, n, h, w, c, eps, bn, st);
   in_skip_out_kernel<T, T, false><<<ew_grid(per_image, n), EW_THREADS, 0, st>>>(
       ws.f, per_image, c, ws.mean, ws.rsig, x, nullptr, out, nullptr);
   return static_cast<int>(cudaGetLastError());
@@ -178,11 +191,12 @@ int cistar_conv3x3_reflect_s8_acc(const void* xq, const void* wk, void* acc,
 }
 
 // K1: x, out (N,H,W,C) bf16 (is_bf16 = 1) or fp32; sb (4, C) fp32 rows
-// [w1_scale, b1, w2_scale, b2].
+// [w1_scale, b1, w2_scale, b2]; bn = 1: the BatchNorm form, the norm folded
+// into sb (quantize_resblock_bn), no IN.
 int cistar_resblock_int8_bf16io(const void* x, int is_bf16, const void* w1k,
                                 const void* w2k, const void* sb, void* out,
                                 void* workspace, int n, int h, int w, int c,
-                                float eps, void* stream) {
+                                float eps, int bn, void* stream) {
   if (!shape_ok(n, h, w, c)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* a = static_cast<const int8_t*>(w1k);
@@ -191,9 +205,10 @@ int cistar_resblock_int8_bf16io(const void* x, int is_bf16, const void* w1k,
   if (is_bf16)
     return resblock_bf16io(static_cast<const __nv_bfloat16*>(x), a, b, s,
                            static_cast<__nv_bfloat16*>(out), workspace, n, h, w, c,
-                           eps, st);
+                           eps, bn != 0, st);
   return resblock_bf16io(static_cast<const float*>(x), a, b, s,
-                         static_cast<float*>(out), workspace, n, h, w, c, eps, st);
+                         static_cast<float*>(out), workspace, n, h, w, c, eps, bn != 0,
+                         st);
 }
 
 // K2: hq (N,H,W,C) int8 + hs (N,) fp32 -> outq (N,H,W,C) int8 + outs (N,).
@@ -210,7 +225,7 @@ int cistar_resblock_int8(const void* hq, const void* hs, const void* w1k,
   const float* xs = static_cast<const float*>(hs);
   block_body(ws, xq, xs, static_cast<const int8_t*>(w1k),
              static_cast<const int8_t*>(w2k), static_cast<const float*>(sb), n, h,
-             w, c, eps, st);
+             w, c, eps, false, st);
   cudaMemsetAsync(ws.oamax, 0, n * 4, st);
   in_skip_out_kernel<int8_t, float, true><<<ew_grid(per_image, n), EW_THREADS, 0, st>>>(
       ws.f, per_image, c, ws.mean, ws.rsig, xq, xs, ws.f, ws.oamax);

@@ -46,6 +46,16 @@
 // int32 accumulators of conv 1 and of every group of conv 2
 // (cistar_conv3x3_reflect_grouped_s8_acc) are compared bit for bit.
 //
+// The bn form (bn = 1; the TPU kernels' bn=True, the 512-channel trunk of
+// pix2pixHD's MultiscaleGlobalGenerator at 64x64, ct 128): the inference
+// BatchNorm is folded into the sb rows (quantize_resblock_bn), so neither
+// kernel sums a statistic. K7a's conv keeps the max f of each (image,
+// channel), and each (image, tile) scale is max(0, max over the tile of
+// max f_c) / 127, exactly; K7b's conv writes f2 and the skip pass adds it
+// to x. With the IN passes at mean 0 and rsigma 1 (which leave f as it
+// is), every cross-CTA reduction left is a max: rq, rs and the output
+// equal their plain versions bit for bit.
+//
 // Interface: plain C, loaded with ctypes. Every entry returns
 // cudaGetLastError() as an int. Nothing here allocates: the caller passes a
 // workspace of cistar_tiled_workspace_bytes() bytes.
@@ -92,7 +102,7 @@ bool tiled_shape_ok(int n, int h, int w, int c, int ct) {
 
 template <typename T>
 int tiled_a(const T* x, const int8_t* w1k, const float* sb, int8_t* rq, float* rs,
-            void* workspace, int n, int h, int w, int c, int ct, float eps,
+            void* workspace, int n, int h, int w, int c, int ct, float eps, bool bn,
             cudaStream_t st) {
   TiledWs ws;
   tiled_layout(n, static_cast<long>(h) * w, c, static_cast<char*>(workspace), &ws);
@@ -103,16 +113,17 @@ int tiled_a(const T* x, const int8_t* w1k, const float* sb, int8_t* rq, float* r
                                                        ws.amax);
   quant_kernel<T><<<ew_grid(per_image, n), EW_THREADS, 0, st>>>(
       x, per_image, dense(per_image), ws.amax, ws.q, ws.xscale);
-  cudaMemsetAsync(ws.st_sum, 0, 2 * nc * 4, st);
+  if (!bn) cudaMemsetAsync(ws.st_sum, 0, 2 * nc * 4, st);
   cudaMemsetAsync(ws.st_max, 0xFF, nc * 4, st);
   launch_conv_wide<EPI_STATS, true, true>(
-      ConvArgs{ws.q, w1k, ws.xscale, sb, sb + c, nullptr, ws.f, ws.st_sum, ws.st_sq,
-               ws.st_max, n, h, w, c, c, 1},
+      ConvArgs{ws.q, w1k, ws.xscale, sb, sb + c, nullptr, ws.f,
+               bn ? nullptr : ws.st_sum, bn ? nullptr : ws.st_sq, ws.st_max, n, h, w,
+               c, c, 1},
       st);
   // one row of statistics per (image, tile): C = ct
   in_stats_kernel<true><<<n * (c / ct), EW_THREADS, 0, st>>>(
       ws.st_sum, ws.st_sq, ws.st_max, ct, static_cast<float>(h * w), eps, ws.mean,
-      ws.rsig, ws.rinv, rs);
+      ws.rsig, ws.rinv, rs, bn);
   in_relu_quant_kernel<<<ew_grid(per_image, n), EW_THREADS, 0, st>>>(
       ws.f, per_image, c, ct, ws.mean, ws.rsig, ws.rinv, rq);
   return static_cast<int>(cudaGetLastError());
@@ -121,20 +132,22 @@ int tiled_a(const T* x, const int8_t* w1k, const float* sb, int8_t* rq, float* r
 template <typename T>
 int tiled_b(const int8_t* rq, const float* rs, const int8_t* w2k, const float* sb,
             const T* x, T* out, void* workspace, int n, int h, int w, int c, int ct,
-            float eps, cudaStream_t st) {
+            float eps, bool bn, cudaStream_t st) {
   TiledWs ws;
   tiled_layout(n, static_cast<long>(h) * w, c, static_cast<char*>(workspace), &ws);
   const long per_image = static_cast<long>(h) * w * c;
   const size_t nc = static_cast<size_t>(n) * c;
-  cudaMemsetAsync(ws.st_sum, 0, 2 * nc * 4, st);
-  ConvArgs a{rq, w2k, nullptr, sb + 2 * c, sb + 3 * c, nullptr, ws.f, ws.st_sum,
-             ws.st_sq, nullptr, n, h, w, c, c, 1};
+  if (!bn) cudaMemsetAsync(ws.st_sum, 0, 2 * nc * 4, st);
+  ConvArgs a{rq, w2k, nullptr, sb + 2 * c, sb + 3 * c, nullptr, ws.f,
+             bn ? nullptr : ws.st_sum, bn ? nullptr : ws.st_sq, nullptr, n, h, w, c, c,
+             1};
   a.gs = rs;
   a.groups = c / ct;
   launch_conv_wide<EPI_GSTATS, false, true>(a, st);
   in_stats_kernel<false><<<n, EW_THREADS, 0, st>>>(ws.st_sum, ws.st_sq, nullptr, c,
                                                    static_cast<float>(h * w), eps,
-                                                   ws.mean, ws.rsig, nullptr, nullptr);
+                                                   ws.mean, ws.rsig, nullptr, nullptr,
+                                                   bn);
   in_skip_out_kernel<T, T, false><<<ew_grid(per_image, n), EW_THREADS, 0, st>>>(
       ws.f, per_image, c, ws.mean, ws.rsig, x, nullptr, out, nullptr);
   return static_cast<int>(cudaGetLastError());
@@ -166,10 +179,11 @@ int cistar_conv3x3_reflect_grouped_s8_acc(const void* xq, const void* wk, void* 
 
 // K7a: x (N,H,W,C) bf16 (is_bf16 = 1) or fp32; w1k (C, 9*C) int8; sb (4, C)
 // fp32 rows [w1_scale, b1, w2_scale, b2] -> rq (N,H,W,C) int8 and rs
-// (N, C/ct) fp32, the scale of each (image, tile).
+// (N, C/ct) fp32, the scale of each (image, tile). bn = 1: the BatchNorm
+// form, the norm folded into sb, no IN (also in K7b).
 int cistar_resblock_tiled_a(const void* x, int is_bf16, const void* w1k,
                             const void* sb, void* rq, void* rs, void* workspace,
-                            int n, int h, int w, int c, int ct, float eps,
+                            int n, int h, int w, int c, int ct, float eps, int bn,
                             void* stream) {
   if (!tiled_shape_ok(n, h, w, c, ct)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -179,9 +193,9 @@ int cistar_resblock_tiled_a(const void* x, int is_bf16, const void* w1k,
   float* r = static_cast<float*>(rs);
   if (is_bf16)
     return tiled_a(static_cast<const __nv_bfloat16*>(x), wk, s, q, r, workspace, n, h,
-                   w, c, ct, eps, st);
+                   w, c, ct, eps, bn != 0, st);
   return tiled_a(static_cast<const float*>(x), wk, s, q, r, workspace, n, h, w, c, ct,
-                 eps, st);
+                 eps, bn != 0, st);
 }
 
 // K7b: rq, rs from K7a; w2k (C, 9*C) int8; sb as K7a; x the block input
@@ -189,7 +203,7 @@ int cistar_resblock_tiled_a(const void* x, int is_bf16, const void* w1k,
 int cistar_resblock_tiled_b(const void* rq, const void* rs, const void* w2k,
                             const void* sb, const void* x, int is_bf16, void* out,
                             void* workspace, int n, int h, int w, int c, int ct,
-                            float eps, void* stream) {
+                            float eps, int bn, void* stream) {
   if (!tiled_shape_ok(n, h, w, c, ct)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* q = static_cast<const int8_t*>(rq);
@@ -198,9 +212,10 @@ int cistar_resblock_tiled_b(const void* rq, const void* rs, const void* w2k,
   const float* s = static_cast<const float*>(sb);
   if (is_bf16)
     return tiled_b(q, r, wk, s, static_cast<const __nv_bfloat16*>(x),
-                   static_cast<__nv_bfloat16*>(out), workspace, n, h, w, c, ct, eps, st);
+                   static_cast<__nv_bfloat16*>(out), workspace, n, h, w, c, ct, eps,
+                   bn != 0, st);
   return tiled_b(q, r, wk, s, static_cast<const float*>(x), static_cast<float*>(out),
-                 workspace, n, h, w, c, ct, eps, st);
+                 workspace, n, h, w, c, ct, eps, bn != 0, st);
 }
 
 }  // extern "C"

@@ -2,7 +2,9 @@
 
   * :func:`conv3x3_reflect_s8` — the int8 reflect-pad-1 3×3 conv, int32
     accumulators out (the conv of ``quant_pallas.py::_conv9_int8``)
-  * :func:`resblock_int8_bf16io` — K1 (``_resblock_int8_bf16io_kernel``)
+  * :func:`resblock_int8_bf16io` — K1 (``_resblock_int8_bf16io_kernel``),
+    with ``bn=True`` its BatchNorm form (counted as
+    ``resblock_int8_bf16io_bn``)
   * :func:`resblock_int8` — K2 (``_resblock_int8_kernel``)
 
 Each takes CUDA tensors only and launches on PyTorch's current stream; the
@@ -24,13 +26,13 @@ from cistar_tpu_torch.kernels.build import (I, F, P, check_same_device,
                                             check_tensor, raise_on, stream)
 
 launches: Dict[str, int] = {"conv3x3_reflect_s8": 0, "resblock_int8_bf16io": 0,
-                            "resblock_int8": 0}
+                            "resblock_int8_bf16io_bn": 0, "resblock_int8": 0}
 
 _SIGS = {
     "cistar_resblock_workspace_bytes": ((I, I, I, I), ctypes.c_size_t),
     "cistar_conv3x3_reflect_s8_acc": ((P, P, P, I, I, I, I, P), I),
     "cistar_resblock_int8_bf16io": (
-        (P, I, P, P, P, P, P, I, I, I, I, F, P), I),
+        (P, I, P, P, P, P, P, I, I, I, I, F, I, P), I),
     "cistar_resblock_int8": (
         (P, P, P, P, P, P, P, P, I, I, I, I, F, P), I),
 }
@@ -83,9 +85,10 @@ def conv3x3_reflect_s8(xq: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def resblock_int8_bf16io(hx: torch.Tensor, qblk, eps: float
-                         ) -> torch.Tensor:
-    """K1: bf16 or fp32 (N,H,W,C) carrier in, same dtype out."""
+def resblock_int8_bf16io(hx: torch.Tensor, qblk, eps: float,
+                         bn: bool = False) -> torch.Tensor:
+    """K1: bf16 or fp32 (N,H,W,C) carrier in, same dtype out. ``bn``: the
+    BatchNorm form, its affine folded into ``sb`` (no IN)."""
     if hx.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"K1 takes a bf16 or fp32 carrier, got {hx.dtype}")
     check_tensor(hx, "hx", hx.dtype)
@@ -97,9 +100,10 @@ def resblock_int8_bf16io(hx: torch.Tensor, qblk, eps: float
     err = lib.cistar_resblock_int8_bf16io(
         hx.data_ptr(), int(hx.dtype == torch.bfloat16), w1k.data_ptr(),
         w2k.data_ptr(), sb.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        n, h, w, c, eps, stream())
-    raise_on(err, "resblock_int8_bf16io")
-    launches["resblock_int8_bf16io"] += 1
+        n, h, w, c, eps, int(bn), stream())
+    name = "resblock_int8_bf16io_bn" if bn else "resblock_int8_bf16io"
+    raise_on(err, name)
+    launches[name] += 1
     return out
 
 

@@ -5,6 +5,9 @@
   * :func:`resblock_int8_tiled_a` — K7a (``_resblock_a_kernel``)
   * :func:`resblock_int8_tiled_b` — K7b (``_resblock_b_kernel``)
 
+Both take ``bn=True`` for their BatchNorm form, counted as
+``resblock_int8_tiled_a_bn`` / ``resblock_int8_tiled_b_bn``.
+
 Each takes CUDA tensors only and launches on PyTorch's current stream; the
 CPU path is the plain version in :mod:`cistar_tpu_torch.ops.quant_int8`.
 The library is built on the first call (:mod:`.build`). ``launches`` counts
@@ -25,14 +28,17 @@ from cistar_tpu_torch.kernels.build import (I, F, P, check_same_device,
 
 launches: Dict[str, int] = {"conv3x3_reflect_grouped_s8": 0,
                             "resblock_int8_tiled_a": 0,
-                            "resblock_int8_tiled_b": 0}
+                            "resblock_int8_tiled_b": 0,
+                            "resblock_int8_tiled_a_bn": 0,
+                            "resblock_int8_tiled_b_bn": 0}
 
 _SIGS = {
     "cistar_tiled_workspace_bytes": ((I, I, I, I), ctypes.c_size_t),
     "cistar_conv3x3_reflect_grouped_s8_acc": ((P, P, P, I, I, I, I, I, P), I),
-    "cistar_resblock_tiled_a": ((P, I, P, P, P, P, P, I, I, I, I, I, F, P), I),
+    "cistar_resblock_tiled_a": (
+        (P, I, P, P, P, P, P, I, I, I, I, I, F, I, P), I),
     "cistar_resblock_tiled_b": (
-        (P, P, P, P, P, I, P, P, I, I, I, I, I, F, P), I),
+        (P, P, P, P, P, I, P, P, I, I, I, I, I, F, I, P), I),
 }
 
 
@@ -85,10 +91,12 @@ def conv3x3_reflect_grouped_s8(xq: torch.Tensor, wk: torch.Tensor,
     return acc
 
 
-def resblock_int8_tiled_a(hx: torch.Tensor, qblk, ct: int, eps: float
+def resblock_int8_tiled_a(hx: torch.Tensor, qblk, ct: int, eps: float,
+                          bn: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K7a: bf16 or fp32 (N,H,W,C) carrier → int8 relu(IN(conv 1)) (N,H,W,C)
-    and its (N, C/ct) per-(image, tile) scales."""
+    and its (N, C/ct) per-(image, tile) scales. ``bn``: relu(conv 1) with
+    the BatchNorm folded into ``sb``."""
     _check_carrier(hx, "K7a")
     n, h, w, c = hx.shape
     _check_shape(n, h, w, c, ct)
@@ -103,17 +111,19 @@ def resblock_int8_tiled_a(hx: torch.Tensor, qblk, ct: int, eps: float
     err = lib.cistar_resblock_tiled_a(
         hx.data_ptr(), int(hx.dtype == torch.bfloat16), w1k.data_ptr(),
         sb.data_ptr(), rq.data_ptr(), rs.data_ptr(), ws.data_ptr(),
-        n, h, w, c, ct, eps, stream())
-    raise_on(err, "resblock_int8_tiled_a")
-    launches["resblock_int8_tiled_a"] += 1
+        n, h, w, c, ct, eps, int(bn), stream())
+    name = "resblock_int8_tiled_a_bn" if bn else "resblock_int8_tiled_a"
+    raise_on(err, name)
+    launches[name] += 1
     return rq, rs
 
 
 def resblock_int8_tiled_b(rq: torch.Tensor, rs: torch.Tensor,
-                          hx: torch.Tensor, qblk, ct: int, eps: float
-                          ) -> torch.Tensor:
+                          hx: torch.Tensor, qblk, ct: int, eps: float,
+                          bn: bool = False) -> torch.Tensor:
     """K7b: K7a's ``rq`` / ``rs`` and the block input ``hx`` (the skip) →
-    the block output in ``hx.dtype``."""
+    the block output in ``hx.dtype``. ``bn``: conv 2 with the BatchNorm
+    folded into ``sb``, no IN."""
     _check_carrier(hx, "K7b")
     n, h, w, c = hx.shape
     _check_shape(n, h, w, c, ct)
@@ -129,7 +139,8 @@ def resblock_int8_tiled_b(rq: torch.Tensor, rs: torch.Tensor,
     err = lib.cistar_resblock_tiled_b(
         rq.data_ptr(), rs.data_ptr(), w2k.data_ptr(), sb.data_ptr(),
         hx.data_ptr(), int(hx.dtype == torch.bfloat16), out.data_ptr(),
-        ws.data_ptr(), n, h, w, c, ct, eps, stream())
-    raise_on(err, "resblock_int8_tiled_b")
-    launches["resblock_int8_tiled_b"] += 1
+        ws.data_ptr(), n, h, w, c, ct, eps, int(bn), stream())
+    name = "resblock_int8_tiled_b_bn" if bn else "resblock_int8_tiled_b"
+    raise_on(err, name)
+    launches[name] += 1
     return out

@@ -24,11 +24,21 @@ last stage's IN+ReLU inside it (:mod:`cistar_tpu_torch.ops.head_conv`).
     engine's rule (``whole_image_resblock_fits``) takes the whole-image
     chain, else through K7 (the 1024-channel trunk of the default width);
   * :func:`unet_msrb_int8_apply` (``UNetGeneratorHD``): the MSRB blocks
-    run through K8.
+    run through K8;
+  * :func:`local_enhancer_int8_apply` (``LocalEnhancer``): the global
+    trunk's resnet blocks dispatch as ``global``'s (K7 at the suite's
+    1024² config), the enhancer's blocks run as plain ops.
 
-Both take their 7×7 stem and head through ``conv2d_reflect_thin``, and
-the rest in the input's dtype. The kernels are those of
-:mod:`cistar_tpu_torch.ops.quant_int8`.
+These take their 7×7 stem and head through ``conv2d_reflect_thin``, and
+the rest in the input's dtype.
+
+  * :func:`multiscale_global_int8_apply` (``MultiscaleGlobalGenerator``,
+    BatchNorm): the resnet trunk runs through the ``bn=True`` form of K1
+    or K7, its BatchNorm folded into the int8 scales; the stems, fuse convs
+    and ups apply the running-stats affine (:func:`_bn_affine`), with
+    ``conv2d_reflect`` for the stems and the head.
+
+The kernels are those of :mod:`cistar_tpu_torch.ops.quant_int8`.
 
 Two switches, read once at import from the environment as in JAX
 (``fast_infer.py:38-39``); tests and ``chip_smoke.py`` set the module
@@ -71,6 +81,8 @@ from cistar_tpu_torch.ops.quant_int8 import (QBlock,
                                              quantize_atrous_resblock,
                                              quantize_msrb,
                                              quantize_multi_atrous_stage,
+                                             quantize_resblock,
+                                             quantize_resblock_bn,
                                              resblock_chain_int8,
                                              resblock_chain_int8_bf16io,
                                              resblock_chain_int8_tiled,
@@ -281,22 +293,29 @@ def _thin(conv, x: torch.Tensor) -> torch.Tensor:
     return tnn.conv2d_reflect_thin(x, conv.weight, conv.bias)
 
 
-def global_encode(gen, x: torch.Tensor) -> torch.Tensor:
-    """The stem (``conv2d_reflect_thin``) and the downs, each with IN+ReLU:
-    the trunk's input."""
-    h = _in_relu(_thin(gen.trunk.stem.conv, x))
-    for m in gen.trunk.down:
+def trunk_encode(trunk, x: torch.Tensor) -> torch.Tensor:
+    """A ``GlobalGeneratorTrunk``'s stem (``conv2d_reflect_thin``) and
+    downs, each with IN+ReLU: its resnet blocks' input."""
+    h = _in_relu(_thin(trunk.stem.conv, x))
+    for m in trunk.down:
         h = m(h)
     return h
 
 
+def global_encode(gen, x: torch.Tensor) -> torch.Tensor:
+    """:func:`trunk_encode` of a ``GlobalGenerator``: the trunk's input."""
+    return trunk_encode(gen.trunk, x)
+
+
 def global_trunk_int8(h: torch.Tensor, qblocks: Sequence[QBlock],
-                      cout_tile: Optional[int] = None) -> torch.Tensor:
+                      cout_tile: Optional[int] = None, bn: bool = False
+                      ) -> torch.Tensor:
     """The resnet trunk in int8: the whole-image chain (K1) where
-    ``whole_image_resblock_fits``, else the cout-tiled chain (K7)."""
+    ``whole_image_resblock_fits``, else the cout-tiled chain (K7); ``bn``:
+    their BatchNorm forms."""
     if whole_image_resblock_fits(h.shape[1], h.shape[2], h.shape[3]):
-        return resblock_chain_int8_bf16io(h, qblocks)
-    return resblock_chain_int8_tiled(h, qblocks, cout_tile)
+        return resblock_chain_int8_bf16io(h, qblocks, bn)
+    return resblock_chain_int8_tiled(h, qblocks, cout_tile, bn)
 
 
 def global_decode(gen, h: torch.Tensor) -> torch.Tensor:
@@ -356,3 +375,103 @@ def unet_msrb_int8_apply(gen, qblocks: Sequence[QBlock], x: torch.Tensor,
     for q in qblocks:
         h = msrb_block_int8(h, q, cout_tile)
     return unet_decode(gen, h, skips)
+
+
+# --------------------------------------------------------------------------- #
+# pix2pixHD: LocalEnhancer ('local') and MultiscaleGlobalGenerator
+# ('multiscale', BatchNorm)
+# --------------------------------------------------------------------------- #
+def quantize_local_enhancer(gen) -> List[QBlock]:
+    """Quantize the global trunk's resnet blocks of a port
+    ``LocalEnhancer`` (``quantize_local_enhancer``)."""
+    return [quantize_resblock(b) for b in gen.global_trunk.res]
+
+
+def local_decode(gen, h: torch.Tensor, pyr: Sequence[torch.Tensor]
+                 ) -> torch.Tensor:
+    """The global trunk's ups, then each enhancer on its level of the
+    input pyramid ``pyr`` (its stem through ``conv2d_reflect_thin``; its
+    resnet blocks as plain ops), the head (``conv2d_reflect_thin``) and
+    tanh."""
+    for m in gen.global_trunk.up:
+        h = m(h)
+    ne = gen.n_local_enhancers
+    for n in range(1, ne + 1):
+        d = _in_relu(_thin(gen.enhancer(n, "stem").conv, pyr[ne - n]))
+        h = gen.enhancer(n, "down")(d) + h
+        for i in range(gen.n_blocks_local):
+            h = gen.enhancer(n, f"res_{i}")(h)
+        h = gen.enhancer(n, "up")(h)
+    return tnn.tanh(_thin(gen.head.conv, h))
+
+
+def local_enhancer_int8_apply(gen, qblocks: Sequence[QBlock],
+                              x: torch.Tensor,
+                              cout_tile: Optional[int] = None
+                              ) -> torch.Tensor:
+    """Forward of a port ``LocalEnhancer`` with its global trunk's resnet
+    blocks in int8 (``local_enhancer_int8_apply``), dispatched as
+    :func:`global_trunk_int8`; ``qblocks`` from
+    :func:`quantize_local_enhancer`. NHWC in and out, compute dtype of
+    ``x``."""
+    pyr = gen.pyramid(x)
+    h = global_trunk_int8(trunk_encode(gen.global_trunk, pyr[-1]), qblocks,
+                          cout_tile)
+    return local_decode(gen, h, pyr)
+
+
+def quantize_multiscale_global(gen) -> List[QBlock]:
+    """Quantize the resnet trunk of a port ``MultiscaleGlobalGenerator``
+    with each BatchNorm's running statistics folded into the int8 scales
+    (``quantize_multiscale_global``)."""
+    return [quantize_resblock_bn(b) for b in gen.res]
+
+
+def _bn_affine(norm, v: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Inference BatchNorm as the int8 engine applies it (``_bn_affine``):
+    ``g = γ·rsqrt(σ² + eps)``, ``b = β − μ·g``, then ``v·g + b`` in fp32,
+    cast back."""
+    g = norm.weight.float() * torch.rsqrt(norm.running_var.float() + eps)
+    b = norm.bias.float() - norm.running_mean.float() * g
+    return (v.float() * g + b).to(v.dtype)
+
+
+def _bn_stage(m, v: torch.Tensor) -> torch.Tensor:
+    """A ``_C7S1`` / ``_Down`` / ``_Up`` stage with :func:`_bn_affine`:
+    conv, affine, ReLU."""
+    conv = m.convt if hasattr(m, "convt") else m.conv
+    return tnn.relu(_bn_affine(m.norm, conv(v)))
+
+
+def multiscale_encode(gen, x: torch.Tensor) -> torch.Tensor:
+    """The three branches and the two fuse convs as the int8 engine runs
+    them: the trunk's input."""
+    b1 = _bn_stage(gen.b1_down, _bn_stage(gen.b1_stem, x))
+    b2_in = tnn.max_pool2d(x, 3, 2, padding=1)
+    b3_in = tnn.max_pool2d(b2_in, 3, 2, padding=1)
+    b12 = _bn_stage(gen.connect_b12,
+                    torch.cat([b1, _bn_stage(gen.feat_stem, b2_in)], -1))
+    return _bn_stage(gen.connect_b23,
+                     torch.cat([b12, _bn_stage(gen.feat_stem, b3_in)], -1))
+
+
+def multiscale_decode(gen, h: torch.Tensor) -> torch.Tensor:
+    """The three ups with :func:`_bn_affine`, the head (``conv2d_reflect``)
+    and tanh."""
+    for m in gen.up:
+        h = _bn_stage(m, h)
+    return tnn.tanh(gen.head.conv(h))
+
+
+def multiscale_global_int8_apply(gen, qblocks: Sequence[QBlock],
+                                 x: torch.Tensor,
+                                 cout_tile: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """Forward of a port ``MultiscaleGlobalGenerator`` with its resnet trunk
+    in int8 (``multiscale_global_int8_apply``): the ``bn=True`` chains, K1
+    where ``whole_image_resblock_fits``, else K7 at ``cout_tile`` (None:
+    ``pick_cout_tile``). ``qblocks`` from :func:`quantize_multiscale_global`
+    of the same generator. NHWC in and out, compute dtype of ``x``."""
+    h = global_trunk_int8(multiscale_encode(gen, x), qblocks, cout_tile,
+                          bn=True)
+    return multiscale_decode(gen, h)

@@ -1,5 +1,6 @@
 """pix2pixHD generators (counterpart of ``cistar_tpu/models/pix2pixhd.py``):
-``GlobalGenerator`` (``netG=global``) and ``UNetGeneratorHD``
+``GlobalGenerator`` (``netG=global``), ``LocalEnhancer`` (``netG=local``),
+``MultiscaleGlobalGenerator`` (``netG=multiscale``) and ``UNetGeneratorHD``
 (``netG=UNet``, the r2l_MSRB experiment's generator).
 
 Submodule names follow the JAX param trees, and ``core/convert.py`` maps
@@ -7,11 +8,21 @@ one onto the other:
   * GlobalGenerator: ``trunk.stem.conv``, ``trunk.down.i.conv``,
     ``trunk.res.i.conv{1,2}``, ``trunk.up.i.convt``, ``head.conv`` for
     ``trunk/stem/conv``, ``trunk/down_i/conv``, …;
+  * LocalEnhancer: ``global.…`` (a ``GlobalGeneratorTrunk``),
+    ``enh{n}_stem``, ``enh{n}_down``, ``enh{n}_res_{i}``, ``enh{n}_up``,
+    ``head``, the JAX names;
+  * MultiscaleGlobalGenerator: ``b1_stem``, ``b1_down``, ``feat_stem``,
+    ``connect_b12``, ``connect_b23``, ``res.i.{conv,norm}{1,2}``,
+    ``up.i.{convt,norm}``, ``head.conv``; each BatchNorm's ``weight`` /
+    ``bias`` / ``running_mean`` / ``running_var`` for JAX's ``gamma`` (γ−1)
+    / ``beta`` and ``batch_stats`` ``mean`` / ``var``;
   * UNetGeneratorHD: ``init_block.conv``, ``down_conv.i``, ``msrb.i.…``,
     ``up_convt.i``, ``output_layer.conv`` for ``init_block/conv``,
     ``down_i_conv``, ``msrb_i/…``, ``up_i_convt``, ``output_layer/conv``.
 
-Instance norm and reflect padding only; the other norms, paddings and
+Reflect padding only. Instance norm, and BatchNorm in its inference form
+(``MultiscaleGlobalGenerator`` always runs it, a quirk of the reference's
+``define_G``); BatchNorm for the other generators, the other paddings and
 generators come with later slices (ROADMAP queue 1, item 9).
 """
 
@@ -34,49 +45,104 @@ def _instance_only(norm: str, padding_type: str = "reflect") -> None:
             f"yet: instance norm with reflect padding runs here {_LATER}")
 
 
+class BatchNorm(nn.Module):
+    """BatchNorm in its inference form (``NormLayer("batch")`` with running
+    statistics): ``((x − mean) / sqrt(var + 1e-5)) · weight + bias`` in
+    fp32, cast back to the input dtype. ``weight`` is γ (JAX stores γ−1);
+    ``running_mean`` / ``running_var`` start at 0 and 1, as in JAX.
+    Training-mode BatchNorm (batch statistics, the running update) comes
+    with the pix2pixHD train step; until then the layer refuses train
+    mode."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(1.0 + 0.02 * torch.randn(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+        self.training = False
+
+    def train(self, mode: bool = True) -> "BatchNorm":
+        if mode:
+            raise NotImplementedError(
+                "training-mode BatchNorm comes with the pix2pixHD train step "
+                f"{_LATER}; the port runs BatchNorm in inference form")
+        return super().train(False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = (x.float() - self.running_mean.float()) \
+            / torch.sqrt(self.running_var.float() + self.eps)
+        return (out * self.weight.float() + self.bias.float()).to(x.dtype)
+
+
+def _make_norm(norm: str, features: int):
+    """``None`` for instance norm (no parameters), a :class:`BatchNorm` for
+    ``"batch"``."""
+    if norm == "instance":
+        return None
+    if norm == "batch":
+        return BatchNorm(features)
+    raise ValueError(f"unknown norm {norm!r}")
+
+
+def _apply_norm(norm, h: torch.Tensor) -> torch.Tensor:
+    return tnn.instance_norm(h) if norm is None else norm(h)
+
+
 class ResnetBlock(ResidualBlock):
-    """pix2pixHD resnet block (``ResnetBlock``) with reflect padding and
-    instance norm: reflect conv3×3 → IN → ReLU → reflect conv3×3 → IN,
-    plus the skip."""
+    """pix2pixHD resnet block (``ResnetBlock``) with reflect padding:
+    reflect conv3×3 → norm → ReLU → reflect conv3×3 → norm, plus the skip;
+    norm ``"instance"`` or ``"batch"`` (``norm1`` / ``norm2``)."""
 
     def __init__(self, features: int, padding_type: str = "reflect",
                  norm: str = "instance"):
-        _instance_only(norm, padding_type)
+        if padding_type != "reflect":
+            _instance_only(norm, padding_type)
         super().__init__(features)
+        self.norm1 = _make_norm(norm, features)
+        self.norm2 = _make_norm(norm, features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = tnn.relu(_apply_norm(self.norm1, self.conv1(x)))
+        return x + _apply_norm(self.norm2, self.conv2(h))
 
 
 class _C7S1(nn.Module):
-    """Reflect 7×7 conv → IN → ReLU (``_C7S1``)."""
+    """Reflect 7×7 conv → norm → ReLU (``_C7S1``)."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, norm: str = "instance"):
         super().__init__()
         self.conv = ReflectConv2d(cin, features, 7)
+        self.norm = _make_norm(norm, features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return tnn.relu(tnn.instance_norm(self.conv(x)))
+        return tnn.relu(_apply_norm(self.norm, self.conv(x)))
 
 
 class _Down(nn.Module):
-    """Stride-2 conv3×3 (pad 1) → IN → ReLU (``_Down``)."""
+    """Stride-2 conv3×3 (pad 1) → norm → ReLU (``_Down``)."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, norm: str = "instance"):
         super().__init__()
         self.conv = Conv2d(cin, features, 3, stride=2, padding=1)
+        self.norm = _make_norm(norm, features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return tnn.relu(tnn.instance_norm(self.conv(x)))
+        return tnn.relu(_apply_norm(self.norm, self.conv(x)))
 
 
 class _Up(nn.Module):
-    """Stride-2 transpose conv3×3 → IN → ReLU (``_Up``)."""
+    """Stride-2 transpose conv3×3 → norm → ReLU (``_Up``)."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, norm: str = "instance"):
         super().__init__()
         self.convt = ConvTranspose2d(cin, features, 3, stride=2, padding=1,
                                      output_padding=1)
+        self.norm = _make_norm(norm, features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return tnn.relu(tnn.instance_norm(self.convt(x)))
+        return tnn.relu(_apply_norm(self.norm, self.convt(x)))
 
 
 class _OutHead(nn.Module):
@@ -135,6 +201,103 @@ class GlobalGenerator(nn.Module):
         return self.head(self.trunk(x))
 
 
+class LocalEnhancer(nn.Module):
+    """Coarse-to-fine generator (``LocalEnhancer``): a
+    :class:`GlobalGeneratorTrunk` at ngf·2^n_local_enhancers features,
+    registered as ``global``, on the input average-pooled n_local_enhancers
+    times; each enhancer n adds a fine-scale stream (stem, a stride-2 down)
+    to the coarser output, then runs its resnet blocks and an up; the last
+    carries the head. Instance norm and reflect padding."""
+
+    def __init__(self, input_nc: int = 1, output_nc: int = 1, ngf: int = 32,
+                 n_downsample_global: int = 3, n_blocks_global: int = 9,
+                 n_local_enhancers: int = 1, n_blocks_local: int = 3):
+        super().__init__()
+        self.n_local_enhancers = n_local_enhancers
+        self.n_blocks_local = n_blocks_local
+        self.add_module("global", GlobalGeneratorTrunk(
+            input_nc, ngf * 2 ** n_local_enhancers, n_downsample_global,
+            n_blocks_global))
+        for n in range(1, n_local_enhancers + 1):
+            f = ngf * 2 ** (n_local_enhancers - n)
+            self.add_module(f"enh{n}_stem", _C7S1(input_nc, f))
+            self.add_module(f"enh{n}_down", _Down(f, 2 * f))
+            for i in range(n_blocks_local):
+                self.add_module(f"enh{n}_res_{i}", ResnetBlock(2 * f))
+            self.add_module(f"enh{n}_up", _Up(2 * f, f))
+        self.head = _OutHead(ngf, output_nc)
+
+    @property
+    def global_trunk(self) -> GlobalGeneratorTrunk:
+        """The ``global`` submodule (a Python keyword as an attribute)."""
+        return self._modules["global"]
+
+    def enhancer(self, n: int, part: str) -> nn.Module:
+        """Submodule ``enh{n}_{part}`` (``stem``, ``down``, ``res_{i}``,
+        ``up``)."""
+        return self._modules[f"enh{n}_{part}"]
+
+    def pyramid(self, x: torch.Tensor) -> list:
+        """[x, x/2, …]: n_local_enhancers 3×3 stride-2 average pools
+        (``count_include_pad=False``)."""
+        pyr = [x]
+        for _ in range(self.n_local_enhancers):
+            pyr.append(tnn.avg_pool2d(pyr[-1], 3, 2, padding=1))
+        return pyr
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pyr = self.pyramid(x)
+        h = self.global_trunk(pyr[-1])
+        for n in range(1, self.n_local_enhancers + 1):
+            d = self.enhancer(n, "down")(
+                self.enhancer(n, "stem")(pyr[self.n_local_enhancers - n]))
+            h = d + h
+            for i in range(self.n_blocks_local):
+                h = self.enhancer(n, f"res_{i}")(h)
+            h = self.enhancer(n, "up")(h)
+        return self.head(h)
+
+
+class MultiscaleGlobalGenerator(nn.Module):
+    """Three-branch input pyramid fused by strided convs
+    (``MultiscaleGlobalGenerator``): b1 is a stem and a stride-2 conv on the
+    full image; b2 and b3 are ONE stem module (``feat_stem``, shared weights
+    as in the reference) on the 1× and 2× 3×3 stride-2 max-pooled input;
+    [b1, b2] is fused by ``connect_b12`` to 4·ngf at /4, [b12, b3] by
+    ``connect_b23`` to 8·ngf at /8; then the resnet blocks, three ups and
+    the head. BatchNorm (the reference's ``define_G`` gives this family no
+    other) and reflect padding. NHWC in and out; compute dtype follows the
+    input."""
+
+    def __init__(self, input_nc: int = 1, output_nc: int = 1, ngf: int = 64,
+                 n_blocks: int = 9):
+        super().__init__()
+        self.b1_stem = _C7S1(input_nc, ngf, "batch")
+        self.b1_down = _Down(ngf, ngf, "batch")
+        self.feat_stem = _C7S1(input_nc, ngf, "batch")
+        self.connect_b12 = _Down(2 * ngf, 4 * ngf, "batch")
+        self.connect_b23 = _Down(5 * ngf, 8 * ngf, "batch")
+        self.res = nn.ModuleList(ResnetBlock(8 * ngf, norm="batch")
+                                 for _ in range(n_blocks))
+        self.up = nn.ModuleList(_Up(ngf * m, ngf * m // 2, "batch")
+                                for m in (8, 4, 2))
+        self.head = _OutHead(ngf, output_nc)
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """The three branches and the two fuse convs: the trunk's input."""
+        b1 = self.b1_down(self.b1_stem(x))
+        b2_in = tnn.max_pool2d(x, 3, 2, padding=1)
+        b3_in = tnn.max_pool2d(b2_in, 3, 2, padding=1)
+        b12 = self.connect_b12(torch.cat([b1, self.feat_stem(b2_in)], -1))
+        return self.connect_b23(torch.cat([b12, self.feat_stem(b3_in)], -1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.encode(x)
+        for m in (*self.res, *self.up):
+            h = m(h)
+        return self.head(h)
+
+
 class UNetGeneratorHD(nn.Module):
     """p2pHD ``UNetGenerator`` (``UNetGeneratorHD``): c7s1 → three 7×7
     stride-2 (pad 3) downs with IN+ReLU → MSRB blocks → three transpose-conv
@@ -172,15 +335,26 @@ class UNetGeneratorHD(nn.Module):
 
 def define_g(net_g: str, input_nc: int, output_nc: int, ngf: int,
              n_downsample_global: int = 3, n_blocks_global: int = 9,
+             n_local_enhancers: int = 1, n_blocks_local: int = 3,
              norm: str = "instance") -> nn.Module:
-    """The generator dispatch of ``define_g`` for ``global`` and ``UNet``.
-    Parameters are drawn from PyTorch's global generator, on the CPU."""
+    """The generator dispatch of ``define_g`` for ``global``, ``local``,
+    ``multiscale`` (BatchNorm whatever ``norm`` says, the reference's quirk)
+    and ``UNet``. Parameters are drawn from PyTorch's global generator, on
+    the CPU."""
     if net_g == "global":
         return GlobalGenerator(input_nc, output_nc, ngf, n_downsample_global,
                                n_blocks_global, norm)
+    if net_g == "local":
+        _instance_only(norm)
+        return LocalEnhancer(input_nc, output_nc, ngf, n_downsample_global,
+                             n_blocks_global, n_local_enhancers,
+                             n_blocks_local)
+    if net_g == "multiscale":
+        return MultiscaleGlobalGenerator(input_nc, output_nc, ngf,
+                                         n_blocks_global)
     if net_g == "UNet":
         _instance_only(norm)
         return UNetGeneratorHD(input_nc, output_nc, n_blocks_global, ngf)
     raise NotImplementedError(
-        f"netG={net_g!r} is not ported yet: 'global' and 'UNet' run here "
-        f"{_LATER}")
+        f"netG={net_g!r} is not ported yet: 'global', 'local', 'multiscale' "
+        f"and 'UNet' run here {_LATER}")

@@ -11,6 +11,7 @@ bf16 out; instance-norm statistics are always fp32.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -132,6 +133,17 @@ def instance_norm_act(x: torch.Tensor, act: str = "none",
                                    residual=residual)
 
 
+def batch_norm_inference(x: torch.Tensor, mean: torch.Tensor,
+                         var: torch.Tensor, gamma: torch.Tensor,
+                         beta: torch.Tensor, eps: float = 1e-5
+                         ) -> torch.Tensor:
+    """BatchNorm with given (C,) statistics, inference form, NHWC:
+    ``(x − mean) · rsqrt(var + eps) · gamma + beta`` in fp32, cast back
+    (``ops/nn.py::batch_norm_inference``)."""
+    out = (x.float() - mean) * torch.rsqrt(var + eps) * gamma + beta
+    return out.to(x.dtype)
+
+
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
 
@@ -142,6 +154,51 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
 
 def tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.tanh(x)
+
+
+def max_pool2d(x: torch.Tensor, kernel: int, stride: Optional[int] = None,
+               padding: int = 0) -> torch.Tensor:
+    """Max pool with −inf padding, forward only (``ops/nn.py::max_pool2d``);
+    a max is exact in any order."""
+    return _nhwc(F.max_pool2d(_nchw(x), kernel, stride or kernel, padding))
+
+
+@functools.lru_cache(maxsize=None)
+def _pool_counts(h: int, w: int, k: int, s: int, p: int,
+                 device: torch.device) -> torch.Tensor:
+    """Reciprocal valid-element counts of each output pixel of a padded
+    average pool, (ho, wo, 1) fp32 (``ops/nn.py::_pool_counts``)."""
+    padded = torch.zeros(h + 2 * p, w + 2 * p)
+    padded[p:p + h, p:p + w] = 1.0
+    ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+    cnt = torch.zeros(ho, wo)
+    for dy in range(k):
+        for dx in range(k):
+            cnt += padded[dy:dy + (ho - 1) * s + 1:s, dx:dx + (wo - 1) * s + 1:s]
+    return (torch.ones_like(cnt) / cnt)[..., None].to(device)
+
+
+def avg_pool2d(x: torch.Tensor, kernel: int, stride: Optional[int] = None,
+               padding: int = 0) -> torch.Tensor:
+    """Average pool as ``nn.AvgPool2d(count_include_pad=False)``, the form
+    pix2pixHD uses (``ops/nn.py::avg_pool2d``), with the JAX version's
+    arithmetic: the fp32 window sum (zero padding, taps in row-major
+    order), then times the reciprocal-count table (divided by k² without
+    padding); cast back."""
+    k, s, p = kernel, stride or kernel, padding
+    n, h, w, c = x.shape
+    xp = F.pad(x.float(), (0, 0, p, p, p, p))
+    ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+    summed = torch.zeros(n, ho, wo, c, device=x.device)
+    for dy in range(k):
+        for dx in range(k):
+            summed = summed + xp[:, dy:dy + (ho - 1) * s + 1:s,
+                                 dx:dx + (wo - 1) * s + 1:s]
+    if p == 0:
+        out = summed / torch.full_like(summed, k * k)
+    else:
+        out = summed * _pool_counts(h, w, k, s, p, x.device)
+    return out.to(x.dtype)
 
 
 def upsample_bilinear(x: torch.Tensor, scale_factor: int = 2) -> torch.Tensor:

@@ -19,6 +19,10 @@ int8 convolutions:
     ``_resblock_b_kernel``): a residual block tiled over its output
     channels, with per-(image, tile) requantization scales (pix2pixHD's
     1024-channel GlobalGenerator trunk).
+
+K1 and K7 take ``bn=True`` for a BatchNorm ``ResnetBlock`` (pix2pixHD's
+MultiscaleGlobalGenerator): its inference affine is folded into the ``sb``
+rows by :func:`quantize_resblock_bn`, and the blocks run no IN.
   * K8 :func:`msrb_stage` (TPU kernel ``_msrb_branch_kernel``, once per
     branch): one stage of an MSRB block, its 3×3 and 5×5 zero-pad branches
     with per-input-group scales (the UNet-MSRB trunk).
@@ -99,6 +103,28 @@ def quantize_resblock(blk) -> QBlock:
     w2q, s2, w2k = quantize_kernel_taps(blk.conv2.weight)
     sb = torch.stack([s1, blk.conv1.bias.detach().float(),
                       s2, blk.conv2.bias.detach().float()], dim=0)
+    return {"w1q": w1q, "w2q": w2q, "sb": sb.contiguous(),
+            "w1k": w1k, "w2k": w2k}
+
+
+def quantize_resblock_bn(blk, eps: float = EPS) -> QBlock:
+    """Quantize a BatchNorm pix2pixHD ``ResnetBlock`` with the norm folded
+    (``quantize_resblock_bn``): the running-stats affine goes into the
+    ``sb`` rows as scale ``s·inv`` and bias ``(b − μ)·inv + β``, with
+    ``inv = γ / sqrt(σ² + eps)``; the blocks then run with ``bn=True``."""
+    w1q, s1, w1k = quantize_kernel_taps(blk.conv1.weight)
+    w2q, s2, w2k = quantize_kernel_taps(blk.conv2.weight)
+
+    def fold(s, conv, norm):
+        inv = _div(norm.weight.detach().float(),
+                   torch.sqrt(norm.running_var.float() + eps))
+        return s * inv, (conv.bias.detach().float()
+                         - norm.running_mean.float()) * inv \
+            + norm.bias.detach().float()
+
+    sc1, bias1 = fold(s1, blk.conv1, blk.norm1)
+    sc2, bias2 = fold(s2, blk.conv2, blk.norm2)
+    sb = torch.stack([sc1, bias1, sc2, bias2], dim=0)
     return {"w1q": w1q, "w2q": w2q, "sb": sb.contiguous(),
             "w1k": w1k, "w2k": w2k}
 
@@ -341,8 +367,13 @@ def _branch_sum(q: torch.Tensor, wbq: torch.Tensor, x_scale: torch.Tensor,
     return ssum
 
 
-def resblock_int8_bf16io_plain(hx: torch.Tensor, qblk: QBlock
-                               ) -> torch.Tensor:
+def _norm(f: torch.Tensor, bn: bool) -> torch.Tensor:
+    """IN, or nothing where a BatchNorm is folded into ``sb`` (``bn``)."""
+    return f if bn else _inorm(f)
+
+
+def resblock_int8_bf16io_plain(hx: torch.Tensor, qblk: QBlock,
+                               bn: bool = False) -> torch.Tensor:
     """Plain K1, mirroring ``_resblock_int8_bf16io_emulate``."""
     n, h, w, c = hx.shape
     sb = qblk["sb"]
@@ -350,10 +381,10 @@ def resblock_int8_bf16io_plain(hx: torch.Tensor, qblk: QBlock
     hq, x_scale = _quant_rows(hf)
     f = _conv_dequant(hq.reshape(n, h, w, c), qblk["w1q"], x_scale,
                       sb[0], sb[1])
-    rq, r_scale = _quant_rows(torch.relu(_inorm(f)))
+    rq, r_scale = _quant_rows(torch.relu(_norm(f, bn)))
     f2 = _conv_dequant(rq.reshape(n, h, w, c), qblk["w2q"], r_scale,
                        sb[2], sb[3])
-    return (_inorm(f2) + hf).reshape(n, h, w, c).to(hx.dtype)
+    return (_norm(f2, bn) + hf).reshape(n, h, w, c).to(hx.dtype)
 
 
 def resblock_int8_plain(hq: torch.Tensor, hs: torch.Tensor, qblk: QBlock
@@ -420,37 +451,40 @@ def _quant_tiles(r: torch.Tensor, ct: int
     return q, _div(amax, 127.0).reshape(n, c // ct)
 
 
-def resblock_tiled_a_plain(hx: torch.Tensor, qblk: QBlock, ct: int
+def resblock_tiled_a_plain(hx: torch.Tensor, qblk: QBlock, ct: int,
+                           bn: bool = False
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain K7a, the first half of ``_resblock_int8_tiled_emulate``: the
-    int8 relu(IN(conv 1)) (N,H,W,C) and its (N, C/ct) tile scales."""
+    int8 relu(IN(conv 1)) (N,H,W,C) (``bn``: relu(conv 1)) and its
+    (N, C/ct) tile scales."""
     n, h, w, c = hx.shape
     sb = qblk["sb"]
     hq, hs = quantize_act(hx)
     f = _conv_dequant(hq, qblk["w1q"], hs[:, :, None], sb[0], sb[1])
-    rq, rs = _quant_tiles(torch.relu(_inorm(f)), ct)
+    rq, rs = _quant_tiles(torch.relu(_norm(f, bn)), ct)
     return rq.reshape(n, h, w, c), rs
 
 
 def resblock_tiled_b_plain(rq: torch.Tensor, rs: torch.Tensor,
-                           hx: torch.Tensor, qblk: QBlock, ct: int
-                           ) -> torch.Tensor:
+                           hx: torch.Tensor, qblk: QBlock, ct: int,
+                           bn: bool = False) -> torch.Tensor:
     """Plain K7b, the second half of ``_resblock_int8_tiled_emulate``:
     conv 2 group by group, each group's int32 partial times its tile scale,
-    then the weight scale and bias, IN and the skip ``hx``."""
+    then the weight scale and bias, IN (not with ``bn``) and the skip
+    ``hx``."""
     n, h, w, c = hx.shape
     sb = qblk["sb"]
     acc = conv3x3_reflect_grouped_s8_plain(rq, qblk["w2q"], c // ct)
     f2 = _group_sum(acc, rs) * sb[2] + sb[3]
-    return (_inorm(f2) + hx.float().reshape(n, h * w, c)) \
+    return (_norm(f2, bn) + hx.float().reshape(n, h * w, c)) \
         .reshape(n, h, w, c).to(hx.dtype)
 
 
-def resblock_int8_tiled_plain(hx: torch.Tensor, qblk: QBlock, ct: int
-                              ) -> torch.Tensor:
+def resblock_int8_tiled_plain(hx: torch.Tensor, qblk: QBlock, ct: int,
+                              bn: bool = False) -> torch.Tensor:
     """Plain K7, mirroring ``_resblock_int8_tiled_emulate``."""
-    rq, rs = resblock_tiled_a_plain(hx, qblk, ct)
-    return resblock_tiled_b_plain(rq, rs, hx, qblk, ct)
+    rq, rs = resblock_tiled_a_plain(hx, qblk, ct, bn)
+    return resblock_tiled_b_plain(rq, rs, hx, qblk, ct, bn)
 
 
 def msrb_branch_plain(xq: torch.Tensor, xscales: torch.Tensor,
@@ -491,12 +525,15 @@ def msrb_stage_plain(xq: torch.Tensor, xscales: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # Dispatch: CPU tensors → plain version; CUDA tensors → the kernels.
 # --------------------------------------------------------------------------- #
-def resblock_int8_bf16io(hx: torch.Tensor, qblk: QBlock) -> torch.Tensor:
-    """K1: one int8 residual block with a full-precision carrier."""
+def resblock_int8_bf16io(hx: torch.Tensor, qblk: QBlock, bn: bool = False
+                         ) -> torch.Tensor:
+    """K1: one int8 residual block with a full-precision carrier; ``bn``:
+    its BatchNorm form (``sb`` from :func:`quantize_resblock_bn`)."""
     if on_cuda(hx):
         from cistar_tpu_torch.kernels import int8_resblock
-        return int8_resblock.resblock_int8_bf16io(hx.contiguous(), qblk, EPS)
-    return resblock_int8_bf16io_plain(hx, qblk)
+        return int8_resblock.resblock_int8_bf16io(hx.contiguous(), qblk, EPS,
+                                                  bn)
+    return resblock_int8_bf16io_plain(hx, qblk, bn)
 
 
 def resblock_int8(hq: torch.Tensor, hs: torch.Tensor, qblk: QBlock
@@ -509,11 +546,11 @@ def resblock_int8(hq: torch.Tensor, hs: torch.Tensor, qblk: QBlock
     return resblock_int8_plain(hq, hs, qblk)
 
 
-def resblock_chain_int8_bf16io(x: torch.Tensor, qblocks: Sequence[QBlock]
-                               ) -> torch.Tensor:
+def resblock_chain_int8_bf16io(x: torch.Tensor, qblocks: Sequence[QBlock],
+                               bn: bool = False) -> torch.Tensor:
     """Res-block chain through K1 (``resblock_chain_int8_bf16io``)."""
     for qblk in qblocks:
-        x = resblock_int8_bf16io(x, qblk)
+        x = resblock_int8_bf16io(x, qblk, bn)
     return x
 
 
@@ -564,16 +601,17 @@ def multi_atrous_stage_int8(x: torch.Tensor, qstage: QBlock,
     return multi_atrous_stage_int8_plain(x[:, ::2, ::2], qstage, rates2)
 
 
-def resblock_int8_tiled(hx: torch.Tensor, qblk: QBlock, ct: int
-                        ) -> torch.Tensor:
+def resblock_int8_tiled(hx: torch.Tensor, qblk: QBlock, ct: int,
+                        bn: bool = False) -> torch.Tensor:
     """K7: one cout-tiled int8 residual block, full-precision carrier; on
-    CUDA its two kernels, K7a then K7b."""
+    CUDA its two kernels, K7a then K7b; ``bn``: their BatchNorm form."""
     if on_cuda(hx):
         from cistar_tpu_torch.kernels import int8_tiled
         hx = hx.contiguous()
-        rq, rs = int8_tiled.resblock_int8_tiled_a(hx, qblk, ct, EPS)
-        return int8_tiled.resblock_int8_tiled_b(rq, rs, hx, qblk, ct, EPS)
-    return resblock_int8_tiled_plain(hx, qblk, ct)
+        rq, rs = int8_tiled.resblock_int8_tiled_a(hx, qblk, ct, EPS, bn)
+        return int8_tiled.resblock_int8_tiled_b(rq, rs, hx, qblk, ct, EPS,
+                                                bn)
+    return resblock_int8_tiled_plain(hx, qblk, ct, bn)
 
 
 def resblock_chain_int8_tiled(x: torch.Tensor, qblocks: Sequence[QBlock],
@@ -584,11 +622,8 @@ def resblock_chain_int8_tiled(x: torch.Tensor, qblocks: Sequence[QBlock],
     ``cout_tile=None`` takes the JAX kernel path's tile on every device:
     :func:`pick_cout_tile`, and where that raises, the first of
     512/256/128/64 that divides C. (JAX off the TPU takes the first divisor
-    alone, which differs at the 1024-channel trunk: ROADMAP queue 3.)"""
-    if bn:
-        raise NotImplementedError(
-            "the bn=True (folded BatchNorm) form of K7 comes with the "
-            "multiscale family (ROADMAP queue 1, item 9)")
+    alone, which differs at the 1024-channel trunk and at 64²×512: ROADMAP
+    queue 3.) ``bn``: the BatchNorm form of K7."""
     n, h, w, c = x.shape
     if cout_tile is None:
         try:
@@ -599,7 +634,7 @@ def resblock_chain_int8_tiled(x: torch.Tensor, qblocks: Sequence[QBlock],
     if c % cout_tile:
         raise ValueError(f"cout_tile {cout_tile} must divide C={c}")
     for qblk in qblocks:
-        x = resblock_int8_tiled(x, qblk, cout_tile)
+        x = resblock_int8_tiled(x, qblk, cout_tile, bn)
     return x
 
 

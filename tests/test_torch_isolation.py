@@ -71,10 +71,10 @@ def test_device_none_raises_without_cuda(monkeypatch):
         seeded_generator("p2p", 1, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         CycleGANInference(in_features=8, n_residual_blocks=1)
-    for net_g in ("global", "UNet"):
+    for net_g in ("global", "local", "multiscale", "UNet"):
         with pytest.raises(RuntimeError, match="CUDA"):
             Pix2PixHDInference(net_g, ngf=4, n_downsample_global=1,
-                               n_blocks_global=1)
+                               n_blocks_global=1, n_blocks_local=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
@@ -111,6 +111,20 @@ def test_slice3_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         km.conv_zero_grouped_s8(xq, torch.zeros(128, 25 * 256,
                                                 dtype=torch.int8), 5, 2)
+
+
+def test_bn_kernel_wrappers_refuse_cpu_tensors():
+    # the BatchNorm forms of K1 / K7a / K7b take CUDA tensors only
+    x = torch.zeros(1, 16, 8, 256)
+    with pytest.raises(ValueError, match="CUDA"):
+        kr.resblock_int8_bf16io(x, {}, 1e-5, bn=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        kt.resblock_int8_tiled_a(x, {}, 128, 1e-5, bn=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        kt.resblock_int8_tiled_b(x.to(torch.int8), torch.ones(1, 2), x, {},
+                                 128, 1e-5, bn=True)
+    assert all(v == 0 for k, v in (*kr.launches.items(),
+                                   *kt.launches.items()) if k.endswith("_bn"))
 
 
 def test_slice4_kernel_wrappers_refuse_cpu_tensors():

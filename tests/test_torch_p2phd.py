@@ -169,7 +169,7 @@ def test_generator_fp32_matches_jax(gens, family):
 def test_define_g_dispatch():
     assert isinstance(define_g("global", 1, 1, 4, 1, 1), GlobalGenerator)
     assert isinstance(define_g("UNet", 1, 1, 4, 1, 1), UNetGeneratorHD)
-    for net_g in ("local", "multiscale", "encoder", "autoencoder"):
+    for net_g in ("encoder", "autoencoder"):
         with pytest.raises(NotImplementedError, match="queue 1, item 9"):
             define_g(net_g, 1, 1, 4)
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):
@@ -255,7 +255,7 @@ def test_k7_chain_matches_jax_and_takes_pick_cout_tile(k7, monkeypatch):
     # does, and takes the first divisor where it raises
     seen, tiles = [], []
     monkeypatch.setattr(qi, "resblock_int8_tiled",
-                        lambda hx, q, ct: tiles.append(ct) or hx)
+                        lambda hx, q, ct, bn: tiles.append(ct) or hx)
     monkeypatch.setattr(qi, "pick_cout_tile",
                         lambda hw, c: seen.append((hw, c)) or 16)
     qi.resblock_chain_int8_tiled(_t(x), [tq])
@@ -266,8 +266,13 @@ def test_k7_chain_matches_jax_and_takes_pick_cout_tile(k7, monkeypatch):
     monkeypatch.setattr(qi, "pick_cout_tile", over_budget)
     qi.resblock_chain_int8_tiled(_t(x), [tq])
     assert tiles == [16, 64]
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        qi.resblock_chain_int8_tiled(_t(x), [tq], bn=True)
+    # bn=True runs too (the BatchNorm form, tests/test_torch_multiscale.py);
+    # on these IN weights it is another function, equal to JAX's
+    monkeypatch.undo()
+    got_bn = qi.resblock_chain_int8_tiled(_t(x), [tq], cout_tile=32, bn=True)
+    np.testing.assert_array_equal(got_bn.numpy(), np.asarray(
+        qp.resblock_chain_int8_tiled(jnp.asarray(x), [jq], cout_tile=32,
+                                     force_emulate=True, bn=True)))
 
 
 @pytest.mark.parametrize("hw,c", [(1024, 1024), (4096, 1024), (4096, 512),
@@ -515,6 +520,6 @@ def test_encode_input_matches_jax():
 
 
 def test_engine_refuses_unported_families():
-    for net_g in ("local", "multiscale", "encoder"):
+    for net_g in ("encoder", "autoencoder"):
         with pytest.raises(NotImplementedError, match="queue 1, item 9"):
             Pix2PixHDInference(net_g, device="cpu")
