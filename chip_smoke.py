@@ -8,15 +8,20 @@ Phases, each of which raises on failure (the script catches nothing):
 1. the device: ``torch.cuda.get_device_name`` and the card's name and power
    limit from ``nvidia-smi``;
 2. build the CUDA kernels from ``cistar_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all at once, sm_90a).
+   source, all at once, sm_90a); print what ptxas reported of the
+   ``wgmma`` conv's entries in that build (registers, spills).
 
 The ResNet path (slice 1): the CycleGAN ResNet-9 generator, 64 features,
 256², random weights from seed 0.
 
 3. K1 / K2 on the trunk activation of the main path's own batch,
    (8, 32, 32, 512): the int32 accumulators of the int8 reflect conv equal
-   the plain version bit for bit; K1 (bf16 carrier) and K2 (int8 carrier)
-   agree with their plain PyTorch versions within ``K1_*`` / ``K2_*``;
+   the plain version bit for bit, there and at the timed batch (64, 32,
+   32, 512), and ``cistar_resblock_conv_variant`` names the ``wgmma`` conv
+   at both (as its Python mirror does: BN 128 and 256); K1 (bf16 carrier)
+   and K2 (int8 carrier) agree with their plain PyTorch versions within
+   ``K1_*`` / ``K2_*`` at both batches (K2's scales at 64 within
+   ``K2_SCALE_RTOL_BATCH``);
 4. the path at batch 8: the bf16 forward and the int8 engine with both
    carriers, with the launch counters set to 0 just before and read just
    after. Fidelity, here and at the configuration where the JAX package set
@@ -26,10 +31,14 @@ The ResNet path (slice 1): the CycleGAN ResNet-9 generator, 64 features,
    plain versions of its kernels on the same card (the JAX package's int8
    math, which the CPU tests hold to the JAX emulation) — mean-abs within
    ``KERNEL_MEAN_RATIO`` times, max-abs within ``KERNEL_MAX_EXCESS`` more;
-   the distance to the 0.1 budget is printed;
+   the distance to the 0.1 budget is printed. The same rule for both
+   engines at the timed batch, 64;
 5. serve three requests of (A, B) through ``CycleGANInference("p2p")``;
 6. times with CUDA events: img/s of each engine at batch 64, and K1 / K2
-   per launch beside their bound and their plain versions.
+   per launch at batch 8 and 64 beside their bound, their TOPS, their
+   plain versions and the yardstick of their GEMM part (one
+   ``torch._int_mm`` of both convs' im2col matrices, never called by the
+   port).
 
 The bilinear path (slice 2): ``bilinear_content``, the JAX engine's
 default generator (``MultiscaleBilinearGenerator``), 16 features, 6 atrous
@@ -85,8 +94,10 @@ The fused-kernel paths of ResNet-9 (slice 4), the phase-4 generator
 
 15. K3, K4 and K9 on the main path's own activations against their plain
     versions: K3 (``fused_conv3x3_in_act``) on the trunk input (8, 32, 32,
-    512) with bf16 weights, conv 1 with ReLU and conv 2 with the residual,
-    within ``K3_*``, and in fp32 at (8, 32, 32, 64), a shape whose fp32
+    512) and at the timed batch (64, 32, 32, 512) with bf16 weights, conv 1
+    with ReLU and conv 2 with the residual, within ``K3_*``, its conv alone
+    (``conv3x3_bf16_f32``, the ``wgmma`` conv) against an fp32 conv of the
+    same bf16 values within ``K3_CONV_REL``, and in fp32 at (8, 32, 32, 64), a shape whose fp32
     weights the JAX rule sends to K3, within ``K3_FP32_ABS``; K4
     (``fused_instance_norm_act``) on the raw down_1, down_2 and up_0
     outputs with ReLU, and on down_2 in the leaky, tanh and residual forms,
@@ -96,8 +107,10 @@ The fused-kernel paths of ResNet-9 (slice 4), the phase-4 generator
     with bf16 weights, counted: 18 K3 launches and no other kernel; the
     same forward of the fp32-weight module: no K3 launch, equal to the bf16
     module forward. Its distance to the fp32 forward within the rule of
-    phase 4 of the bf16 module forward's; img/s of both at batch 64, K3
-    per launch beside its bound;
+    phase 4 of the bf16 module forward's, at batch 8 and 64; img/s of both
+    at batch 64, K3 per launch at batch 8 and 64 beside its bound, its conv
+    alone and the yardstick of its GEMM part (cuDNN's bf16 ``F.conv2d``,
+    channels_last);
 17. the int8 engine (``resnet_generator_int8_trunk_apply``) under
     ``_FUSED_STAGE_IN = "1"``: 9 K1 + 3 K4 launches per generator call;
     then under each K9 variant of ``_HEAD_KERNEL``: 9 K1 + 1 K9. Each
@@ -137,7 +150,9 @@ layer (``calibrate``).
 22. times with CUDA events: img/s of both engines, ``multiscale`` at batch
     8 (512²) and ``local`` at batch 4 (1024², the suite's
     ``p2phd1024_int8``), one profile each, a breakdown by segment, and the
-    kernels per launch beside their bounds and their plain versions.
+    kernels per launch beside their bounds and their plain versions (K1-bn
+    also at batch 64, bit-exact there too, with phase 6's GEMM
+    yardstick).
 
 The fp32 reference forwards run with TF32 off, the rest under PyTorch's
 defaults. The line before the last is the card's name and power limit; the
@@ -182,6 +197,12 @@ K1_REL, K1_ABS = 2.0 ** -7, 0.01
 # K2 vs its plain version: the same LSB flips, at most one LSB per element
 # on at most 0.1% of the elements; the per-image scales to 1e-4 relative.
 K2_MAX_LSB, K2_MAX_FRAC, K2_SCALE_RTOL = 1, 1e-3, 1e-4
+# At the timed batch of 64 images, one flipped LSB of the requantized
+# intermediate among the 4,608 inputs of an image's largest output is
+# likely: it moves that output, and so the image's scale (max / 127), by
+# |w2| * s_mid / sigma2, up to ~5e-4 of it at these weights (1.8e-4 seen,
+# with int8 outputs within one LSB on 1.7e-4 of the elements). 1e-3 there.
+K2_SCALE_RTOL_BATCH = 1e-3
 
 # bilinear_content as the JAX engine and CLI default it; the checked batch
 # and the JAX suite's bilinear512_int8 batch (benchmarks/run_suite.py)
@@ -229,6 +250,12 @@ K8_REL, K8_ABS = 2.0 ** -7, 1e-4
 # of the value plus 1e-4 (8.6e-6 over one ulp seen). K3 in fp32, TF32 off
 # on the plain side: the order of sums (6.7e-6 seen).
 K3_REL, K3_ABS, K3_FP32_ABS = 2.0 ** -7, 1e-4, 1e-4
+# K3's conv alone (conv3x3_bf16_f32) vs an fp32 conv of the same bf16
+# values, TF32 off: both sum 4,608 exact products in fp32 in other orders.
+# Each element within 2^-13 of its sum of |x*w| (one fp32 rounding is 2^-24
+# of it; a blocked sum of 4,608 terms stays far below 2^11 of those; 2.4e-5
+# seen against values up to 3.8).
+K3_CONV_REL = 2.0 ** -13
 K4_REL, K4_ABS = 2.0 ** -7, 1e-4
 # K9 as K3 without pre_in (3.2e-6 over one ulp seen). With pre_in the IN
 # statistics, summed in another order, can round a normalized input to the
@@ -400,6 +427,44 @@ def k8_bound_ms(n: int, h: int, w: int, cin: int, cout: int, kk: int,
                  + kk * kk * cin * cout + 2 * cout * 4)
 
 
+def im2col_reflect(xq):
+    """The (N·H·W, 9·C) matrix of a reflect-pad-1 3×3 conv of NHWC ``xq``,
+    k = tap·C + c (the layout of the kernels' ``wk``)."""
+    import torch
+    import torch.nn.functional as F
+
+    n, h, w, c = xq.shape
+    xp = F.pad(xq.permute(0, 3, 1, 2).float(), (1, 1, 1, 1), mode="reflect") \
+        .to(xq.dtype).permute(0, 2, 3, 1)
+    return torch.cat([xp[:, dy:dy + h, dx:dx + w].reshape(n * h * w, c)
+                      for dy in range(3) for dx in range(3)], dim=1)
+
+
+def int_mm_ms(xq, wk) -> float:
+    """The yardstick of the GEMM part of one int8 res block (two convs):
+    one ``torch._int_mm`` of the im2col matrix stacked twice (2·N·H·W, 9·C)
+    by the (9·C, C) weights. Timed here; the port never calls it."""
+    import torch
+
+    a = im2col_reflect(xq)
+    a2 = torch.cat([a, a])
+    b = wk.t()
+    return cuda_ms(lambda: torch._int_mm(a2, b), 10)
+
+
+def print_block_times(name, shape, ms, carrier_bytes, lib_ms,
+                      plain_ms=None) -> None:
+    """One int8 res block's time beside its bound, its TOPS and the GEMM
+    yardstick of its two convs."""
+    n, h, w, c = shape
+    bnd, by = k_bound_ms(n, h, w, c, carrier_bytes)
+    ops = 2 * 2 * n * h * w * 9 * c * c
+    plain = "" if plain_ms is None else f", plain {plain_ms!r} ms"
+    print(f"[times] {name} {shape}: {ms!r} ms, bound {bnd!r} ms ({by}), "
+          f"{ops / ms * 1e-9!r} TOPS{plain}; GEMM yardstick (torch._int_mm "
+          f"of both convs' im2col) {lib_ms!r} ms", flush=True)
+
+
 def resnet_path(dev, images, counters) -> list:
     """Phases 3-6; the kernels' JSON rows of K1 and K2."""
     import torch
@@ -441,29 +506,57 @@ def resnet_path(dev, images, counters) -> list:
           "equal the plain version bit for bit")
     print(f"[kernels] conv3x3_reflect_s8 {tuple(hq.shape)}: int32 "
           f"accumulators bit-exact vs plain", flush=True)
+    # the same at the timed batch, on a seeded batch of its own (the
+    # images() stream of the later phases stays as it was)
+    x64 = torch.rand(BENCH_BATCH, SIZE, SIZE, 1,
+                     generator=torch.Generator().manual_seed(64)) * 2 - 1
+    h64 = fi.resnet_encode(gen, x64.to(dev).bfloat16()).contiguous()
+    h64q, h64s = qi.quantize_act(h64)
+    check(torch.equal(kr.conv3x3_reflect_s8(h64q, q0["w1k"]),
+                      qi.conv3x3_reflect_s8_plain(h64q, q0["w1q"])),
+          "conv3x3_reflect_s8 bit-exact at the timed batch")
+    print(f"[kernels] conv3x3_reflect_s8 {tuple(h64q.shape)}: int32 "
+          f"accumulators bit-exact vs plain", flush=True)
+    for shape in (tuple(hq.shape), tuple(h64q.shape)):
+        v_card, v_py = kr.conv_variant_card(*shape), kr.conv_variant(*shape)
+        print(f"[kernels] K1 / K2 conv at {shape}: wgmma BN {v_card} (Python "
+              f"mirror {v_py}; 0 would be mma.sync)", flush=True)
+        check(v_card == v_py and v_card in (128, 256),
+              f"the wgmma conv at {shape}")
 
-    y1k = kr.resblock_int8_bf16io(h, q0, qi.EPS)
-    y1p = qi.resblock_int8_bf16io_plain(h, q0)
-    d1 = (y1k.float() - y1p.float()).abs()
-    k1_err = d1.max().item()
-    k1_over = (d1 - K1_REL * y1p.float().abs()).max().item()
-    print(f"[kernels] K1 resblock_int8_bf16io {tuple(h.shape)} bf16: "
-          f"max|kernel-plain| {k1_err!r}, max over one ulp {k1_over!r} "
-          f"(tol {K1_ABS})", flush=True)
-    check(k1_over <= K1_ABS, "K1 within one bf16 ulp + 0.01 of plain")
+    def k1_k2(h, hq, hs, s_rtol) -> tuple:
+        """K1 and K2 against their plain versions, K2's scales within
+        ``s_rtol``; their max-abs errors."""
+        y1k = kr.resblock_int8_bf16io(h, q0, qi.EPS)
+        y1p = qi.resblock_int8_bf16io_plain(h, q0)
+        d1 = (y1k.float() - y1p.float()).abs()
+        k1_err = d1.max().item()
+        k1_over = (d1 - K1_REL * y1p.float().abs()).max().item()
+        print(f"[kernels] K1 resblock_int8_bf16io {tuple(h.shape)} bf16: "
+              f"max|kernel-plain| {k1_err!r}, max over one ulp {k1_over!r} "
+              f"(tol {K1_ABS})", flush=True)
+        check(k1_over <= K1_ABS, f"K1 {tuple(h.shape)} within one bf16 ulp "
+              f"+ 0.01 of plain")
 
-    (q2k, s2k), (q2p, s2p) = kr.resblock_int8(hq, hs, q0, qi.EPS), \
-        qi.resblock_int8_plain(hq, hs, q0)
-    dq = (q2k.int() - q2p.int()).abs()
-    frac = (dq > 0).float().mean().item()
-    s_rel = ((s2k - s2p).abs() / s2p).max().item()
-    k2_err = (q2k.float() * s2k[:, :, None, None]
-              - q2p.float() * s2p[:, :, None, None]).abs().max().item()
-    print(f"[kernels] K2 resblock_int8 {tuple(hq.shape)}: max|dq| "
-          f"{dq.max().item()} LSB on {frac!r} of elements, scale rel err "
-          f"{s_rel!r}, max|dequant diff| {k2_err!r}", flush=True)
-    check(dq.max().item() <= K2_MAX_LSB and frac <= K2_MAX_FRAC
-          and s_rel <= K2_SCALE_RTOL, "K2 within tolerance of plain")
+        (q2k, s2k), (q2p, s2p) = kr.resblock_int8(hq, hs, q0, qi.EPS), \
+            qi.resblock_int8_plain(hq, hs, q0)
+        dq = (q2k.int() - q2p.int()).abs()
+        frac = (dq > 0).float().mean().item()
+        s_rel = ((s2k - s2p).abs() / s2p).max().item()
+        k2_err = (q2k.float() * s2k[:, :, None, None]
+                  - q2p.float() * s2p[:, :, None, None]).abs().max().item()
+        print(f"[kernels] K2 resblock_int8 {tuple(hq.shape)}: max|dq| "
+              f"{dq.max().item()} LSB on {frac!r} of elements, scale rel err "
+              f"{s_rel!r} (tol {s_rtol}), max|dequant diff| {k2_err!r}",
+              flush=True)
+        check(dq.max().item() <= K2_MAX_LSB and frac <= K2_MAX_FRAC
+              and s_rel <= s_rtol,
+              f"K2 {tuple(hq.shape)} within tolerance of plain")
+        return k1_err, k2_err
+
+    # at the checked batch (BN 128) and at the timed one (BN 256)
+    k1_err, k2_err = k1_k2(h, hq, hs, K2_SCALE_RTOL)
+    k1_k2(h64, h64q, h64s, K2_SCALE_RTOL_BATCH)
 
     # 4. the main path, counted
     for m in counters:
@@ -504,6 +597,10 @@ def resnet_path(dev, images, counters) -> list:
 
     y_fp32 = fidelity("resnet path", gen, qblocks, x,
                       {"bf16": y_k1, "int8": y_k2})
+    x64 = x64.to(dev)
+    fidelity(f"resnet path, batch {BENCH_BATCH}", gen, qblocks, x64,
+             {c: int8_engine(gen, qblocks, x64.bfloat16(), c).float()
+              for c in ("bf16", "int8")})
     for name, y in (("bf16", y_bf16), ("int8/K1", y_k1), ("int8/K2", y_k2)):
         check(tuple(y.shape) == (BATCH, SIZE, SIZE, 1)
               and bool(torch.isfinite(y).all()), f"{name} output shape/finite")
@@ -532,6 +629,8 @@ def resnet_path(dev, images, counters) -> list:
             ("int8/K2", lambda: int8_engine(gen, qblocks, xb, "int8"))):
         print_times(f"resnet generator {name}", BENCH_BATCH, fn)
 
+    lib_ms = {n: int_mm_ms(v, q0["w1k"]) for n, v in ((BATCH, hq),
+                                                       (BENCH_BATCH, h64q))}
     rows = []
     for name, replaces, kfn, pfn, cb, err in (
             ("resblock_int8_bf16io",
@@ -547,25 +646,24 @@ def resnet_path(dev, images, counters) -> list:
                      "source": "cistar_tpu_torch/csrc/int8_resblock.cu",
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bnd, "bound_by": by, "library_ms": None})
-    hb = fi.resnet_encode(gen, images(BENCH_BATCH, SIZE).bfloat16()).contiguous()
-    hbq, hbs = qi.quantize_act(hb)
+                     "bound_ms": bnd, "bound_by": by,
+                     "library_ms": lib_ms[BATCH]})
+        print_block_times(name, tuple(h.shape), ms, cb, lib_ms[BATCH],
+                          plain_ms)
     for name, fn, cb in (
             ("resblock_int8_bf16io",
-             lambda: kr.resblock_int8_bf16io(hb, q0, qi.EPS), 2),
+             lambda: kr.resblock_int8_bf16io(h64, q0, qi.EPS), 2),
             ("resblock_int8",
-             lambda: kr.resblock_int8(hbq, hbs, q0, qi.EPS), 1),
-            ("conv3x3_reflect_s8",
-             lambda: kr.conv3x3_reflect_s8(hbq, q0["w1k"]), None)):
-        ms = cuda_ms(fn, 10)
-        if cb is None:
-            ops = 2 * hb.numel() * 9 * c
-            print(f"[times] {name} {tuple(hb.shape)}: {ms!r} ms, "
-                  f"{ops / ms * 1e-9!r} TOPS", flush=True)
-        else:
-            bnd, by = k_bound_ms(*hb.shape, cb)
-            print(f"[times] {name} {tuple(hb.shape)}: {ms!r} ms, bound "
-                  f"{bnd!r} ms ({by})", flush=True)
+             lambda: kr.resblock_int8(h64q, h64s, q0, qi.EPS), 1)):
+        print_block_times(name, tuple(h64.shape), cuda_ms(fn, 10), cb,
+                          lib_ms[BENCH_BATCH])
+    for nb, xq in ((BATCH, hq), (BENCH_BATCH, h64q)):
+        ms = cuda_ms(lambda: kr.conv3x3_reflect_s8(xq, q0["w1k"]), 10)
+        ops = 2 * xq.numel() * 9 * c
+        print(f"[times] conv3x3_reflect_s8 {tuple(xq.shape)}: {ms!r} ms, "
+              f"{ops / ms * 1e-9!r} TOPS, bound {ops / PEAK_INT8_OPS * 1e3!r}"
+              f" ms; torch._int_mm of its im2col matrix {lib_ms[nb] / 2!r} "
+              f"ms", flush=True)
     return rows
 
 
@@ -1177,6 +1275,7 @@ def fused_path(dev, images, counters) -> list:
 
     from cistar_tpu_torch.engines.cyclegan import CycleGANInference
     from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
+    from cistar_tpu_torch.kernels import fused_conv as kf
     from cistar_tpu_torch.models import fast_infer as fi
     from cistar_tpu_torch.models.cyclegan import seeded_generator
     from cistar_tpu_torch.ops import fused
@@ -1188,6 +1287,8 @@ def fused_path(dev, images, counters) -> list:
     qblocks = qi.quantize_resnet_trunk(gen)
     x = images(BATCH, SIZE)
     xb = x.bfloat16()
+    xf64 = images(BENCH_BATCH, SIZE)
+    xbb = xf64.bfloat16()
 
     def counted(fn):
         """``fn()`` with every launch counter set to 0 just before; its
@@ -1197,6 +1298,13 @@ def fused_path(dev, images, counters) -> list:
         y = fn()
         torch.cuda.synchronize()
         return y, {k: v for m in counters for k, v in m.launches.items()}
+
+    def cudnn_ms(x, w):
+        """cuDNN's bf16 conv of NHWC ``x`` (a channels_last NCHW view),
+        zero pad 1: the yardstick of K3's GEMM, never called by the port."""
+        wc = w.contiguous(memory_format=torch.channels_last)
+        xc = x.permute(0, 3, 1, 2)
+        return cuda_ms(lambda: F.conv2d(xc, wc, padding=1), 10)
 
     def within(label, yk, yp, rel, tol):
         d = (yk.float() - yp.float()).abs()
@@ -1209,22 +1317,52 @@ def fused_path(dev, images, counters) -> list:
         return err
 
     # 15. kernels on the main path's own activations
-    h = fi._in_relu(gen16.init_conv(xb))
-    for m in gen16.down:
-        h = fi._in_relu(m(h))
-    h = h.contiguous()
+    def trunk_in(v):
+        for m in (gen16.init_conv, *gen16.down):
+            v = fi._in_relu(m(v))
+        return v.contiguous()
+
+    h, hb = trunk_in(xb), trunk_in(xbb)
     check(tuple(h.shape) == (BATCH, 32, 32, 512), f"trunk {tuple(h.shape)}")
     c1, c2 = gen16.res[0].conv1, gen16.res[0].conv2
     check(fused.conv3x3_in_act_fits(h, c1.weight)
           and not fused.conv3x3_in_act_fits(h, gen.res[0].conv1.weight),
           "the JAX rule sends the trunk to K3 with bf16 weights only")
-    r_p = fused.fused_conv3x3_in_act_plain(h, c1.weight, c1.bias, "relu")
-    k3_err = max(
-        within("K3 conv 1, relu", fused.fused_conv3x3_in_act(
-            h, c1.weight, c1.bias, "relu"), r_p, K3_REL, K3_ABS),
-        within("K3 conv 2, none + residual", fused.fused_conv3x3_in_act(
-            r_p, c2.weight, c2.bias, "none", h), fused.fused_conv3x3_in_act_plain(
-            r_p, c2.weight, c2.bias, "none", h), K3_REL, K3_ABS))
+    wk1 = c1.weight.detach().permute(0, 2, 3, 1).reshape(512, -1).contiguous()
+    b1 = c1.bias.detach().float().contiguous()
+
+    def k3_checks(h) -> float:
+        """K3 (both convs of block 0) and its conv alone against their
+        plain versions on ``h``; K3's max-abs error."""
+        r_p = fused.fused_conv3x3_in_act_plain(h, c1.weight, c1.bias, "relu")
+        err = max(
+            within("K3 conv 1, relu", fused.fused_conv3x3_in_act(
+                h, c1.weight, c1.bias, "relu"), r_p, K3_REL, K3_ABS),
+            within("K3 conv 2, none + residual", fused.fused_conv3x3_in_act(
+                r_p, c2.weight, c2.bias, "none", h),
+                fused.fused_conv3x3_in_act_plain(
+                    r_p, c2.weight, c2.bias, "none", h), K3_REL, K3_ABS))
+        # the conv alone against an fp32 conv of the same bf16 values
+        v_card = kf.conv_variant_card(*h.shape, 512, True, True)
+        check(v_card == kf.conv_variant(*h.shape, 512, True, True) != 0,
+              f"K3 at {tuple(h.shape)} takes the wgmma conv")
+        f_k = kf.conv3x3_bf16_f32(h, wk1, b1, True)
+        with fp32_exact():
+            f_p = fused.conv3x3_bias_plain(h, c1.weight, c1.bias)
+            f_abs = fused.conv3x3_bias_plain(h.abs(), c1.weight.abs())
+        d = (f_k - f_p).abs()
+        over = (d - K3_CONV_REL * f_abs).max().item()
+        print(f"[kernels] K3 conv alone (conv3x3_bf16_f32, wgmma BN "
+              f"{v_card}) {tuple(f_k.shape)}: max|kernel-fp32| "
+              f"{d.max().item()!r}, max over 2^-13 of sum|x*w| {over!r} "
+              f"(tol 0)", flush=True)
+        check(over <= 0, f"K3's conv at {tuple(h.shape)} within its "
+              f"sum-order tolerance of fp32")
+        return err
+
+    # at the checked batch (BN 128) and at the timed one (BN 256)
+    k3_err = k3_checks(h)
+    k3_checks(hb)
     g32 = torch.Generator(device=dev).manual_seed(0)
     x64 = torch.randn(BATCH, 32, 32, 64, device=dev, generator=g32)
     w64 = 0.05 * torch.randn(64, 64, 3, 3, device=dev, generator=g32)
@@ -1287,21 +1425,39 @@ def fused_path(dev, images, counters) -> list:
           f"forward max {mb!r} mean {ab!r}", flush=True)
     check(af <= KERNEL_MEAN_RATIO * ab and mf <= mb + KERNEL_MAX_EXCESS,
           "the fast forward about as far from fp32 as the bf16 forward")
-    xbb = images(BENCH_BATCH, SIZE).bfloat16()
+    # the same rule at the timed batch
+    y_fast64 = fi.resnet_generator_fast_apply(gen16, xbb)
+    with fp32_exact():
+        y32_64 = gen(xf64)
+    check(tuple(y_fast64.shape) == (BENCH_BATCH, SIZE, SIZE, 1)
+          and bool(torch.isfinite(y_fast64).all()), "fast forward output, "
+          f"batch {BENCH_BATCH}")
+    (mf, af), (mb, ab) = ((d.max().item(), d.mean().item()) for d in (
+        (y_fast64.float() - y32_64).abs(), (gen(xbb).float() - y32_64).abs()))
+    print(f"[fast forward] batch {BENCH_BATCH} vs fp32: max {mf!r} mean "
+          f"{af!r}; the bf16 module forward max {mb!r} mean {ab!r}",
+          flush=True)
+    check(af <= KERNEL_MEAN_RATIO * ab and mf <= mb + KERNEL_MAX_EXCESS,
+          f"batch {BENCH_BATCH}: the fast forward about as far from fp32 as "
+          f"the bf16 forward")
+    del y_fast64, y32_64
     for name, fn in (("bf16 module", lambda: gen(xbb)),
                      ("bf16 fast (K3)",
                       lambda: fi.resnet_generator_fast_apply(gen16, xbb))):
         print_times(f"resnet generator {name}", BENCH_BATCH, fn)
-    hb = fi._in_relu(gen16.init_conv(xbb))
-    for m in gen16.down:
-        hb = fi._in_relu(m(hb))
-    hb = hb.contiguous()
-    ms_b = cuda_ms(lambda: fused.fused_conv3x3_in_act(
-        hb, c1.weight, c1.bias, "relu"), 10)
-    bnd_b, _ = k3_bound_ms(hb, c1.weight, None)
-    print(f"[times] conv3x3_in_act {tuple(hb.shape)}: {ms_b!r} ms, bound "
-          f"{bnd_b!r} ms, {2 * hb.numel() * 9 * 512 / ms_b * 1e-9!r} TFLOP/s",
-          flush=True)
+    k3_lib = {}
+    for v in (h, hb):
+        ops = 2 * v.numel() * 9 * 512
+        ms_k = cuda_ms(lambda: fused.fused_conv3x3_in_act(
+            v, c1.weight, c1.bias, "relu"), 10)
+        ms_c = cuda_ms(lambda: kf.conv3x3_bf16_f32(v, wk1, b1, True), 10)
+        k3_lib[v.shape[0]] = cudnn_ms(v, c1.weight)
+        bnd_k, by = k3_bound_ms(v, c1.weight, None)
+        print(f"[times] conv3x3_in_act {tuple(v.shape)}: {ms_k!r} ms, bound "
+              f"{bnd_k!r} ms ({by}), {ops / ms_k * 1e-9!r} TFLOP/s; its conv "
+              f"alone (conv3x3_bf16_f32) {ms_c!r} ms, {ops / ms_c * 1e-9!r} "
+              f"TFLOP/s; GEMM yardstick (cuDNN F.conv2d, bf16, "
+              f"channels_last) {k3_lib[v.shape[0]]!r} ms", flush=True)
 
     # 17. the int8 engine under the switches
     engine = fi.resnet_generator_int8_trunk_apply
@@ -1395,24 +1551,24 @@ def fused_path(dev, images, counters) -> list:
     rows = []
     v4 = d1.contiguous()
     u2c = u2n.contiguous()
-    for (name, src, replaces, launches, err, kfn, pfn, (bnd, by), lib) in (
+    for (name, src, replaces, launches, err, kfn, pfn, (bnd, by),
+         lib_ms) in (
             ("conv3x3_in_act", "conv3x3_in_act.cu", "pallas_kernels.py:224",
              n16["conv3x3_in_act"], k3_err,
              lambda: fused.fused_conv3x3_in_act(h, c1.weight, c1.bias),
              lambda: fused.fused_conv3x3_in_act_plain(h, c1.weight, c1.bias),
-             k3_bound_ms(h, c1.weight, None), None),
+             k3_bound_ms(h, c1.weight, None), k3_lib[BATCH]),
             ("in_act", "in_act.cu", "pallas_kernels.py:111", k4_launches,
              k4_err, lambda: fused.fused_instance_norm_act(v4, "relu"),
              lambda: fused.fused_instance_norm_act_plain(v4, "relu"),
              bound(0, 2 * v4.numel() * v4.element_size()),
-             lambda: F.instance_norm(v4.permute(0, 3, 1, 2))),
+             cuda_ms(lambda: F.instance_norm(v4.permute(0, 3, 1, 2)), 20)),
             ("head_cout1", "head_cout1.cu", "head_conv.py:341", k9_launches,
              k9_err,
              lambda: fused.conv2d_reflect_cout1_loop(u2c, wh, bh, "tanh"),
              lambda: fused.conv2d_reflect_cout1_plain(u2c, wh, bh, "tanh"),
              k9_bound_ms(u2c), None)):
         ms, plain_ms = cuda_ms(kfn, 20), cuda_ms(pfn, 5)
-        lib_ms = None if lib is None else cuda_ms(lib, 20)
         rows.append({"name": name, "route": "cuda",
                      "source": "cistar_tpu_torch/csrc/" + src,
                      "replaces": "cistar_tpu/ops/" + replaces,
@@ -1557,6 +1713,10 @@ def bn_local_path(images, counters) -> list:
     check(tuple(h1.shape) == (n1, 32, 32, 512)
           and qi.whole_image_resblock_fits(32, 32, 512),
           f"the 256² trunk {tuple(h1.shape)} fits K1")
+    v1 = kr.conv_variant_card(*h1.shape)
+    print(f"[kernels] K1-bn conv at {tuple(h1.shape)}: wgmma BN {v1}",
+          flush=True)
+    check(v1 == kr.conv_variant(*h1.shape) != 0, "K1-bn on the wgmma conv")
     y1 = kr.resblock_int8_bf16io(h1, q0, qi.EPS, bn=True)
     errs["k1"] = bit_exact("K1-bn", y1,
                            qi.resblock_int8_bf16io_plain(h1, q0, bn=True))
@@ -1681,12 +1841,20 @@ def bn_local_path(images, counters) -> list:
     hmb = fi.multiscale_encode(msg, xmb).contiguous()
     rqb, rsb = qi.resblock_tiled_a_plain(hmb, q0, BN_TILE, bn=True)
     rq7, rs7 = qi.resblock_tiled_a_plain(h7, q0, BN_TILE, bn=True)
+    h1b = fi.multiscale_encode(msg, images(BENCH_BATCH, size1).bfloat16()) \
+        .contiguous()
+    bit_exact("K1-bn (BN 256)", kr.resblock_int8_bf16io(h1b, q0, qi.EPS,
+                                                        bn=True),
+              qi.resblock_int8_bf16io_plain(h1b, q0, bn=True))
+    k1_lib = {v.shape[0]: int_mm_ms(qi.quantize_act(v)[0], q0["w1k"])
+              for v in (h1, h1b)}
     rows = []
     for name, line, src, err, kfn, kfn_b, pfn, (bnd, by), (bnd_b, _) in (
             ("resblock_int8_bf16io_bn", ":240", "int8_resblock.cu", errs["k1"],
-             lambda: kr.resblock_int8_bf16io(h1, q0, qi.EPS, bn=True), None,
+             lambda: kr.resblock_int8_bf16io(h1, q0, qi.EPS, bn=True),
+             lambda: kr.resblock_int8_bf16io(h1b, q0, qi.EPS, bn=True),
              lambda: qi.resblock_int8_bf16io_plain(h1, q0, bn=True),
-             k_bound_ms(*h1.shape, 2), (None, None)),
+             k_bound_ms(*h1.shape, 2), k_bound_ms(*h1b.shape, 2)),
             ("resblock_int8_tiled_a_bn", ":519", "int8_tiled.cu", errs["a"],
              lambda: kt.resblock_int8_tiled_a(h7, q0, BN_TILE, qi.EPS, bn=True),
              lambda: kt.resblock_int8_tiled_a(hmb, q0, BN_TILE, qi.EPS,
@@ -1702,17 +1870,23 @@ def bn_local_path(images, counters) -> list:
                                                bn=True),
              k7_bound_ms(*h7.shape, "b"), k7_bound_ms(*hmb.shape, "b"))):
         ms, plain_ms_ = cuda_ms(kfn, 20), cuda_ms(pfn, 5)
+        k1 = name == "resblock_int8_bf16io_bn"
         rows.append({"name": name, "route": "cuda",
                      "source": "cistar_tpu_torch/csrc/" + src,
                      "replaces": "cistar_tpu/ops/quant_pallas.py" + line,
                      "launches": launches[name], "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms_, "bound_ms": bnd,
-                     "bound_by": by, "library_ms": None})
-        extra = "" if kfn_b is None else (
-            f"; {tuple(hmb.shape)}: {cuda_ms(kfn_b, 10)!r} ms, bound "
-            f"{bnd_b!r} ms")
+                     "bound_by": by,
+                     "library_ms": k1_lib[h1.shape[0]] if k1 else None})
+        if k1:
+            print_block_times(name, tuple(h1.shape), ms, 2, k1_lib[h1.shape[0]],
+                              plain_ms_)
+            print_block_times(name, tuple(h1b.shape), cuda_ms(kfn_b, 10), 2,
+                              k1_lib[h1b.shape[0]])
+            continue
         print(f"[times] {name} at the checked shape: {ms!r} ms, bound "
-              f"{bnd!r} ms ({by}), plain {plain_ms_!r} ms{extra}", flush=True)
+              f"{bnd!r} ms ({by}), plain {plain_ms_!r} ms; {tuple(hmb.shape)}: "
+              f"{cuda_ms(kfn_b, 10)!r} ms, bound {bnd_b!r} ms", flush=True)
     hlb = fi.trunk_encode(log.global_trunk, log.pyramid(xlb)[-1]).contiguous()
     rqlb, rslb = kt.resblock_int8_tiled_a(hlb, ql, BN_TILE, qi.EPS)
     for name, fn, (bnd, by) in (
@@ -1822,6 +1996,9 @@ def main() -> int:
     # 2. build
     print(f"[build] csrc/*.cu -> sm_90a in {build.build_all():.1f} s",
           flush=True)
+    for src in ("int8_resblock", "conv3x3_in_act"):
+        for line in build.ptxas_report(src, "wg_conv_kernel"):
+            print(f"[ptxas] {src}: {line}", flush=True)
 
     cpu_gen = torch.Generator().manual_seed(0)
 

@@ -1,0 +1,591 @@
+// The 3x3 "same" conv of the port's main path on Hopper's wgmma + TMA
+// (sm_90a), templated on the operand type: int8 x int8 -> int32 (K1 and K2,
+// csrc/int8_resblock.cu: both convs of every block, the bn=True form and
+// the int32 accumulators of cistar_conv3x3_reflect_s8_acc) and bf16 x bf16
+// -> fp32 (K3, csrc/conv3x3_in_act.cu).
+//
+// Serves the TPU kernels' 3x3 convs
+//   cistar_tpu/ops/quant_pallas.py::_conv9_int8 (:114-134), the conv of
+//     _resblock_int8_bf16io_kernel (K1) and _resblock_int8_kernel (K2)
+//   cistar_tpu/ops/pallas_kernels.py::fused_conv3x3_in_act's body
+//     (:181-200, K3)
+// each a padded halo in VMEM and 9 shifted (H*W, Cin) x (Cin, Cout)
+// matmuls.
+//
+// What bounds it: operations. At the trunk shape (64, 32, 32, 512) one
+// conv is an implicit GEMM of M = 65,536 pixels, N = 512, K = 9 * 512 =
+// 4,608: 309.2 G operations, 0.156 ms at 1,979 int8 TOPS and 0.313 ms at
+// 989 bf16 TFLOP/s, against ~40 MB of input and weights (0.012 ms at 3.35
+// TB/s).
+//
+// Design (what it does about that):
+//   * The input is read from a reflect-padded (N, H+2, W+2, C) copy, so tap
+//     (dy, dx) of an M tile that covers image rows y0 .. y0+R-1 is one 4-D
+//     TMA box at (c0, x0 + dx, y0 + dy, n), box (128 bytes of C, min(W,
+//     128), R = 128 / min(W, 128), 1): the TPU kernel's 9 shifted windows,
+//     fetched by the copy engine with no address arithmetic in the SM.
+//     TMA fills zeros, not reflections, outside the tensor, hence the padded
+//     copy (written by K1's quantize passes directly, by reflect_pad_kernel
+//     for K2's input, the RAW entry and K3). Zero padding needs no copy: the
+//     box starts at (x0 - 1 + dx, y0 - 1 + dy) on the unpadded tensor and
+//     TMA zero-fills what lies outside.
+//   * The weights (Cout, 9*Cin), K-contiguous, are a 2-D box of (128 bytes
+//     of K, BN rows). Both operands are K-major with 128-byte swizzle, the
+//     layout wgmma reads (and the only one it takes for 8-bit types).
+//   * A ring of STAGES tiles in shared memory (4 at BN 256, 6 at BN 128;
+//     192 KB), each an A tile of 128 pixels and a B tile of BN channels x
+//     128 bytes of K, filled by one producer thread through an mbarrier per
+//     stage ("full") and released by the consumers through another
+//     ("empty").
+//   * Two consumer warpgroups, 64 rows each, run wgmma.mma_async
+//     m64nBNk32 (s8) / k16 (bf16) on the arrived tiles: 4 per stage, one
+//     group kept in flight, so a stage is released while the next one's
+//     products run. setmaxnreg moves registers from the producer warpgroup
+//     (40) to the consumers (232): BN 256 holds 128 accumulators a thread.
+//   * BN per launch: 256 where the grid still has 2 blocks per SM (132 SMs
+//     on an H100 SXM), else 128, so a batch of 8 fills the card (256 blocks
+//     of 128 x 128 at (8, 32, 32, 512)).
+//   * The epilogue is conv_s8_kernel's (int8_common.cuh): EPI_RAW writes
+//     the int32 accumulators; EPI_STATS writes f = acc * (xs[n] * ws[c]) +
+//     bias[c] (s8) or acc + bias[c] (bf16) in fp32 with __fmul_rn /
+//     __fadd_rn, and adds each (image, channel)'s sum, sum of squares and
+//     (WANT_MAX) max with atomics; with st_sum null, the max only. The
+//     wgmma accumulator of a warp covers 16 rows (lane / 4 and lane / 4 +
+//     8) of the 64, so the column sums reduce over lane bits 2-4 by
+//     shuffles, then over the 8 consumer warps in shared memory.
+//
+// The tile rule (wg_tile_ok): W divides 128 or 128 divides W (a tile is
+// whole image rows, or 128 pixels of one row), H*W % 128 == 0 (a tile lies
+// in one image), 128 bytes of C divide Cin (a K stage lies in one tap) and
+// Cout % 128 == 0. Every K1 shape on the ported paths (ResNet-9 and
+// multiscale 256² at (B, 32, 32, 512), the JAX budget configuration's (B,
+// 16, 16, 128)) and K3's (B, 32, 32, 512) meet it; other shapes keep
+// conv_s8_kernel (K1, K2) or conv_ffma_kernel (K3), chosen by shape.
+//
+// The TMA descriptors hold the tensors' pointers, so they are encoded on
+// the host for each launch (cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint: the libraries link no libcuda) and passed as
+// __grid_constant__ kernel parameters.
+
+#pragma once
+
+#include <cuda.h>
+
+#include "int8_common.cuh"
+
+namespace {
+
+constexpr int WG_BM = 128;        // output pixels per block
+constexpr int WG_THREADS = 384;   // producer warpgroup + 2 consumer warpgroups
+constexpr int WG_KBYTES = 128;    // bytes of K per stage: one swizzle row
+constexpr int WG_SMS = 132;       // SMs of an H100 SXM, for the choice of BN
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major tile with 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), layout type 1.
+// The tile starts on a 1024-byte boundary; a K step of 32 bytes inside the
+// swizzle row adds 2 to the address field.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving an accumulator access across a wait.
+__device__ __forceinline__ void reg_fence(int& r) { asm volatile("" : "+r"(r)::"memory"); }
+__device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// wgmma.mma_async m64nNk32 s8 / m64nNk16 bf16, A and B from shared memory
+// (K-major), d += A * B.
+
+__device__ __forceinline__ void wgmma_s8_n128(int* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8_n256(int* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n128(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n256(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The accumulator and TMA element type of each operand type.
+template <typename T>
+struct WgOperand;
+template <>
+struct WgOperand<int8_t> {
+  using Acc = int;
+  static constexpr CUtensorMapDataType tma = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+};
+template <>
+struct WgOperand<__nv_bfloat16> {
+  using Acc = float;
+  static constexpr CUtensorMapDataType tma = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+
+template <int BN>
+__device__ __forceinline__ void wg_mma(int* d, uint64_t da, uint64_t db) {
+  if constexpr (BN == 256) wgmma_s8_n256(d, da, db);
+  else wgmma_s8_n128(d, da, db);
+}
+template <int BN>
+__device__ __forceinline__ void wg_mma(float* d, uint64_t da, uint64_t db) {
+  if constexpr (BN == 256) wgmma_bf16_n256(d, da, db);
+  else wgmma_bf16_n128(d, da, db);
+}
+
+template <int BN>
+__host__ __device__ constexpr int wg_stages() { return BN == 256 ? 4 : 6; }
+
+template <int BN>
+__host__ __device__ constexpr int wg_smem_bytes() {
+  // the ring, 1 KB of slack to align it to 1024, the barriers
+  return wg_stages<BN>() * (WG_BM + BN) * WG_KBYTES + 1024 + 2 * wg_stages<BN>() * 8;
+}
+
+// One block: 128 output pixels x BN output channels. Thread layout:
+// warpgroup 0 the producer (thread 0 issues every TMA load), warpgroups 1
+// and 2 the consumers of rows 0-63 and 64-127. The input map `tx` is
+// (C, W', H', N) over the padded tensor (pad_off 0) or the unpadded one
+// (pad_off -1, zero padding by TMA's fill); `tw` is (9*Cin, Cout).
+// Epilogue fields of `a` as conv_s8_kernel's.
+template <typename T, int BN, int EPI, bool WANT_MAX>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    wg_conv_kernel(const __grid_constant__ CUtensorMap tx,
+                   const __grid_constant__ CUtensorMap tw, const ConvArgs a,
+                   int pad_off) {
+  using Acc = typename WgOperand<T>::Acc;
+  constexpr int STAGES = wg_stages<BN>();
+  constexpr int A_BYTES = WG_BM * WG_KBYTES, B_BYTES = BN * WG_KBYTES;
+  constexpr int KE = WG_KBYTES / static_cast<int>(sizeof(T));  // K elements a stage
+  constexpr int NA = BN / 2;  // accumulators a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* sa = smem;
+  uint8_t* sb = smem + STAGES * A_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sb + STAGES * B_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int W = a.w, HW = a.h * a.w, Cout = a.cout;
+  const long m0 = static_cast<long>(blockIdx.x) * WG_BM;
+  const int img = static_cast<int>(m0 / HW);
+  const int rem = static_cast<int>(m0 - static_cast<long>(img) * HW);
+  const int y0 = rem / W, x0 = rem - (rem / W) * W;
+  const int n0 = blockIdx.y * BN;
+  const int cpt = a.cin / KE;  // K stages per tap
+  const int KT = 9 * cpt;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (t == 0) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES) mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
+        mbar_expect_tx(&full[s], A_BYTES + B_BYTES);
+        const int tap = kt / cpt, c0 = (kt - tap * cpt) * KE;
+        tma_load_4d(sa + s * A_BYTES, &tx, &full[s], c0, x0 + tap % 3 + pad_off,
+                    y0 + tap / 3 + pad_off, img);
+        tma_load_2d(sb + s * B_BYTES, &tw, &full[s], tap * a.cin + c0, n0);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = wg - 1;  // rows cw*64 .. cw*64+63 of the tile
+  Acc acc[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc[i] = 0;
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(&full[s], (kt / STAGES) & 1);
+    const uint64_t da = sw128_desc(sa + s * A_BYTES + cw * 64 * WG_KBYTES);
+    const uint64_t db = sw128_desc(sb + s * B_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < WG_KBYTES / 32; ++k) wg_mma<BN>(acc, da + 2 * k, db + 2 * k);
+    wgmma_commit();
+    // keep this stage's group in flight; the previous one is done: release it
+    wgmma_wait<1>();
+    if (kt > 0 && t == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < NA; ++i) reg_fence(acc[i]);
+
+  // Accumulator i of thread t: n8 block j = i / 4, row 16 * (t / 32) +
+  // (t % 32) / 4 + 8 * ((i / 2) % 2), column 8 * j + 2 * (t % 4) + i % 2.
+  const int wi = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
+  const long row0 = m0 + cw * 64 + wi * 16 + g;  // and row0 + 8
+  if (EPI == EPI_RAW) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<int2*>(a.acc_out + (row0 + 8 * h) * Cout + n0 + 8 * j + 2 * q) =
+            make_int2(static_cast<int>(acc[4 * j + 2 * h]),
+                      static_cast<int>(acc[4 * j + 2 * h + 1]));
+    return;
+  }
+  const bool sums = a.st_sum != nullptr;
+  const bool reduce = sums || WANT_MAX;
+  // Both consumer warpgroups are done with the ring before it holds the
+  // partial sums: red[8 warps][3][BN].
+  float* red = reinterpret_cast<float*>(smem);
+  if (reduce) asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  const int cwarp = cw * 4 + wi;
+  const float xsc = EPI == EPI_STATS && sizeof(T) == 1 ? a.xs[img] : 0.f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * q;
+    float v[2][2], s[2], sq[2], mx[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float b = a.bias[col + e];
+      const float scale = sizeof(T) == 1 ? __fmul_rn(xsc, a.ws[col + e]) : 0.f;
+      s[e] = 0.f;
+      sq[e] = 0.f;
+      mx[e] = -INFINITY;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const Acc r = acc[4 * j + 2 * h + e];
+        const float x = sizeof(T) == 1
+                            ? __fadd_rn(__fmul_rn(static_cast<float>(r), scale), b)
+                            : __fadd_rn(static_cast<float>(r), b);
+        v[h][e] = x;
+        s[e] = __fadd_rn(s[e], x);
+        sq[e] = __fadd_rn(sq[e], __fmul_rn(x, x));
+        mx[e] = fmaxf(mx[e], x);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) store2(a.f + (row0 + 8 * h) * Cout + col, v[h][0], v[h][1]);
+    if (reduce) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          s[e] = __fadd_rn(s[e], __shfl_xor_sync(0xffffffffu, s[e], o));
+          sq[e] = __fadd_rn(sq[e], __shfl_xor_sync(0xffffffffu, sq[e], o));
+          mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], o));
+        }
+        if (g == 0) {
+          const int c = 8 * j + 2 * q + e;
+          red[(cwarp * 3 + 0) * BN + c] = s[e];
+          red[(cwarp * 3 + 1) * BN + c] = sq[e];
+          red[(cwarp * 3 + 2) * BN + c] = mx[e];
+        }
+      }
+    }
+  }
+  if (!reduce) return;
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  const int ct = threadIdx.x - 128;
+  if (ct < BN) {
+    float s = 0.f, sq = 0.f, m = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      s = __fadd_rn(s, red[(w * 3 + 0) * BN + ct]);
+      sq = __fadd_rn(sq, red[(w * 3 + 1) * BN + ct]);
+      m = fmaxf(m, red[(w * 3 + 2) * BN + ct]);
+    }
+    const long o = static_cast<long>(img) * Cout + n0 + ct;
+    if (sums) {
+      atomicAdd(a.st_sum + o, s);
+      atomicAdd(a.st_sq + o, sq);
+    }
+    if (WANT_MAX) atomic_max_float(a.st_max + o, m);
+  }
+}
+
+// x (N, H, W, C) -> reflect-pad-1 (N, H+2, W+2, C), 16 bytes a thread.
+template <typename T>
+__global__ void reflect_pad_kernel(const T* __restrict__ x, T* __restrict__ xp,
+                                   int n, int h, int w, int c) {
+  const int vec = 16 / static_cast<int>(sizeof(T));
+  const int cv = c / vec;
+  const long total = static_cast<long>(n) * (h + 2) * (w + 2) * cv;
+  for (long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
+       i += static_cast<long>(gridDim.x) * blockDim.x) {
+    const int k = static_cast<int>(i % cv);
+    long p = i / cv;
+    const int xx = static_cast<int>(p % (w + 2));
+    p /= w + 2;
+    const int yy = static_cast<int>(p % (h + 2));
+    const long im = p / (h + 2);
+    const long src = ((im * h + reflect1(yy - 1, h)) * w + reflect1(xx - 1, w)) * c + k * vec;
+    reinterpret_cast<uint4*>(xp)[i] = *reinterpret_cast<const uint4*>(x + src);
+  }
+}
+
+template <typename T>
+void launch_reflect_pad(const T* x, T* xp, int n, int h, int w, int c, cudaStream_t st) {
+  const long total = static_cast<long>(n) * (h + 2) * (w + 2) * c * sizeof(T) / 16;
+  const long blocks = (total + EW_THREADS - 1) / EW_THREADS;
+  reflect_pad_kernel<T><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), EW_THREADS, 0,
+                          st>>>(x, xp, n, h, w, c);
+}
+
+// Whether a 3x3 conv takes wg_conv_kernel (see the note at the top);
+// elem: bytes of one operand value.
+bool wg_tile_ok(int n, int h, int w, int cin, int cout, int elem) {
+  const bool rows = (w <= WG_BM && WG_BM % w == 0) || w % WG_BM == 0;
+  return n > 0 && h >= 2 && w >= 2 && rows && (h * w) % WG_BM == 0 &&
+         (cin * elem) % WG_KBYTES == 0 && cout % 128 == 0;
+}
+
+// BN 256 where Cout allows it and the grid keeps 2 blocks per SM, else 128.
+int wg_bn(int n, int h, int w, int cout) {
+  const long tiles = static_cast<long>(n) * h * w / WG_BM;
+  return cout % 256 == 0 && tiles * (cout / 256) >= 2L * WG_SMS ? 256 : 128;
+}
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+template <typename T, int BN, int EPI, bool WANT_MAX>
+cudaError_t wg_launch(const CUtensorMap& tx, const CUtensorMap& tw, const ConvArgs& a,
+                      int pad_off, cudaStream_t st) {
+  auto kern = wg_conv_kernel<T, BN, EPI, WANT_MAX>;
+  constexpr int smem = wg_smem_bytes<BN>();
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    attr = true;
+  }
+  const dim3 grid(static_cast<unsigned>(static_cast<long>(a.n) * a.h * a.w / WG_BM),
+                  a.cout / BN);
+  kern<<<grid, WG_THREADS, smem, st>>>(tx, tw, a, pad_off);
+  return cudaGetLastError();
+}
+
+// The conv of `a` (n, h, w, cin, cout and the epilogue's pointers) on x
+// and wk (Cout, 9*Cin). padded: x is the reflect-padded (N, H+2, W+2,
+// Cin); else x is (N, H, W, Cin) and the padding is zeros. The shape
+// meets wg_tile_ok. Returns the launch's error, or cudaErrorInvalidValue
+// where a descriptor cannot be encoded.
+template <typename T, int EPI, bool WANT_MAX>
+cudaError_t launch_wg_conv(const T* x, bool padded, const T* wk, const ConvArgs& a,
+                           cudaStream_t st) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorInvalidValue;
+  const int es = static_cast<int>(sizeof(T)), ke = WG_KBYTES / es;
+  const int bn = wg_bn(a.n, a.h, a.w, a.cout);
+  const cuuint32_t bxw = static_cast<cuuint32_t>(a.w < WG_BM ? a.w : WG_BM);
+  const cuuint64_t wp = a.w + (padded ? 2 : 0), hp = a.h + (padded ? 2 : 0);
+  const cuuint64_t c = a.cin;
+  CUtensorMap tx, tw;
+  const cuuint64_t xdim[4] = {c, wp, hp, static_cast<cuuint64_t>(a.n)};
+  const cuuint64_t xstride[3] = {c * es, wp * c * es, hp * wp * c * es};
+  const cuuint32_t xbox[4] = {static_cast<cuuint32_t>(ke), bxw, WG_BM / bxw, 1};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  if (enc(&tx, WgOperand<T>::tma, 4, const_cast<T*>(x), xdim, xstride, xbox, ones,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  const cuuint64_t wdim[2] = {9 * c, static_cast<cuuint64_t>(a.cout)};
+  const cuuint64_t wstride[1] = {9 * c * es};
+  const cuuint32_t wbox[2] = {static_cast<cuuint32_t>(ke), static_cast<cuuint32_t>(bn)};
+  if (enc(&tw, WgOperand<T>::tma, 2, const_cast<T*>(wk), wdim, wstride, wbox, ones,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  const int off = padded ? 0 : -1;
+  return bn == 256 ? wg_launch<T, 256, EPI, WANT_MAX>(tx, tw, a, off, st)
+                   : wg_launch<T, 128, EPI, WANT_MAX>(tx, tw, a, off, st);
+}
+
+}  // namespace

@@ -10,8 +10,10 @@ source, all at once. :func:`bind` declares the C entries' ``ctypes``
 signatures; the ``check_*`` helpers are the wrappers' argument checks.
 
 Flags: ``-O3``, no ``--use_fast_math`` (it would replace IEEE division and
-rounding that the int8 quantizers must match), and ``--fmad=false`` so that
-``a*b+c`` rounds twice, as the plain PyTorch versions do.
+rounding that the int8 quantizers must match), ``--fmad=false`` so that
+``a*b+c`` rounds twice, as the plain PyTorch versions do, and ``-Xptxas -v``,
+whose report of each kernel's registers and spills :func:`ptxas_report`
+reads from the build's own log.
 """
 
 from __future__ import annotations
@@ -32,9 +34,10 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_logs: Dict[str, str] = {}   # nvcc's output of each source built here
 
 
 def nvcc_path() -> str:
@@ -107,6 +110,7 @@ def _finish(name: str, job: Optional[_Job]) -> None:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
+    _logs[name] = log
 
 
 def build_all() -> float:
@@ -117,6 +121,24 @@ def build_all() -> float:
     for n, job in jobs.items():
         _finish(n, job)
     return time.perf_counter() - t0
+
+
+def ptxas_report(name: str, kernel: str) -> List[str]:
+    """What ptxas said of each ``kernel`` entry of ``csrc/<name>.cu``
+    (registers, spills) when this process built it; empty where the library
+    was already built. Each line starts with the entry's template arguments
+    as mangled (e.g. ``IaLi256ELi1ELb1E``: int8, BN 256, EPI 1, WANT_MAX
+    true)."""
+    out, entry = [], None
+    for line in _logs.get(name, "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(\S+?)'?(?: for|$)", line)
+        if m:
+            t = re.search(kernel + r"(I.*?E)Ev", m.group(1))
+            entry = t.group(1) if t else None
+        elif entry is not None and ("registers" in line or "spill" in line):
+            out.append(f"{kernel}<{entry}>: {line.split(':', 1)[-1].strip()}")
+    return sorted(set(out))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -6,6 +6,8 @@
     with ``bn=True`` its BatchNorm form (counted as
     ``resblock_int8_bf16io_bn``)
   * :func:`resblock_int8` — K2 (``_resblock_int8_kernel``)
+  * :func:`conv_variant` — which conv a shape takes (``wgmma_conv.py``'s
+    rule), and :func:`conv_variant_card`, the library's own answer
 
 Each takes CUDA tensors only and launches on PyTorch's current stream; the
 CPU path is the plain version in :mod:`cistar_tpu_torch.ops.quant_int8`.
@@ -21,7 +23,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from cistar_tpu_torch.kernels import build
+from cistar_tpu_torch.kernels import build, wgmma_conv
 from cistar_tpu_torch.kernels.build import (I, F, P, check_same_device,
                                             check_tensor, raise_on, stream)
 
@@ -30,7 +32,8 @@ launches: Dict[str, int] = {"conv3x3_reflect_s8": 0, "resblock_int8_bf16io": 0,
 
 _SIGS = {
     "cistar_resblock_workspace_bytes": ((I, I, I, I), ctypes.c_size_t),
-    "cistar_conv3x3_reflect_s8_acc": ((P, P, P, I, I, I, I, P), I),
+    "cistar_resblock_conv_variant": ((I, I, I, I), I),
+    "cistar_conv3x3_reflect_s8_acc": ((P, P, P, P, I, I, I, I, P), I),
     "cistar_resblock_int8_bf16io": (
         (P, I, P, P, P, P, P, I, I, I, I, F, I, P), I),
     "cistar_resblock_int8": (
@@ -46,6 +49,18 @@ def reset_launches() -> None:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     return build.bind(build.load("int8_resblock"), _SIGS)
+
+
+def conv_variant(n: int, h: int, w: int, c: int) -> int:
+    """The conv K1, K2 and :func:`conv3x3_reflect_s8` run at (N, H, W, C):
+    the BN of the ``wgmma`` conv, or 0 for the ``mma.sync`` one
+    (``conv_s8_kernel``)."""
+    return wgmma_conv.variant(n, h, w, c, c, 1)
+
+
+def conv_variant_card(n: int, h: int, w: int, c: int) -> int:
+    """:func:`conv_variant` as the built library answers it."""
+    return _lib().cistar_resblock_conv_variant(n, h, w, c)
 
 
 def _check_shape(x: torch.Tensor) -> Tuple[int, int, int, int]:
@@ -78,8 +93,11 @@ def conv3x3_reflect_s8(xq: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
     check_tensor(wk, "wk", torch.int8, (c, 9 * c))
     lib = _lib()
     acc = torch.empty((n, h, w, c), dtype=torch.int32, device=xq.device)
+    xpad = torch.empty((n, h + 2, w + 2, c), dtype=torch.int8,
+                       device=xq.device)
     err = lib.cistar_conv3x3_reflect_s8_acc(
-        xq.data_ptr(), wk.data_ptr(), acc.data_ptr(), n, h, w, c, stream())
+        xq.data_ptr(), wk.data_ptr(), acc.data_ptr(), xpad.data_ptr(),
+        n, h, w, c, stream())
     raise_on(err, "conv3x3_reflect_s8")
     launches["conv3x3_reflect_s8"] += 1
     return acc

@@ -339,7 +339,7 @@ def define_g(net_g: str, input_nc: int, output_nc: int, ngf: int,
              norm: str = "instance") -> nn.Module:
     """The generator dispatch of ``define_g`` for ``global``, ``local``,
     ``multiscale`` (BatchNorm whatever ``norm`` says, the reference's quirk)
-    and ``UNet``. Parameters are drawn from PyTorch's global generator, on
+    and ``UNet`` (which takes no norm). Parameters are drawn from PyTorch's global generator, on
     the CPU."""
     if net_g == "global":
         return GlobalGenerator(input_nc, output_nc, ngf, n_downsample_global,
@@ -353,7 +353,7 @@ def define_g(net_g: str, input_nc: int, output_nc: int, ngf: int,
         return MultiscaleGlobalGenerator(input_nc, output_nc, ngf,
                                          n_blocks_global)
     if net_g == "UNet":
-        _instance_only(norm)
+        # the reference builds the same UNet whatever ``norm`` says
         return UNetGeneratorHD(input_nc, output_nc, n_blocks_global, ngf)
     raise NotImplementedError(
         f"netG={net_g!r} is not ported yet: 'global', 'local', 'multiscale' "

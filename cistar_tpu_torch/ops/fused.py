@@ -150,6 +150,17 @@ def _pad1(x: torch.Tensor, pad_mode: str) -> torch.Tensor:
                  mode="reflect" if pad_mode == "reflect" else "constant")
 
 
+def conv3x3_bias_plain(x: torch.Tensor, w: torch.Tensor,
+                       b: Optional[torch.Tensor] = None,
+                       pad_mode: str = "reflect") -> torch.Tensor:
+    """The conv of plain K3: NHWC ``x`` values times OIHW ``w`` values,
+    summed in fp32, + b → fp32 NHWC (the plain version of
+    ``kernels/fused_conv.py::conv3x3_bf16_f32``; on the card run it with
+    TF32 off)."""
+    acc = F.conv2d(_pad1(x, pad_mode).float(), w.float()).permute(0, 2, 3, 1)
+    return acc if b is None else acc + b.float()
+
+
 def fused_conv3x3_in_act_plain(x: torch.Tensor, w: torch.Tensor,
                                b: Optional[torch.Tensor] = None,
                                act: str = "relu",
@@ -161,10 +172,7 @@ def fused_conv3x3_in_act_plain(x: torch.Tensor, w: torch.Tensor,
     it with TF32 off where either is fp32), + b, single-pass IN, residual,
     ReLU for ``act == "relu"``, cast to ``x.dtype``."""
     n, h, wd, _ = x.shape
-    acc = F.conv2d(_pad1(x, pad_mode).float(), w.float())
-    acc = acc.permute(0, 2, 3, 1)
-    if b is not None:
-        acc = acc + b.float()
+    acc = conv3x3_bias_plain(x, w, b, pad_mode)
     hw = float(h * wd)
     mean = _div(acc.sum(dim=(1, 2), keepdim=True), hw)
     msq = _div((acc * acc).sum(dim=(1, 2), keepdim=True), hw)

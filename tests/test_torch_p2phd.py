@@ -22,6 +22,7 @@ from cistar_tpu.engines.p2phd import Pix2PixHD
 from cistar_tpu.models import fast_infer as jfi
 from cistar_tpu.models.pix2pixhd import GlobalGenerator as JaxGlobal
 from cistar_tpu.models.pix2pixhd import UNetGeneratorHD as JaxUNet
+from cistar_tpu.models.pix2pixhd import define_g as jax_define_g
 from cistar_tpu.ops import nn as jnn
 from cistar_tpu.ops import quant_pallas as qp
 from cistar_tpu.ops.blocks import MSRB as JaxMSRB
@@ -174,6 +175,25 @@ def test_define_g_dispatch():
             define_g(net_g, 1, 1, 4)
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):
         define_g("global", 1, 1, 4, norm="batch")
+
+
+def test_define_g_unet_takes_any_norm():
+    # JAX's define_g builds the same UNet whatever ``norm`` says; so does
+    # the port's. fp32 forwards within test_generator_fp32_matches_jax's 1e-4.
+    rng = np.random.RandomState(5)
+    x = (rng.rand(2, 64, 64, 1) * 2 - 1).astype(np.float32)
+    jm = jax_define_g("UNet", 1, 8, n_blocks_global=2, norm="batch")
+    assert isinstance(jm, JaxUNet)
+    params = _bump(_np(jax.jit(jm.init)(jax.random.PRNGKey(2),
+                                        jnp.asarray(x))["params"]), rng)
+    m = define_g("UNet", 1, 1, 8, n_blocks_global=2, norm="batch")
+    assert isinstance(m, UNetGeneratorHD)
+    m.load_state_dict(unet_generator_hd_from_jax(params))
+    ref = np.asarray(jax.jit(jm.apply)({"params": params}, jnp.asarray(x)))
+    with torch.no_grad():
+        got = m.eval()(_t(x)).numpy()
+    assert got.shape == x.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
 
 
 # --------------------------------------------------------------------------- #
