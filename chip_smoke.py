@@ -9,7 +9,8 @@ Phases, each of which raises on failure (the script catches nothing):
    limit from ``nvidia-smi``;
 2. build the CUDA kernels from ``cistar_tpu_torch/csrc`` (one ``nvcc`` per
    source, all at once, sm_90a); print what ptxas reported of the
-   ``wgmma`` conv's entries in that build (registers, spills).
+   ``wgmma`` conv's entries in that build (registers, spills), in each of
+   the four libraries that use it (K1/K2, K3, K7, K8).
 
 The ResNet path (slice 1): the CycleGAN ResNet-9 generator, 64 features,
 256², random weights from seed 0.
@@ -72,12 +73,15 @@ JAX engine's rule sends to the cout-tiled chain, K7); and ``UNet``
 11. the kernels on the path's own trunk activation (``global`` at batch
     4, ct 256; ``UNet`` at batch 2): the int32 accumulators of K7's conv 1
     and of every group of its conv 2, and of both K8 branches in both
-    stages, equal the plain versions bit for bit; K7a's int8 output differs
-    by at most ``K7_MAX_LSB`` on at most ``K7_MAX_FRAC`` of the elements,
-    the K7 block is within ``K7_*`` of plain; K8's stage-1 int8 outputs and
-    tile scales are bit-exact, stage 2 within ``K8_*``; one block's
-    distance to the JAX package's family budget vs its fp32 module is
-    printed;
+    stages, equal the plain versions bit for bit, and each library's
+    variant query (``cistar_tiled_conv_variant``,
+    ``cistar_msrb_conv_variant``) names the ``wgmma`` conv at BN 128 for
+    K7b's and each K8 conv's shape, as its Python mirror does; K7a's int8
+    output differs by at most ``K7_MAX_LSB`` on at most ``K7_MAX_FRAC`` of
+    the elements, K7b on the plain K7a's output and the K7 block are
+    within ``K7_*`` of plain; K8's stage-1 int8 outputs and tile scales
+    are bit-exact, stage 2 within ``K8_*``; one block's distance to the
+    JAX package's family budget vs its fp32 module is printed;
 12. the path at its checked batch (``global`` 4, ``UNet`` 2), counted:
     one ``global`` call launches K7a 9 times and K7b 9 times, one ``UNet``
     call K8 12 times, and no other kernel. Fidelity as in phase 4, against
@@ -87,7 +91,14 @@ JAX engine's rule sends to the cout-tiled chain, K7); and ``UNet``
 14. times with CUDA events at the JAX suite's shapes (``global`` batch 16,
     ``UNet`` batch 8): img/s of both engines, one profile each, a
     breakdown by segment (stem, downs, trunk, ups, head), and K7a / K7b /
-    K8 per launch beside their bounds and their plain versions.
+    K8 per launch beside their bounds and their plain versions, K7b and K8
+    with their TOPS and the yardstick of their GEMM part (one
+    ``torch._int_mm`` of the same conv's im2col matrix: reflect 3×3 for
+    K7b, zero-pad 3×3 / 5×5 for K8). Before the times, K7b and K8 at the
+    timed batch pass phase 11's checks (variant queries, every group's
+    int32 accumulators, K8 stage 1 bit-exact, stage 2 and K7b within
+    tolerance): the timed batch runs the same builds as the checked one
+    only by the variant rule, so both are checked.
 
 The fused-kernel paths of ResNet-9 (slice 4), the phase-4 generator
 (64 features, 9 blocks, 256², seed 0), batch 8 checked and 64 timed:
@@ -138,9 +149,10 @@ layer (``calibrate``).
 19. the kernels on the paths' own trunk activations: K7a-bn and K7b-bn at
     (2, 64, 64, 512), ct 128, and K1-bn at (8, 32, 32, 512), each equal to
     its plain version bit for bit (rq, rs and the block output); K7 (IN)
-    at ct 128 on ``local``'s trunk (2, 64, 64, 512) under K7's rules; each
-    block's distance to the tiled family budget (0.35) vs its fp32 module
-    is printed;
+    at ct 128 on ``local``'s trunk (2, 64, 64, 512) under K7's rules; K7b's
+    variant query and every group's int32 accumulators at both trunks;
+    each block's distance to the tiled family budget (0.35) vs its fp32
+    module is printed;
 20. each path, counted: ``multiscale`` 512² batch 2 launches 9 K7a-bn + 9
     K7b-bn, ``multiscale`` 256² batch 8 9 K1-bn, ``local`` 1024² batch 2 9
     K7a + 9 K7b, and no other kernel; fidelity as in phase 4, against the
@@ -151,8 +163,10 @@ layer (``calibrate``).
     8 (512²) and ``local`` at batch 4 (1024², the suite's
     ``p2phd1024_int8``), one profile each, a breakdown by segment, and the
     kernels per launch beside their bounds and their plain versions (K1-bn
-    also at batch 64, bit-exact there too, with phase 6's GEMM
-    yardstick).
+    also at batch 64, bit-exact there too, with phase 6's GEMM yardstick;
+    K7b-bn at batch 8 and K7b at ``local``'s batch 4 after phase 19's
+    checks at that batch, K7b-bn bit-exact, each with the GEMM yardstick
+    of its conv).
 
 The fp32 reference forwards run with TF32 off, the rest under PyTorch's
 defaults. The line before the last is the card's name and power limit; the
@@ -440,16 +454,55 @@ def im2col_reflect(xq):
                       for dy in range(3) for dx in range(3)], dim=1)
 
 
+def im2col_zero(xq, kk: int):
+    """The (N·H·W, kk²·C) matrix of a zero-pad kk×kk conv (padding kk // 2)
+    of NHWC ``xq``, k = tap·C + c (the layout of K8's ``wk``)."""
+    import torch
+    import torch.nn.functional as F
+
+    n, h, w, c = xq.shape
+    p = kk // 2
+    xp = F.pad(xq, (0, 0, p, p, p, p))
+    return torch.cat([xp[:, dy:dy + h, dx:dx + w].reshape(n * h * w, c)
+                      for dy in range(kk) for dx in range(kk)], dim=1)
+
+
+def gemm_ms(a, wk) -> float:
+    """One ``torch._int_mm`` of the int8 (M, K) im2col matrix ``a`` by the
+    (K, Cout) weights ``wk.t()``: the yardstick of a conv's GEMM part.
+    Timed here; the port never calls it."""
+    import torch
+
+    b = wk.t()
+    return cuda_ms(lambda: torch._int_mm(a, b), 10)
+
+
 def int_mm_ms(xq, wk) -> float:
     """The yardstick of the GEMM part of one int8 res block (two convs):
     one ``torch._int_mm`` of the im2col matrix stacked twice (2·N·H·W, 9·C)
-    by the (9·C, C) weights. Timed here; the port never calls it."""
+    by the (9·C, C) weights."""
     import torch
 
     a = im2col_reflect(xq)
-    a2 = torch.cat([a, a])
-    b = wk.t()
-    return cuda_ms(lambda: torch._int_mm(a2, b), 10)
+    return gemm_ms(torch.cat([a, a]), wk)
+
+
+def check_grouped_variant(label: str, card: int, mirror: int) -> None:
+    """A grouped conv's variant query (K7b, K8), the library's answer
+    against the Python mirror: BN 128 of the ``wgmma`` conv, not 0 (the
+    ``mma.sync`` conv)."""
+    print(f"[kernels] {label}: wgmma BN {card} (Python mirror {mirror}; 0 "
+          f"would be mma.sync)", flush=True)
+    check(card == mirror == 128, f"{label} on the wgmma conv")
+
+
+def print_conv_times(name: str, shape, ms: float, ops: float, bnd: float,
+                     lib_ms: float, extra: str = "") -> None:
+    """One conv kernel's time beside its bound, its TOPS and the
+    ``torch._int_mm`` yardstick of its GEMM part."""
+    print(f"[times] {name} {shape}: {ms!r} ms, bound {bnd!r} ms, "
+          f"{ops / ms * 1e-9!r} TOPS{extra}; GEMM yardstick (torch._int_mm "
+          f"of its im2col) {lib_ms!r} ms", flush=True)
 
 
 def print_block_times(name, shape, ms, carrier_bytes, lib_ms,
@@ -905,6 +958,92 @@ def breakdown(gen, qt, x, ins, outs) -> None:
               + f"; sum {sum(ms)!r}", flush=True)
 
 
+def k7b_vs_plain(rq, rs, hx, qblk, ct: int, bn: bool = False) -> tuple:
+    """K7b on ``rq`` / ``rs`` against its plain version on the same inputs:
+    (max-abs, the most by which an element exceeds one bf16 ulp of the
+    plain value)."""
+    from cistar_tpu_torch.kernels import int8_tiled as kt
+    from cistar_tpu_torch.ops import quant_int8 as qi
+
+    yk = kt.resblock_int8_tiled_b(rq, rs, hx, qblk, ct, qi.EPS, bn=bn).float()
+    yp = qi.resblock_tiled_b_plain(rq, rs, hx, qblk, ct, bn=bn).float()
+    d = (yk - yp).abs()
+    return d.max().item(), (d - K7_REL * yp.abs()).max().item()
+
+
+def k7b_conv_vs_plain(label: str, rq, qblk, ct: int) -> None:
+    """K7b's conv at ``rq``'s shape: its variant query, and the int32
+    accumulators of every group bit for bit against the plain version."""
+    import torch
+
+    from cistar_tpu_torch.kernels import int8_tiled as kt
+    from cistar_tpu_torch.ops import quant_int8 as qi
+
+    t = rq.shape[-1] // ct
+    check_grouped_variant(f"{label} conv at {tuple(rq.shape)} in {t} groups",
+                          kt.conv_variant_card(*rq.shape, t),
+                          kt.conv_variant(*rq.shape, t))
+    check(torch.equal(kt.conv3x3_reflect_grouped_s8(rq, qblk["w2k"], t),
+                      qi.conv3x3_reflect_grouped_s8_plain(rq, qblk["w2q"], t)),
+          f"{label} conv {tuple(rq.shape)}: int32 accumulators of all {t} "
+          "groups bit-exact")
+    print(f"[kernels] {label} conv {tuple(rq.shape)}: int32 accumulators of "
+          f"the {t} groups bit-exact vs plain", flush=True)
+
+
+def k8_vs_plain(xq, xs, qblk) -> tuple:
+    """K8 on the ``UNet`` trunk's int8 ``xq`` / per-image ``xs``, both
+    stages, against the plain versions: each of the four convs' variant
+    query and int32 accumulators of every group bit for bit; stage 1's int8
+    outputs and tile scales bit for bit; stage 2 (bf16) within one bf16 ulp
+    + ``K8_ABS``. Returns stage 2's input and group scales (the plain stage
+    1's) and its max-abs error."""
+    import torch
+
+    from cistar_tpu_torch.kernels import int8_msrb as km
+    from cistar_tpu_torch.ops import quant_int8 as qi
+
+    s1k = qi.msrb_stage(xq, xs, qblk, "a", K8_TILE, True, None)
+    s1p = qi.msrb_stage_plain(xq, xs, qblk["w3a"], qblk["w5a"], qblk["sb1"],
+                              K8_TILE, True, None)
+    check(all(torch.equal(a, b) for a, b in zip(s1k, s1p)),
+          f"K8 stage 1 {tuple(xq.shape)} int8 outputs and tile scales "
+          "bit-exact")
+    cat = torch.cat(s1p[:2], -1).contiguous()
+    sc = torch.cat(s1p[2:], 1).contiguous()
+    for st, xin, g in (("a", xq, 1), ("b", cat, sc.shape[1])):
+        for kk in (3, 5):
+            wk = qblk[f"w{kk}{st}k"]
+            shape = (*xin.shape, wk.shape[0], kk, g)
+            check_grouped_variant(
+                f"K8 stage {st} {kk}x{kk} conv at {tuple(xin.shape)} in {g} "
+                "groups", km.conv_variant_card(*shape),
+                km.conv_variant(*shape))
+            check(torch.equal(
+                km.conv_zero_grouped_s8(xin, wk, kk, g),
+                qi.conv_zero_grouped_s8_plain(xin, qblk[f"w{kk}{st}"], kk, g)),
+                f"K8 stage {st} {kk}x{kk} {tuple(xin.shape)} int32 "
+                "accumulators bit-exact")
+    print(f"[kernels] conv_zero_grouped_s8 {tuple(xq.shape)} and "
+          f"{tuple(cat.shape)} in {sc.shape[1]} groups, 3x3 and 5x5: int32 "
+          f"accumulators bit-exact vs plain; K8 stage 1 int8 outputs and "
+          f"tile scales bit-exact", flush=True)
+    s2k = qi.msrb_stage(cat, sc, qblk, "b", K8_TILE, False, torch.bfloat16)
+    s2p = qi.msrb_stage_plain(cat, sc, qblk["w3b"], qblk["w5b"], qblk["sb2"],
+                              K8_TILE, False, torch.bfloat16)
+    d = torch.stack([(a.float() - b.float()).abs()
+                     for a, b in zip(s2k[:2], s2p[:2])])
+    ref = torch.stack([b.float().abs() for b in s2p[:2]])
+    err = d.max().item()
+    over = (d - K8_REL * ref).max().item()
+    print(f"[kernels] K8 stage 2 {tuple(cat.shape)} -> bf16: "
+          f"max|kernel-plain| {err!r}, max over one ulp {over!r} (tol "
+          f"{K8_ABS})", flush=True)
+    check(over <= K8_ABS, f"K8 stage 2 {tuple(cat.shape)} within one bf16 ulp "
+          "+ 1e-4 of plain")
+    return cat, sc, err
+
+
 def p2phd_path(family: str, images, counters) -> list:
     """Phases 11-14 for ``family`` "global" or "UNet"; the kernels' JSON
     rows of K7a and K7b, or of K8."""
@@ -958,19 +1097,15 @@ def p2phd_path(family: str, images, counters) -> list:
         check(not qi.whole_image_resblock_fits(32, 32, 1024)
               and qi.pick_cout_tile(32 * 32, 1024) == K7_TILE,
               "the JAX rule sends the 1024-channel trunk to K7 at ct 256")
-        t = 1024 // K7_TILE
         hq, _ = qi.quantize_act(h)
         check(torch.equal(kt.conv3x3_reflect_grouped_s8(hq, q0["w1k"], 1),
                           qi.conv3x3_reflect_grouped_s8_plain(hq, q0["w1q"], 1)),
               "K7 conv 1 int32 accumulators bit-exact")
+        print(f"[kernels] conv3x3_reflect_grouped_s8 {tuple(hq.shape)}: int32 "
+              f"accumulators of conv 1 bit-exact vs plain", flush=True)
         rqk, rsk = kt.resblock_int8_tiled_a(h, q0, K7_TILE, qi.EPS)
         rqp, rsp = qi.resblock_tiled_a_plain(h, q0, K7_TILE)
-        check(torch.equal(kt.conv3x3_reflect_grouped_s8(rqp, q0["w2k"], t),
-                          qi.conv3x3_reflect_grouped_s8_plain(rqp, q0["w2q"], t)),
-              f"K7 conv 2 int32 accumulators of all {t} groups bit-exact")
-        print(f"[kernels] conv3x3_reflect_grouped_s8 {tuple(hq.shape)}: "
-              f"int32 accumulators of conv 1 and of the {t} groups of conv 2 "
-              f"bit-exact vs plain", flush=True)
+        k7b_conv_vs_plain("K7b", rqp, q0, K7_TILE)
         dq = (rqk.int() - rqp.int()).abs()
         frac = (dq > 0).float().mean().item()
         s_rel = ((rsk - rsp).abs() / rsp).max().item()
@@ -979,9 +1114,7 @@ def p2phd_path(family: str, images, counters) -> list:
             return rq.float() * rs.repeat_interleave(K7_TILE, 1)[:, None, None]
         err_a = (dequant(rqk, rsk) - dequant(rqp, rsp)).abs().max().item()
         # K7b alone, on the plain K7a's output
-        err_b = (kt.resblock_int8_tiled_b(rqp, rsp, h, q0, K7_TILE, qi.EPS)
-                 .float() - qi.resblock_tiled_b_plain(rqp, rsp, h, q0, K7_TILE)
-                 .float()).abs().max().item()
+        err_b, over_b = k7b_vs_plain(rqp, rsp, h, q0, K7_TILE)
         yk = qi.resblock_int8_tiled(h, q0, K7_TILE)
         yp = qi.resblock_int8_tiled_plain(h, q0, K7_TILE)
         d = (yk.float() - yp.float()).abs()
@@ -992,52 +1125,25 @@ def p2phd_path(family: str, images, counters) -> list:
         print(f"[kernels] K7a {tuple(h.shape)} ct {K7_TILE}: max|dq| "
               f"{dq.max().item()} LSB on {frac!r} of elements, tile scale rel "
               f"err {s_rel!r}, max|dequant diff| {err_a!r}; K7b on the same "
-              f"rq max|kernel-plain| {err_b!r}; K7 block bf16 "
-              f"max|kernel-plain| {err!r}, max "
-              f"over one ulp {over!r} (tol {K7_ABS}); vs the fp32 block "
+              f"rq max|kernel-plain| {err_b!r}, over one ulp {over_b!r}; K7 "
+              f"block bf16 max|kernel-plain| {err!r}, max over one ulp "
+              f"{over!r} (tol {K7_ABS}); vs the fp32 block "
               f"{fb!r}, {TILED_BUDGET} budget "
               f"{'met' if fb <= TILED_BUDGET else 'missed'}", flush=True)
         check(dq.max().item() <= K7_MAX_LSB and frac <= K7_MAX_FRAC,
               "K7a within one LSB on 0.1% of plain")
         check(over <= K7_ABS, "K7 within one bf16 ulp + 0.01 of plain")
+        check(over_b <= K7_ABS, "K7b within one bf16 ulp + 0.01 of plain")
         rows_in = (h, rqp, rsp, {"a": err_a, "b": err_b})
     else:
         check(tuple(h.shape) == (n, 64, 64, 512), f"trunk {tuple(h.shape)}")
         xq, xs = qi.quantize_act(h)
-        s1k = qi.msrb_stage(xq, xs, q0, "a", K8_TILE, True, None)
-        s1p = qi.msrb_stage_plain(xq, xs, q0["w3a"], q0["w5a"], q0["sb1"],
-                                  K8_TILE, True, None)
-        check(all(torch.equal(a, b) for a, b in zip(s1k, s1p)),
-              "K8 stage 1 int8 outputs and tile scales bit-exact")
-        cat = torch.cat(s1p[:2], -1).contiguous()
-        sc = torch.cat(s1p[2:], 1).contiguous()
-        for st, xin, g in (("a", xq, 1), ("b", cat, sc.shape[1])):
-            for kk in (3, 5):
-                check(torch.equal(
-                    km.conv_zero_grouped_s8(xin, q0[f"w{kk}{st}k"], kk, g),
-                    qi.conv_zero_grouped_s8_plain(xin, q0[f"w{kk}{st}"], kk, g)),
-                    f"K8 stage {st} {kk}x{kk} int32 accumulators bit-exact")
-        print(f"[kernels] conv_zero_grouped_s8 {tuple(xq.shape)} and "
-              f"{tuple(cat.shape)} in {sc.shape[1]} groups, 3x3 and 5x5: "
-              f"int32 accumulators bit-exact vs plain; K8 stage 1 int8 "
-              f"outputs and tile scales bit-exact", flush=True)
-        s2k = qi.msrb_stage(cat, sc, q0, "b", K8_TILE, False, torch.bfloat16)
-        s2p = qi.msrb_stage_plain(cat, sc, q0["w3b"], q0["w5b"], q0["sb2"],
-                                  K8_TILE, False, torch.bfloat16)
-        d = torch.stack([(a.float() - b.float()).abs()
-                         for a, b in zip(s2k[:2], s2p[:2])])
-        ref = torch.stack([b.float().abs() for b in s2p[:2]])
-        err = d.max().item()
-        over = (d - K8_REL * ref).max().item()
+        cat, sc, err = k8_vs_plain(xq, xs, q0)
         with fp32_exact():
             fb = (qi.msrb_block_int8(h, q0).float()
                   - gen.msrb[0](h.float())).abs().max().item()
-        print(f"[kernels] K8 stage 2 {tuple(cat.shape)} -> bf16: "
-              f"max|kernel-plain| {err!r}, max over one ulp {over!r} (tol "
-              f"{K8_ABS}); MSRB block vs the fp32 block {fb!r}, "
-              f"{MSRB_BUDGET} budget "
-              f"{'met' if fb <= MSRB_BUDGET else 'missed'}", flush=True)
-        check(over <= K8_ABS, "K8 stage 2 within one bf16 ulp + 1e-4 of plain")
+        print(f"[kernels] MSRB block vs the fp32 block {fb!r}, {MSRB_BUDGET} "
+              f"budget {'met' if fb <= MSRB_BUDGET else 'missed'}", flush=True)
         rows_in = (xq, xs, cat, sc, err)
 
     # 12. the path, counted
@@ -1100,6 +1206,16 @@ def p2phd_path(family: str, images, counters) -> list:
         hh, rqp, rsp, errs = rows_in
         hb = fi.global_encode(gen, xbb).contiguous()
         rqb, rsb = kt.resblock_int8_tiled_a(hb, q0, K7_TILE, qi.EPS)
+        # K7b at the timed batch, checked as at the checked one
+        k7b_conv_vs_plain("K7b", rqb, q0, K7_TILE)
+        err_b, over_b = k7b_vs_plain(rqb, rsb, hb, q0, K7_TILE)
+        print(f"[kernels] K7b {tuple(hb.shape)} ct {K7_TILE}: "
+              f"max|kernel-plain| {err_b!r}, over one ulp {over_b!r} (tol "
+              f"{K7_ABS})", flush=True)
+        check(over_b <= K7_ABS, f"K7b {tuple(hb.shape)} within one bf16 ulp + "
+              "0.01 of plain")
+        lib = {"b": (gemm_ms(im2col_reflect(rqp), q0["w2k"]),
+                     gemm_ms(im2col_reflect(rqb), q0["w2k"]))}
         rows = []
         for name, line, half, kfn, kfn_b, pfn in (
                 ("resblock_int8_tiled_a", ":519", "a",
@@ -1117,24 +1233,33 @@ def p2phd_path(family: str, images, counters) -> list:
             bnd_b, _ = k7_bound_ms(*hb.shape, half)
             ms, ms_b = cuda_ms(kfn, 20), cuda_ms(kfn_b, 10)
             plain_ms = cuda_ms(pfn, 5)
+            lib_ms, lib_ms_b = lib.get(half, (None, None))
             rows.append({"name": name, "route": "cuda",
                          "source": "cistar_tpu_torch/csrc/int8_tiled.cu",
                          "replaces": "cistar_tpu/ops/quant_pallas.py" + line,
                          "launches": launches[name], "max_abs_err": errs[half],
                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-                         "bound_by": by, "library_ms": None})
-            print(f"[times] {name} {tuple(hh.shape)}: {ms!r} ms, bound "
-                  f"{bnd!r} ms ({by}), plain {plain_ms!r} ms; "
-                  f"{tuple(hb.shape)}: {ms_b!r} ms, bound {bnd_b!r} ms",
-                  flush=True)
+                         "bound_by": by, "library_ms": lib_ms})
+            if lib_ms is None:
+                print(f"[times] {name} {tuple(hh.shape)}: {ms!r} ms, bound "
+                      f"{bnd!r} ms ({by}), plain {plain_ms!r} ms; "
+                      f"{tuple(hb.shape)}: {ms_b!r} ms, bound {bnd_b!r} ms",
+                      flush=True)
+                continue
+            ops = 2 * hh.numel() * 9 * hh.shape[-1]
+            print_conv_times(name, tuple(hh.shape), ms, ops, bnd, lib_ms,
+                             f", plain {plain_ms!r} ms")
+            print_conv_times(name, tuple(hb.shape), ms_b, ops * nb / n,
+                             bnd_b, lib_ms_b)
         return rows
 
     xq, xs, cat, sc, err = rows_in
     hb = fi.unet_encode(gen, xbb)[-1].contiguous()
     xqb, xsb = qi.quantize_act(hb)
-    s1b = qi.msrb_stage(xqb, xsb, q0, "a", K8_TILE, True, None)
-    catb, scb = torch.cat(s1b[:2], -1).contiguous(), torch.cat(s1b[2:], 1)
-    tot = {"ms": 0.0, "plain": 0.0, "bound": 0.0, "ms_b": 0.0, "bound_b": 0.0}
+    # K8 at the timed batch, checked as at the checked one
+    catb, scb, _ = k8_vs_plain(xqb, xsb, q0)
+    tot = dict.fromkeys(("ms", "plain", "bound", "lib", "ms_b", "bound_b",
+                         "lib_b"), 0.0)
     by = None
     for st, (xin, xsc, xinb, xscb) in (("a", (xq, xs, xqb, xsb)),
                                        ("b", (cat, sc, catb, scb))):
@@ -1151,16 +1276,22 @@ def p2phd_path(family: str, images, counters) -> list:
                 xin, xsc, wq, sb, row, kk, K8_TILE, qo, odt), 5)
             bnd, by = k8_bound_ms(*xin.shape, wk.shape[0], kk, qo)
             bnd_b, _ = k8_bound_ms(*xinb.shape, wk.shape[0], kk, qo)
+            lib_ms = gemm_ms(im2col_zero(xin, kk), wk)
+            lib_ms_b = gemm_ms(im2col_zero(xinb, kk), wk)
             for k, v in (("ms", ms), ("plain", plain_ms), ("bound", bnd),
-                         ("ms_b", ms_b), ("bound_b", bnd_b)):
+                         ("lib", lib_ms), ("ms_b", ms_b), ("bound_b", bnd_b),
+                         ("lib_b", lib_ms_b)):
                 tot[k] += v
-            print(f"[times] msrb_branch_int8 stage {st} {kk}x{kk} "
-                  f"{tuple(xin.shape)}: {ms!r} ms, bound {bnd!r} ms, plain "
-                  f"{plain_ms!r} ms; {tuple(xinb.shape)}: {ms_b!r} ms, bound "
-                  f"{bnd_b!r} ms", flush=True)
+            ops = 2 * xin.numel() * kk * kk * wk.shape[0]
+            label = f"msrb_branch_int8 stage {st} {kk}x{kk}"
+            print_conv_times(label, tuple(xin.shape), ms, ops, bnd, lib_ms,
+                             f", plain {plain_ms!r} ms")
+            print_conv_times(label, tuple(xinb.shape), ms_b, ops * nb / n,
+                             bnd_b, lib_ms_b)
     print(f"[times] msrb_branch_int8, the four launches of one block: "
-          f"{tot['ms']!r} ms at batch {n} (bound {tot['bound']!r}), "
-          f"{tot['ms_b']!r} ms at batch {nb} (bound {tot['bound_b']!r})",
+          f"{tot['ms']!r} ms at batch {n} (bound {tot['bound']!r}, GEMM "
+          f"yardstick {tot['lib']!r}), {tot['ms_b']!r} ms at batch {nb} "
+          f"(bound {tot['bound_b']!r}, GEMM yardstick {tot['lib_b']!r})",
           flush=True)
     # one row, per launch: the mean over one block's four launches
     return [{"name": "msrb_branch_int8", "route": "cuda",
@@ -1169,7 +1300,7 @@ def p2phd_path(family: str, images, counters) -> list:
              "launches": launches["msrb_branch_int8"], "max_abs_err": err,
              "ms": tot["ms"] / 4, "plain_ms": tot["plain"] / 4,
              "bound_ms": tot["bound"] / 4, "bound_by": by,
-             "library_ms": None}]
+             "library_ms": tot["lib"] / 4}]
 
 
 def p2phd_breakdown(family: str, gen, qb, x) -> None:
@@ -1699,6 +1830,7 @@ def bn_local_path(images, counters) -> list:
     errs = {"a": (rqk.float() - rqp.float()).abs().max().item()}
     print(f"[kernels] K7a-bn {tuple(h7.shape)} ct {BN_TILE}: int8 rq and "
           f"the {rsk.shape[1]} tile scales bit-exact vs plain", flush=True)
+    k7b_conv_vs_plain("K7b-bn", rqp, q0, BN_TILE)
     errs["b"] = bit_exact("K7b-bn (on the plain rq)", kt.resblock_int8_tiled_b(
         rqp, rsp, h7, q0, BN_TILE, qi.EPS, bn=True), qi.resblock_tiled_b_plain(
         rqp, rsp, h7, q0, BN_TILE, bn=True))
@@ -1730,6 +1862,13 @@ def bn_local_path(images, counters) -> list:
     ql = lo_q[0]
     rqk, rsk = kt.resblock_int8_tiled_a(hl, ql, BN_TILE, qi.EPS)
     rqp, rsp = qi.resblock_tiled_a_plain(hl, ql, BN_TILE)
+    k7b_conv_vs_plain("K7b (local)", rqp, ql, BN_TILE)
+    err_b, over_b = k7b_vs_plain(rqp, rsp, hl, ql, BN_TILE)
+    print(f"[kernels] K7b (local) {tuple(hl.shape)} ct {BN_TILE} on the plain "
+          f"rq: max|kernel-plain| {err_b!r}, over one ulp {over_b!r} (tol "
+          f"{K7_ABS})", flush=True)
+    check(over_b <= K7_ABS,
+          "K7b at ct 128 within one bf16 ulp + 0.01 of plain")
     dq = (rqk.int() - rqp.int()).abs()
     frac = (dq > 0).float().mean().item()
     yl = qi.resblock_int8_tiled(hl, ql, BN_TILE)
@@ -1841,6 +1980,14 @@ def bn_local_path(images, counters) -> list:
     hmb = fi.multiscale_encode(msg, xmb).contiguous()
     rqb, rsb = qi.resblock_tiled_a_plain(hmb, q0, BN_TILE, bn=True)
     rq7, rs7 = qi.resblock_tiled_a_plain(h7, q0, BN_TILE, bn=True)
+    # K7b-bn at the timed batch, checked as at the checked one
+    k7b_conv_vs_plain("K7b-bn", rqb, q0, BN_TILE)
+    bit_exact("K7b-bn (on the plain rq)",
+              kt.resblock_int8_tiled_b(rqb, rsb, hmb, q0, BN_TILE, qi.EPS,
+                                       bn=True),
+              qi.resblock_tiled_b_plain(rqb, rsb, hmb, q0, BN_TILE, bn=True))
+    k7b_lib = {v.shape[0]: gemm_ms(im2col_reflect(v), q0["w2k"])
+               for v in (rq7, rqb)}
     h1b = fi.multiscale_encode(msg, images(BENCH_BATCH, size1).bfloat16()) \
         .contiguous()
     bit_exact("K1-bn (BN 256)", kr.resblock_int8_bf16io(h1b, q0, qi.EPS,
@@ -1870,35 +2017,51 @@ def bn_local_path(images, counters) -> list:
                                                bn=True),
              k7_bound_ms(*h7.shape, "b"), k7_bound_ms(*hmb.shape, "b"))):
         ms, plain_ms_ = cuda_ms(kfn, 20), cuda_ms(pfn, 5)
-        k1 = name == "resblock_int8_bf16io_bn"
+        lib_ms = {"resblock_int8_bf16io_bn": k1_lib[h1.shape[0]],
+                  "resblock_int8_tiled_b_bn": k7b_lib[n]}.get(name)
         rows.append({"name": name, "route": "cuda",
                      "source": "cistar_tpu_torch/csrc/" + src,
                      "replaces": "cistar_tpu/ops/quant_pallas.py" + line,
                      "launches": launches[name], "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms_, "bound_ms": bnd,
-                     "bound_by": by,
-                     "library_ms": k1_lib[h1.shape[0]] if k1 else None})
-        if k1:
+                     "bound_by": by, "library_ms": lib_ms})
+        if name == "resblock_int8_bf16io_bn":
             print_block_times(name, tuple(h1.shape), ms, 2, k1_lib[h1.shape[0]],
                               plain_ms_)
             print_block_times(name, tuple(h1b.shape), cuda_ms(kfn_b, 10), 2,
                               k1_lib[h1b.shape[0]])
-            continue
-        print(f"[times] {name} at the checked shape: {ms!r} ms, bound "
-              f"{bnd!r} ms ({by}), plain {plain_ms_!r} ms; {tuple(hmb.shape)}: "
-              f"{cuda_ms(kfn_b, 10)!r} ms, bound {bnd_b!r} ms", flush=True)
+        elif lib_ms is not None:
+            ops = 2 * h7.numel() * 9 * h7.shape[-1]
+            print_conv_times(name, tuple(h7.shape), ms, ops, bnd, lib_ms,
+                             f", plain {plain_ms_!r} ms")
+            print_conv_times(name, tuple(hmb.shape), cuda_ms(kfn_b, 10),
+                             ops * hmb.shape[0] / n, bnd_b,
+                             k7b_lib[hmb.shape[0]])
+        else:
+            print(f"[times] {name} at the checked shape: {ms!r} ms, bound "
+                  f"{bnd!r} ms ({by}), plain {plain_ms_!r} ms; "
+                  f"{tuple(hmb.shape)}: {cuda_ms(kfn_b, 10)!r} ms, bound "
+                  f"{bnd_b!r} ms", flush=True)
     hlb = fi.trunk_encode(log.global_trunk, log.pyramid(xlb)[-1]).contiguous()
     rqlb, rslb = kt.resblock_int8_tiled_a(hlb, ql, BN_TILE, qi.EPS)
-    for name, fn, (bnd, by) in (
-            (f"resblock_int8_tiled_a ct {BN_TILE} {tuple(hlb.shape)}",
-             lambda: kt.resblock_int8_tiled_a(hlb, ql, BN_TILE, qi.EPS),
-             k7_bound_ms(*hlb.shape, "a")),
-            (f"resblock_int8_tiled_b ct {BN_TILE} {tuple(hlb.shape)}",
-             lambda: kt.resblock_int8_tiled_b(rqlb, rslb, hlb, ql, BN_TILE,
-                                              qi.EPS),
-             k7_bound_ms(*hlb.shape, "b"))):
-        print(f"[times] {name}: {cuda_ms(fn, 10)!r} ms, bound {bnd!r} ms "
-              f"({by})", flush=True)
+    # K7b (local) at the timed batch, checked as at the checked one
+    k7b_conv_vs_plain("K7b (local)", rqlb, ql, BN_TILE)
+    err_b, over_b = k7b_vs_plain(rqlb, rslb, hlb, ql, BN_TILE)
+    print(f"[kernels] K7b (local) {tuple(hlb.shape)} ct {BN_TILE}: "
+          f"max|kernel-plain| {err_b!r}, over one ulp {over_b!r} (tol "
+          f"{K7_ABS})", flush=True)
+    check(over_b <= K7_ABS, f"K7b {tuple(hlb.shape)} within one bf16 ulp + "
+          "0.01 of plain")
+    bnd, by = k7_bound_ms(*hlb.shape, "a")
+    ms = cuda_ms(lambda: kt.resblock_int8_tiled_a(hlb, ql, BN_TILE, qi.EPS), 10)
+    print(f"[times] resblock_int8_tiled_a ct {BN_TILE} {tuple(hlb.shape)}: "
+          f"{ms!r} ms, bound {bnd!r} ms ({by})", flush=True)
+    print_conv_times(
+        f"resblock_int8_tiled_b ct {BN_TILE}", tuple(hlb.shape),
+        cuda_ms(lambda: kt.resblock_int8_tiled_b(rqlb, rslb, hlb, ql, BN_TILE,
+                                                 qi.EPS), 10),
+        2 * hlb.numel() * 9 * hlb.shape[-1], k7_bound_ms(*hlb.shape, "b")[0],
+        gemm_ms(im2col_reflect(rqlb), ql["w2k"]))
     return rows
 
 
@@ -1996,7 +2159,7 @@ def main() -> int:
     # 2. build
     print(f"[build] csrc/*.cu -> sm_90a in {build.build_all():.1f} s",
           flush=True)
-    for src in ("int8_resblock", "conv3x3_in_act"):
+    for src in ("int8_resblock", "conv3x3_in_act", "int8_tiled", "int8_msrb"):
         for line in build.ptxas_report(src, "wg_conv_kernel"):
             print(f"[ptxas] {src}: {line}", flush=True)
 

@@ -1,8 +1,11 @@
 // Pieces shared by the port's int8 kernels (int8_resblock.cu: K1/K2,
 // int8_atrous.cu: K5/K6, int8_tiled.cu: K7, int8_msrb.cu: K8): per-image
-// absmax and quantize, the implicit-GEMM int8 conv with its epilogues (IN
-// statistics, grouped input scales, ReLU and tile maxima), the IN finalize,
-// the IN + ReLU requantize and the IN + skip output pass.
+// absmax and quantize, the IN finalize, the IN + ReLU requantize, the IN +
+// skip output pass, the epilogue codes and ConvArgs of both convs, and the
+// cp.async + mma.sync implicit-GEMM int8 conv (conv_s8_kernel) with its
+// epilogues (IN statistics, grouped input scales, ReLU and tile maxima).
+// conv_s8_kernel still serves K5, K6 and K7a, and the K1 / K2 / K7b / K8
+// shapes outside the tile rule of the wgmma + TMA conv (wgmma_conv.cuh).
 //
 // Numerical rules, each matched to the plain PyTorch versions
 // (cistar_tpu_torch/ops/quant_int8.py):

@@ -19,7 +19,7 @@
 //
 // Design. On the TPU a (batch, tile) grid keeps the whole image in VMEM
 // and streams one weight tile per step. Here each kernel is a short
-// sequence of launches built from int8_common.cuh:
+// sequence of launches built from int8_common.cuh and wgmma_conv.cuh:
 //   K7a: absmax_kernel, quant_kernel -> conv_s8_kernel (EPI_STATS: f, and
 //        each (image, channel)'s sum, sum of squares and max f) ->
 //        in_stats_kernel over (image, tile) rows, which gives mean, rsigma
@@ -27,24 +27,31 @@
 //        then ReLU is monotone per channel, so max relu(IN f) over a tile
 //        is max_c relu((max f_c - mean_c) * rsigma_c), exactly, K1's rule
 //        per tile) -> in_relu_quant_kernel with the tile's scale.
-//   K7b: conv_s8_kernel (EPI_GSTATS: the grouped K loop, its fp32 group
-//        sum and the IN statistics) -> in_stats_kernel ->
+//   K7b: reflect_pad_kernel (rq into the (N, H+2, W+2, C) copy that TMA
+//        reads: TMA fills zeros, not reflections) -> wg_conv_kernel
+//        (wgmma + TMA, BN 128, EPI_GSTATS: the K loop group by group, each
+//        group's exact int32 partial times its tile scale added to an fp32
+//        sum in group order, then the IN statistics) -> in_stats_kernel ->
 //        in_skip_out_kernel.
 // The numerical tile ct sets only the absmax groups and the scales; the
-// CUDA tiles (128 couts x 64 of K per stage) are independent of it.
+// CUDA tiles (K7a: 128 couts x 64 of K per stage; K7b: 128 pixels x 128
+// couts x 128 of K) are independent of it. A K7b shape outside wg_tile_ok
+// (a tile of 64 channels, say) takes conv_s8_kernel on rq itself: a choice
+// by shape, reported by cistar_tiled_conv_variant.
 //
 // What bounds it. At (16, 32, 32, 1024) each kernel does one conv: 16 x
 // 1024 px x 9 x 1024 x 1024 MACs = 3.09e11 int8 operations, 0.156 ms at
 // 1,979 dense int8 TOPS, against 34 MB of bf16 carrier, 17 MB of int8 and
-// 9.4 MB of weights (under 0.03 ms at 3.35 TB/s): operation-bound. This
-// first version runs K1's mma.sync GEMM and sends fp32 f through device
-// memory; wgmma/TMA and keeping f on chip are work for a later change.
+// 9.4 MB of weights (under 0.03 ms at 3.35 TB/s): operation-bound. K7a
+// still runs the mma.sync conv, and both send fp32 f through device
+// memory; K7a on wgmma and keeping f on chip are work for a later change.
 //
 // Numerics: the rules of int8_common.cuh. The IN statistics are summed
 // with atomics in a changing order, so a requantized LSB of K7a can flip
 // against the plain version, and K7b's output moves by its effect. The
-// int32 accumulators of conv 1 and of every group of conv 2
-// (cistar_conv3x3_reflect_grouped_s8_acc) are compared bit for bit.
+// int32 accumulators of every group of conv 2
+// (cistar_conv3x3_reflect_grouped_s8_acc, on K7b's route) are compared bit
+// for bit.
 //
 // The bn form (bn = 1; the TPU kernels' bn=True, the 512-channel trunk of
 // pix2pixHD's MultiscaleGlobalGenerator at 64x64, ct 128): the inference
@@ -60,12 +67,13 @@
 // cudaGetLastError() as an int. Nothing here allocates: the caller passes a
 // workspace of cistar_tiled_workspace_bytes() bytes.
 
-#include "int8_common.cuh"
+#include "wgmma_conv.cuh"
 
 namespace {
 
 struct TiledWs {
-  int8_t* q;       // M*C int8: the quantized block input (K7a)
+  int8_t* q;       // N*(H+2)*(W+2)*C int8: the quantized block input (K7a),
+                   // or K7b's reflect-padded rq
   float* f;        // M*C fp32: conv output
   float* st_sum;   // N*C, followed by
   float* st_sq;    // N*C and
@@ -77,11 +85,11 @@ struct TiledWs {
   float* rinv;     // N*t: 127 / rmax of each (image, tile)
 };
 
-size_t tiled_layout(long n, long hw, long c, char* base, TiledWs* w) {
-  const size_t mc = static_cast<size_t>(n * hw * c), nc = static_cast<size_t>(n * c);
+size_t tiled_layout(long n, long h, long w, long c, char* base, TiledWs* wsp) {
+  const size_t mc = static_cast<size_t>(n * h * w * c), nc = static_cast<size_t>(n * c);
   Carver cv{base};
   TiledWs ws;
-  ws.q = cv.take<int8_t>(mc);
+  ws.q = cv.take<int8_t>(static_cast<size_t>(n * (h + 2) * (w + 2) * c));
   ws.f = cv.take<float>(mc * 4);
   ws.st_sum = cv.take<float>(3 * nc * 4);
   ws.st_sq = ws.st_sum ? ws.st_sum + nc : nullptr;
@@ -91,8 +99,26 @@ size_t tiled_layout(long n, long hw, long c, char* base, TiledWs* w) {
   ws.amax = cv.take<float>(n * 4);
   ws.xscale = cv.take<float>(n * 4);
   ws.rinv = cv.take<float>(nc * 4);  // N*t <= N*C
-  if (w != nullptr) *w = ws;
+  if (wsp != nullptr) *wsp = ws;
   return cv.off;
+}
+
+// The conv K7b and the grouped RAW entry run at (n, h, w, c) in groups:
+// BN 128 of wg_conv_kernel, or 0 for conv_s8_kernel.
+int conv_variant(int n, int h, int w, int c, int groups) {
+  return wg_tile_ok(n, h, w, c, c, 1, 3, groups) ? WG_BN_GROUPED : 0;
+}
+
+// Conv 2 of K7b or the RAW entry, group by group, of rq (N,H,W,C): on the
+// wgmma conv via its reflect-padded copy qp where the shape allows.
+template <int EPI>
+cudaError_t grouped_conv(ConvArgs a, int8_t* qp, cudaStream_t st) {
+  if (conv_variant(a.n, a.h, a.w, a.cin, a.groups) == 0) {
+    launch_conv_wide<EPI, false, true>(a, st);
+    return cudaSuccess;
+  }
+  launch_reflect_pad(a.xq, qp, a.n, a.h, a.w, a.cin, st);
+  return launch_wg_conv_bn<WG_BN_GROUPED, int8_t, EPI, false>(qp, true, a.wk, a, st);
 }
 
 bool tiled_shape_ok(int n, int h, int w, int c, int ct) {
@@ -105,7 +131,7 @@ int tiled_a(const T* x, const int8_t* w1k, const float* sb, int8_t* rq, float* r
             void* workspace, int n, int h, int w, int c, int ct, float eps, bool bn,
             cudaStream_t st) {
   TiledWs ws;
-  tiled_layout(n, static_cast<long>(h) * w, c, static_cast<char*>(workspace), &ws);
+  tiled_layout(n, h, w, c, static_cast<char*>(workspace), &ws);
   const long per_image = static_cast<long>(h) * w * c;
   const size_t nc = static_cast<size_t>(n) * c;
   cudaMemsetAsync(ws.amax, 0, n * 4, st);
@@ -134,7 +160,7 @@ int tiled_b(const int8_t* rq, const float* rs, const int8_t* w2k, const float* s
             const T* x, T* out, void* workspace, int n, int h, int w, int c, int ct,
             float eps, bool bn, cudaStream_t st) {
   TiledWs ws;
-  tiled_layout(n, static_cast<long>(h) * w, c, static_cast<char*>(workspace), &ws);
+  tiled_layout(n, h, w, c, static_cast<char*>(workspace), &ws);
   const long per_image = static_cast<long>(h) * w * c;
   const size_t nc = static_cast<size_t>(n) * c;
   if (!bn) cudaMemsetAsync(ws.st_sum, 0, 2 * nc * 4, st);
@@ -143,7 +169,8 @@ int tiled_b(const int8_t* rq, const float* rs, const int8_t* w2k, const float* s
              1};
   a.gs = rs;
   a.groups = c / ct;
-  launch_conv_wide<EPI_GSTATS, false, true>(a, st);
+  const cudaError_t e = grouped_conv<EPI_GSTATS>(a, ws.q, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
   in_stats_kernel<false><<<n, EW_THREADS, 0, st>>>(ws.st_sum, ws.st_sq, nullptr, c,
                                                    static_cast<float>(h * w), eps,
                                                    ws.mean, ws.rsig, nullptr, nullptr,
@@ -158,22 +185,31 @@ int tiled_b(const int8_t* rq, const float* rs, const int8_t* w2k, const float* s
 extern "C" {
 
 size_t cistar_tiled_workspace_bytes(int n, int h, int w, int c) {
-  return tiled_layout(n, static_cast<long>(h) * w, c, nullptr, nullptr);
+  return tiled_layout(n, h, w, c, nullptr, nullptr);
+}
+
+// Which conv K7b and cistar_conv3x3_reflect_grouped_s8_acc run at (n, h, w,
+// c) in groups: the BN of wg_conv_kernel (128), or 0 for conv_s8_kernel.
+int cistar_tiled_conv_variant(int n, int h, int w, int c, int groups) {
+  return conv_variant(n, h, w, c, groups);
 }
 
 // int32 accumulators of the reflect-pad-1 3x3 conv, per input group: xq
 // (N,H,W,C) int8, wk (C, 9*C) int8 -> acc (groups, N,H,W,C) int32, group g
-// summing input channels [g*C/groups, (g+1)*C/groups).
+// summing input channels [g*C/groups, (g+1)*C/groups). xpad: (N, H+2, W+2,
+// C) int8 scratch for the padded input of wg_conv_kernel.
 int cistar_conv3x3_reflect_grouped_s8_acc(const void* xq, const void* wk, void* acc,
-                                          int n, int h, int w, int c, int groups,
-                                          void* stream) {
+                                          void* xpad, int n, int h, int w, int c,
+                                          int groups, void* stream) {
   if (!wide_shape_ok(n, h, w, c, c, groups))
     return static_cast<int>(cudaErrorInvalidValue);
   ConvArgs a{static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wk),
              nullptr, nullptr, nullptr, static_cast<int32_t*>(acc), nullptr,
              nullptr, nullptr, nullptr, n, h, w, c, c, 1};
   a.groups = groups;
-  launch_conv_wide<EPI_RAW, false, true>(a, static_cast<cudaStream_t>(stream));
+  const cudaError_t e = grouped_conv<EPI_RAW>(a, static_cast<int8_t*>(xpad),
+                                              static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,37 +1,45 @@
-// The 3x3 "same" conv of the port's main path on Hopper's wgmma + TMA
-// (sm_90a), templated on the operand type: int8 x int8 -> int32 (K1 and K2,
-// csrc/int8_resblock.cu: both convs of every block, the bn=True form and
-// the int32 accumulators of cistar_conv3x3_reflect_s8_acc) and bf16 x bf16
-// -> fp32 (K3, csrc/conv3x3_in_act.cu).
+// The "same" KKxKK conv (KK 3 or 5) of the port's int8 and bf16 kernels on
+// Hopper's wgmma + TMA (sm_90a), templated on the operand type: int8 x int8
+// -> int32 (K1 and K2, csrc/int8_resblock.cu: both convs of every block,
+// the bn=True form and cistar_conv3x3_reflect_s8_acc; K7b and its bn form,
+// csrc/int8_tiled.cu: the grouped conv 2 and
+// cistar_conv3x3_reflect_grouped_s8_acc; K8, csrc/int8_msrb.cu: both
+// branches, 3x3 and 5x5, and cistar_conv_zero_grouped_s8_acc) and bf16 x
+// bf16 -> fp32 (K3, csrc/conv3x3_in_act.cu).
 //
-// Serves the TPU kernels' 3x3 convs
+// Serves the TPU kernels' convs
 //   cistar_tpu/ops/quant_pallas.py::_conv9_int8 (:114-134), the conv of
 //     _resblock_int8_bf16io_kernel (K1) and _resblock_int8_kernel (K2)
+//   quant_pallas.py::_resblock_b_kernel (:471-490, K7b) and
+//     _msrb_branch_kernel (:720-750, K8), whose K loops run group by group
 //   cistar_tpu/ops/pallas_kernels.py::fused_conv3x3_in_act's body
 //     (:181-200, K3)
-// each a padded halo in VMEM and 9 shifted (H*W, Cin) x (Cin, Cout)
+// each a padded halo in VMEM and KK*KK shifted (H*W, Cin) x (Cin, Cout)
 // matmuls.
 //
 // What bounds it: operations. At the trunk shape (64, 32, 32, 512) one
-// conv is an implicit GEMM of M = 65,536 pixels, N = 512, K = 9 * 512 =
-// 4,608: 309.2 G operations, 0.156 ms at 1,979 int8 TOPS and 0.313 ms at
+// 3x3 conv is an implicit GEMM of M = 65,536 pixels, N = 512, K = 9 * 512
+// = 4,608: 309.2 G operations, 0.156 ms at 1,979 int8 TOPS and 0.313 ms at
 // 989 bf16 TFLOP/s, against ~40 MB of input and weights (0.012 ms at 3.35
-// TB/s).
+// TB/s). K8's 5x5 branches have 25/9 of a 3x3's operations on the same
+// bytes.
 //
 // Design (what it does about that):
-//   * The input is read from a reflect-padded (N, H+2, W+2, C) copy, so tap
-//     (dy, dx) of an M tile that covers image rows y0 .. y0+R-1 is one 4-D
-//     TMA box at (c0, x0 + dx, y0 + dy, n), box (128 bytes of C, min(W,
-//     128), R = 128 / min(W, 128), 1): the TPU kernel's 9 shifted windows,
-//     fetched by the copy engine with no address arithmetic in the SM.
-//     TMA fills zeros, not reflections, outside the tensor, hence the padded
-//     copy (written by K1's quantize passes directly, by reflect_pad_kernel
-//     for K2's input, the RAW entry and K3). Zero padding needs no copy: the
-//     box starts at (x0 - 1 + dx, y0 - 1 + dy) on the unpadded tensor and
-//     TMA zero-fills what lies outside.
-//   * The weights (Cout, 9*Cin), K-contiguous, are a 2-D box of (128 bytes
-//     of K, BN rows). Both operands are K-major with 128-byte swizzle, the
-//     layout wgmma reads (and the only one it takes for 8-bit types).
+//   * Tap (dy, dx) of an M tile that covers image rows y0 .. y0+R-1 is one
+//     4-D TMA box at (c0, x0 + dx + pad_off, y0 + dy + pad_off, n), box
+//     (128 bytes of C, min(W, 128), R = 128 / min(W, 128), 1): the TPU
+//     kernel's KK*KK shifted windows, fetched by the copy engine with no
+//     address arithmetic in the SM. TMA fills zeros, not reflections,
+//     outside the tensor, so reflect padding reads a reflect-padded (N,
+//     H+2, W+2, C) copy at pad_off 0 (written by K1's quantize passes
+//     directly, by reflect_pad_kernel for K2's input, K7b's rq, the RAW
+//     entries and K3). Zero padding needs no copy: the box starts at
+//     pad_off -KK/2 on the unpadded tensor and TMA zero-fills what lies
+//     outside (K3, K8; a 5x5 box may lie wholly outside).
+//   * The weights (Cout, KK*KK*Cin), K-contiguous, are a 2-D box of (128
+//     bytes of K, BN rows). Both operands are K-major with 128-byte
+//     swizzle, the layout wgmma reads (and the only one it takes for 8-bit
+//     types).
 //   * A ring of STAGES tiles in shared memory (4 at BN 256, 6 at BN 128;
 //     192 KB), each an A tile of 128 pixels and a B tile of BN channels x
 //     128 bytes of K, filled by one producer thread through an mbarrier per
@@ -42,25 +50,40 @@
 //     group kept in flight, so a stage is released while the next one's
 //     products run. setmaxnreg moves registers from the producer warpgroup
 //     (40) to the consumers (232): BN 256 holds 128 accumulators a thread.
-//   * BN per launch: 256 where the grid still has 2 blocks per SM (132 SMs
-//     on an H100 SXM), else 128, so a batch of 8 fills the card (256 blocks
-//     of 128 x 128 at (8, 32, 32, 512)).
-//   * The epilogue is conv_s8_kernel's (int8_common.cuh): EPI_RAW writes
-//     the int32 accumulators; EPI_STATS writes f = acc * (xs[n] * ws[c]) +
-//     bias[c] (s8) or acc + bias[c] (bf16) in fp32 with __fmul_rn /
-//     __fadd_rn, and adds each (image, channel)'s sum, sum of squares and
-//     (WANT_MAX) max with atomics; with st_sum null, the max only. The
-//     wgmma accumulator of a warp covers 16 rows (lane / 4 and lane / 4 +
-//     8) of the 64, so the column sums reduce over lane bits 2-4 by
-//     shuffles, then over the 8 consumer warps in shared memory.
+//   * Input groups (K7b, K8): the K loop runs group by group, tap by tap
+//     inside a group (conv_s8_kernel's order). At a group's last K stage the
+//     consumers wait for all its products (wgmma_wait<0>) and flush the
+//     exact int32 partial: EPI_RAW writes it, EPI_GSTATS / EPI_GRELU add
+//     float(acc) * gs[n, g] to an fp32 sum in group order; the accumulators
+//     restart from 0. Each stage is still released once, by the next
+//     iteration.
+//   * BN per launch: the ungrouped 3x3 callers take 256 where the grid still
+//     has 2 blocks per SM (132 SMs on an H100 SXM), else 128, so a batch of
+//     8 fills the card (256 blocks of 128 x 128 at (8, 32, 32, 512)). The
+//     grouped ones take 128 (WG_BN_GROUPED): 64 int32 accumulators and 64
+//     fp32 group sums a thread.
+//   * The epilogues are conv_s8_kernel's (int8_common.cuh), op for op:
+//     EPI_RAW writes the int32 accumulators of each group; EPI_STATS writes
+//     f = acc * (xs[n] * ws[c]) + bias[c] (s8) or acc + bias[c] (bf16) in
+//     fp32 with __fmul_rn / __fadd_rn, and adds each (image, channel)'s
+//     sum, sum of squares and (WANT_MAX) max with atomics; with st_sum null,
+//     the max only. EPI_GSTATS the same on f = gsum * ws[c] + bias[c];
+//     EPI_GRELU relu(gsum * ws[c] + bias[c]), written as TO, or (WANT_MAX)
+//     as fp32 f with an integer atomicMax per (image, ct tile). The wgmma
+//     accumulator of a warp covers 16 rows (lane / 4 and lane / 4 + 8) of
+//     the 64, so the column sums reduce over lane bits 2-4 by shuffles,
+//     then over the 8 consumer warps in shared memory.
 //
 // The tile rule (wg_tile_ok): W divides 128 or 128 divides W (a tile is
 // whole image rows, or 128 pixels of one row), H*W % 128 == 0 (a tile lies
-// in one image), 128 bytes of C divide Cin (a K stage lies in one tap) and
-// Cout % 128 == 0. Every K1 shape on the ported paths (ResNet-9 and
-// multiscale 256² at (B, 32, 32, 512), the JAX budget configuration's (B,
-// 16, 16, 128)) and K3's (B, 32, 32, 512) meet it; other shapes keep
-// conv_s8_kernel (K1, K2) or conv_ffma_kernel (K3), chosen by shape.
+// in one image), KK 3 or 5, 128 bytes divide Cin / groups (a K stage lies
+// in one tap of one group) and Cout % 128 == 0. Every K1 shape on the
+// ported paths (ResNet-9 and multiscale 256² at (B, 32, 32, 512), the JAX
+// budget configuration's (B, 16, 16, 128)), K3's (B, 32, 32, 512), K7b's
+// (B, 32, 32, 1024) in 256-channel groups and (B, 64, 64, 512) in 128, and
+// K8's (B, 64, 64, 512 | 1024) in 1 or 8 groups meet it; other shapes keep
+// conv_s8_kernel (K1, K2, K7b, K8) or conv_ffma_kernel (K3), chosen by
+// shape.
 //
 // The TMA descriptors hold the tensors' pointers, so they are encoded on
 // the host for each launch (cuTensorMapEncodeTiled, reached through
@@ -306,14 +329,21 @@ __host__ __device__ constexpr int wg_smem_bytes() {
 // warpgroup 0 the producer (thread 0 issues every TMA load), warpgroups 1
 // and 2 the consumers of rows 0-63 and 64-127. The input map `tx` is
 // (C, W', H', N) over the padded tensor (pad_off 0) or the unpadded one
-// (pad_off -1, zero padding by TMA's fill); `tw` is (9*Cin, Cout).
+// (pad_off -KK/2, zero padding by TMA's fill); `tw` is (KK*KK*Cin, Cout).
+// The K loop runs group by group (Cin = a.groups x cg channels) and, inside
+// a group, tap by tap: K stage kt is group kt / SPG, tap (kt % SPG) / CPG,
+// channels grp*cg + (kt % CPG)*KE .. +KE, conv_s8_kernel's order. At the
+// last stage of a group its exact partial is flushed: EPI_RAW writes it to
+// acc_out (groups, M, Cout), EPI_GSTATS / EPI_GRELU add float(acc) * gs[img,
+// grp] to an fp32 sum in group order; the accumulators restart from 0.
 // Epilogue fields of `a` as conv_s8_kernel's.
-template <typename T, int BN, int EPI, bool WANT_MAX>
+template <typename T, int BN, int EPI, bool WANT_MAX, int KK = 3, typename TO = float>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     wg_conv_kernel(const __grid_constant__ CUtensorMap tx,
                    const __grid_constant__ CUtensorMap tw, const ConvArgs a,
                    int pad_off) {
   using Acc = typename WgOperand<T>::Acc;
+  constexpr bool GROUPED = EPI == EPI_GSTATS || EPI == EPI_GRELU;
   constexpr int STAGES = wg_stages<BN>();
   constexpr int A_BYTES = WG_BM * WG_KBYTES, B_BYTES = BN * WG_KBYTES;
   constexpr int KE = WG_KBYTES / static_cast<int>(sizeof(T));  // K elements a stage
@@ -332,8 +362,10 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   const int rem = static_cast<int>(m0 - static_cast<long>(img) * HW);
   const int y0 = rem / W, x0 = rem - (rem / W) * W;
   const int n0 = blockIdx.y * BN;
-  const int cpt = a.cin / KE;  // K stages per tap
-  const int KT = 9 * cpt;
+  const int cg = a.cin / a.groups;  // channels of one input group
+  const int CPG = cg / KE;          // K stages per tap of one group
+  const int SPG = KK * KK * CPG;    // K stages per group
+  const int KT = a.groups * SPG;
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
 
   if (threadIdx.x == 0) {
@@ -352,9 +384,10 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         const int s = kt % STAGES;
         if (kt >= STAGES) mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
         mbar_expect_tx(&full[s], A_BYTES + B_BYTES);
-        const int tap = kt / cpt, c0 = (kt - tap * cpt) * KE;
-        tma_load_4d(sa + s * A_BYTES, &tx, &full[s], c0, x0 + tap % 3 + pad_off,
-                    y0 + tap / 3 + pad_off, img);
+        const int grp = kt / SPG, r = kt - grp * SPG, tap = r / CPG;
+        const int c0 = grp * cg + (r - tap * CPG) * KE;
+        tma_load_4d(sa + s * A_BYTES, &tx, &full[s], c0, x0 + tap % KK + pad_off,
+                    y0 + tap / KK + pad_off, img);
         tma_load_2d(sb + s * B_BYTES, &tw, &full[s], tap * a.cin + c0, n0);
       }
     }
@@ -363,10 +396,19 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int cw = wg - 1;  // rows cw*64 .. cw*64+63 of the tile
+  // Accumulator i of thread t: n8 block j = i / 4, row 16 * (t / 32) +
+  // (t % 32) / 4 + 8 * ((i / 2) % 2), column 8 * j + 2 * (t % 4) + i % 2.
+  const int wi = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
+  const long row0 = m0 + cw * 64 + wi * 16 + g;  // and row0 + 8
   Acc acc[NA];
+  float fv[GROUPED ? NA : 1];  // the fp32 group sum
 #pragma unroll
   for (int i = 0; i < NA; ++i) acc[i] = 0;
-  for (int kt = 0; kt < KT; ++kt) {
+  if constexpr (GROUPED) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) fv[i] = 0.f;
+  }
+  for (int kt = 0, grp = 0, gk = 0; kt < KT; ++kt) {
     const int s = kt % STAGES;
     mbar_wait(&full[s], (kt / STAGES) & 1);
     const uint64_t da = sw128_desc(sa + s * A_BYTES + cw * 64 * WG_KBYTES);
@@ -375,29 +417,42 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 #pragma unroll
     for (int k = 0; k < WG_KBYTES / 32; ++k) wg_mma<BN>(acc, da + 2 * k, db + 2 * k);
     wgmma_commit();
-    // keep this stage's group in flight; the previous one is done: release it
+    // keep this stage's group in flight; the previous one is done: release
+    // it. Each stage is released here exactly once, by the next iteration
+    // (the last one never: the producer needs it no more).
     wgmma_wait<1>();
     if (kt > 0 && t == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
-  }
-  wgmma_wait<0>();
+    if (++gk < SPG) continue;
+    // The last K stage of group grp: wait for its products, then flush.
+    gk = 0;
+    wgmma_wait<0>();
 #pragma unroll
-  for (int i = 0; i < NA; ++i) reg_fence(acc[i]);
+    for (int i = 0; i < NA; ++i) reg_fence(acc[i]);
+    if constexpr (EPI == EPI_RAW) {
+      int32_t* out = a.acc_out + static_cast<long>(grp) * a.n * a.h * W * Cout;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<int2*>(out + (row0 + 8 * h) * Cout + n0 + 8 * j + 2 * q) =
+              make_int2(static_cast<int>(acc[4 * j + 2 * h]),
+                        static_cast<int>(acc[4 * j + 2 * h + 1]));
+    } else if constexpr (GROUPED) {
+      const float gsc = a.gs[img * a.groups + grp];
+#pragma unroll
+      for (int i = 0; i < NA; ++i)
+        fv[i] = __fadd_rn(fv[i], __fmul_rn(static_cast<float>(acc[i]), gsc));
+    }
+    if constexpr (EPI == EPI_RAW || GROUPED) {
+#pragma unroll
+      for (int i = 0; i < NA; ++i) acc[i] = 0;
+    }
+    ++grp;
+  }
+  if constexpr (EPI == EPI_RAW) return;
 
-  // Accumulator i of thread t: n8 block j = i / 4, row 16 * (t / 32) +
-  // (t % 32) / 4 + 8 * ((i / 2) % 2), column 8 * j + 2 * (t % 4) + i % 2.
-  const int wi = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
-  const long row0 = m0 + cw * 64 + wi * 16 + g;  // and row0 + 8
-  if (EPI == EPI_RAW) {
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<int2*>(a.acc_out + (row0 + 8 * h) * Cout + n0 + 8 * j + 2 * q) =
-            make_int2(static_cast<int>(acc[4 * j + 2 * h]),
-                      static_cast<int>(acc[4 * j + 2 * h + 1]));
-    return;
-  }
   const bool sums = a.st_sum != nullptr;
+  // EPI_GRELU without WANT_MAX writes TO and reduces nothing (st_sum null)
   const bool reduce = sums || WANT_MAX;
   // Both consumer warpgroups are done with the ring before it holds the
   // partial sums: red[8 warps][3][BN].
@@ -412,16 +467,22 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const float b = a.bias[col + e];
-      const float scale = sizeof(T) == 1 ? __fmul_rn(xsc, a.ws[col + e]) : 0.f;
+      // the grouped sum already holds the input scales
+      const float scale = GROUPED ? a.ws[col + e]
+                                  : (sizeof(T) == 1 ? __fmul_rn(xsc, a.ws[col + e]) : 0.f);
       s[e] = 0.f;
       sq[e] = 0.f;
       mx[e] = -INFINITY;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const Acc r = acc[4 * j + 2 * h + e];
-        const float x = sizeof(T) == 1
-                            ? __fadd_rn(__fmul_rn(static_cast<float>(r), scale), b)
-                            : __fadd_rn(static_cast<float>(r), b);
+        const int i = 4 * j + 2 * h + e;
+        float x;
+        if constexpr (GROUPED)
+          x = __fadd_rn(__fmul_rn(fv[i], scale), b);
+        else
+          x = sizeof(T) == 1 ? __fadd_rn(__fmul_rn(static_cast<float>(acc[i]), scale), b)
+                             : __fadd_rn(static_cast<float>(acc[i]), b);
+        if (EPI == EPI_GRELU) x = fmaxf(x, 0.f);
         v[h][e] = x;
         s[e] = __fadd_rn(s[e], x);
         sq[e] = __fadd_rn(sq[e], __fmul_rn(x, x));
@@ -429,14 +490,21 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       }
     }
 #pragma unroll
-    for (int h = 0; h < 2; ++h) store2(a.f + (row0 + 8 * h) * Cout + col, v[h][0], v[h][1]);
+    for (int h = 0; h < 2; ++h) {
+      if (EPI == EPI_GRELU && !WANT_MAX)
+        store2(static_cast<TO*>(a.out) + (row0 + 8 * h) * Cout + col, v[h][0], v[h][1]);
+      else
+        store2(a.f + (row0 + 8 * h) * Cout + col, v[h][0], v[h][1]);
+    }
     if (reduce) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
 #pragma unroll
         for (int o = 4; o < 32; o <<= 1) {
-          s[e] = __fadd_rn(s[e], __shfl_xor_sync(0xffffffffu, s[e], o));
-          sq[e] = __fadd_rn(sq[e], __shfl_xor_sync(0xffffffffu, sq[e], o));
+          if (EPI != EPI_GRELU) {
+            s[e] = __fadd_rn(s[e], __shfl_xor_sync(0xffffffffu, s[e], o));
+            sq[e] = __fadd_rn(sq[e], __shfl_xor_sync(0xffffffffu, sq[e], o));
+          }
           mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], o));
         }
         if (g == 0) {
@@ -450,16 +518,24 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
   if (!reduce) return;
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
-  const int ct = threadIdx.x - 128;
-  if (ct < BN) {
+  const int c = threadIdx.x - 128;
+  if (c < BN) {
     float s = 0.f, sq = 0.f, m = -INFINITY;
 #pragma unroll
     for (int w = 0; w < 8; ++w) {
-      s = __fadd_rn(s, red[(w * 3 + 0) * BN + ct]);
-      sq = __fadd_rn(sq, red[(w * 3 + 1) * BN + ct]);
-      m = fmaxf(m, red[(w * 3 + 2) * BN + ct]);
+      s = __fadd_rn(s, red[(w * 3 + 0) * BN + c]);
+      sq = __fadd_rn(sq, red[(w * 3 + 1) * BN + c]);
+      m = fmaxf(m, red[(w * 3 + 2) * BN + c]);
     }
-    const long o = static_cast<long>(img) * Cout + n0 + ct;
+    if (EPI == EPI_GRELU) {
+      // the max of each (image, tile of a.ct channels); m >= 0 after the
+      // ReLU, so its bits order like ints
+      atomicMax(reinterpret_cast<int*>(a.st_max + static_cast<long>(img) * (Cout / a.ct) +
+                                       (n0 + c) / a.ct),
+                __float_as_int(m));
+      return;
+    }
+    const long o = static_cast<long>(img) * Cout + n0 + c;
     if (sums) {
       atomicAdd(a.st_sum + o, s);
       atomicAdd(a.st_sq + o, sq);
@@ -496,12 +572,15 @@ void launch_reflect_pad(const T* x, T* xp, int n, int h, int w, int c, cudaStrea
                           st>>>(x, xp, n, h, w, c);
 }
 
-// Whether a 3x3 conv takes wg_conv_kernel (see the note at the top);
-// elem: bytes of one operand value.
-bool wg_tile_ok(int n, int h, int w, int cin, int cout, int elem) {
+// Whether a conv takes wg_conv_kernel (see the note at the top); elem:
+// bytes of one operand value; kk: 3 or 5 taps a side; groups: input groups,
+// each Cin / groups wide, of which 128 bytes must divide.
+bool wg_tile_ok(int n, int h, int w, int cin, int cout, int elem, int kk = 3,
+                int groups = 1) {
   const bool rows = (w <= WG_BM && WG_BM % w == 0) || w % WG_BM == 0;
   return n > 0 && h >= 2 && w >= 2 && rows && (h * w) % WG_BM == 0 &&
-         (cin * elem) % WG_KBYTES == 0 && cout % 128 == 0;
+         (kk == 3 || kk == 5) && groups > 0 && cin % groups == 0 &&
+         (cin / groups * elem) % WG_KBYTES == 0 && cout % 128 == 0;
 }
 
 // BN 256 where Cout allows it and the grid keeps 2 blocks per SM, else 128.
@@ -509,6 +588,11 @@ int wg_bn(int n, int h, int w, int cout) {
   const long tiles = static_cast<long>(n) * h * w / WG_BM;
   return cout % 256 == 0 && tiles * (cout / 256) >= 2L * WG_SMS ? 256 : 128;
 }
+
+// The BN of the grouped convs (K7b, K8 and their RAW entries): a consumer
+// thread holds 64 int32 accumulators and 64 fp32 group sums at BN 128; BN
+// 256 would need 256 registers for them alone.
+constexpr int WG_BN_GROUPED = 128;
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -532,10 +616,10 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-template <typename T, int BN, int EPI, bool WANT_MAX>
+template <typename T, int BN, int EPI, bool WANT_MAX, int KK, typename TO>
 cudaError_t wg_launch(const CUtensorMap& tx, const CUtensorMap& tw, const ConvArgs& a,
                       int pad_off, cudaStream_t st) {
-  auto kern = wg_conv_kernel<T, BN, EPI, WANT_MAX>;
+  auto kern = wg_conv_kernel<T, BN, EPI, WANT_MAX, KK, TO>;
   constexpr int smem = wg_smem_bytes<BN>();
   static bool attr = false;
   if (!attr) {
@@ -550,21 +634,21 @@ cudaError_t wg_launch(const CUtensorMap& tx, const CUtensorMap& tw, const ConvAr
   return cudaGetLastError();
 }
 
-// The conv of `a` (n, h, w, cin, cout and the epilogue's pointers) on x
-// and wk (Cout, 9*Cin). padded: x is the reflect-padded (N, H+2, W+2,
-// Cin); else x is (N, H, W, Cin) and the padding is zeros. The shape
-// meets wg_tile_ok. Returns the launch's error, or cudaErrorInvalidValue
-// where a descriptor cannot be encoded.
-template <typename T, int EPI, bool WANT_MAX>
-cudaError_t launch_wg_conv(const T* x, bool padded, const T* wk, const ConvArgs& a,
-                           cudaStream_t st) {
+// The KKxKK conv of `a` (n, h, w, cin, cout, groups and the epilogue's
+// pointers) on x and wk (Cout, KK*KK*Cin), BN output channels a block.
+// padded: x is the reflect-padded (N, H+2, W+2, Cin) (KK 3); else x is (N,
+// H, W, Cin) and the padding is zeros, KK/2 a side. The shape meets
+// wg_tile_ok. Returns the launch's error, or cudaErrorInvalidValue where a
+// descriptor cannot be encoded.
+template <int BN, typename T, int EPI, bool WANT_MAX, int KK = 3, typename TO = float>
+cudaError_t launch_wg_conv_bn(const T* x, bool padded, const T* wk, const ConvArgs& a,
+                              cudaStream_t st) {
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return cudaErrorInvalidValue;
-  const int es = static_cast<int>(sizeof(T)), ke = WG_KBYTES / es;
-  const int bn = wg_bn(a.n, a.h, a.w, a.cout);
+  const int es = static_cast<int>(sizeof(T)), ke = WG_KBYTES / es, p = KK / 2;
   const cuuint32_t bxw = static_cast<cuuint32_t>(a.w < WG_BM ? a.w : WG_BM);
-  const cuuint64_t wp = a.w + (padded ? 2 : 0), hp = a.h + (padded ? 2 : 0);
-  const cuuint64_t c = a.cin;
+  const cuuint64_t wp = a.w + (padded ? 2 * p : 0), hp = a.h + (padded ? 2 * p : 0);
+  const cuuint64_t c = a.cin, kc = static_cast<cuuint64_t>(KK * KK) * c;
   CUtensorMap tx, tw;
   const cuuint64_t xdim[4] = {c, wp, hp, static_cast<cuuint64_t>(a.n)};
   const cuuint64_t xstride[3] = {c * es, wp * c * es, hp * wp * c * es};
@@ -575,17 +659,24 @@ cudaError_t launch_wg_conv(const T* x, bool padded, const T* wk, const ConvArgs&
           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  const cuuint64_t wdim[2] = {9 * c, static_cast<cuuint64_t>(a.cout)};
-  const cuuint64_t wstride[1] = {9 * c * es};
-  const cuuint32_t wbox[2] = {static_cast<cuuint32_t>(ke), static_cast<cuuint32_t>(bn)};
+  const cuuint64_t wdim[2] = {kc, static_cast<cuuint64_t>(a.cout)};
+  const cuuint64_t wstride[1] = {kc * es};
+  const cuuint32_t wbox[2] = {static_cast<cuuint32_t>(ke), static_cast<cuuint32_t>(BN)};
   if (enc(&tw, WgOperand<T>::tma, 2, const_cast<T*>(wk), wdim, wstride, wbox, ones,
           CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  const int off = padded ? 0 : -1;
-  return bn == 256 ? wg_launch<T, 256, EPI, WANT_MAX>(tx, tw, a, off, st)
-                   : wg_launch<T, 128, EPI, WANT_MAX>(tx, tw, a, off, st);
+  return wg_launch<T, BN, EPI, WANT_MAX, KK, TO>(tx, tw, a, padded ? 0 : -p, st);
+}
+
+// The 3x3 conv of the ungrouped callers (K1, K2, K3) at the BN of wg_bn.
+template <typename T, int EPI, bool WANT_MAX>
+cudaError_t launch_wg_conv(const T* x, bool padded, const T* wk, const ConvArgs& a,
+                           cudaStream_t st) {
+  return wg_bn(a.n, a.h, a.w, a.cout) == 256
+             ? launch_wg_conv_bn<256, T, EPI, WANT_MAX>(x, padded, wk, a, st)
+             : launch_wg_conv_bn<128, T, EPI, WANT_MAX>(x, padded, wk, a, st);
 }
 
 }  // namespace

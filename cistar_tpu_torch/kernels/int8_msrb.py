@@ -3,6 +3,8 @@
   * :func:`conv_zero_grouped_s8` — the int8 zero-pad 3×3 / 5×5 conv, one
     int32 partial per input group out (the K loop of K8)
   * :func:`msrb_branch_int8` — K8 (``_msrb_branch_kernel``)
+  * :func:`conv_variant` — which conv a shape takes (``wgmma_conv.py``'s
+    rule), and :func:`conv_variant_card`, the library's own answer
 
 Each takes CUDA tensors only and launches on PyTorch's current stream; the
 CPU path is the plain version in :mod:`cistar_tpu_torch.ops.quant_int8`.
@@ -18,7 +20,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from cistar_tpu_torch.kernels import build
+from cistar_tpu_torch.kernels import build, wgmma_conv
 from cistar_tpu_torch.kernels.build import (I, P, check_same_device,
                                             check_tensor, raise_on, stream)
 
@@ -26,6 +28,7 @@ launches: Dict[str, int] = {"conv_zero_grouped_s8": 0, "msrb_branch_int8": 0}
 
 _SIGS = {
     "cistar_msrb_workspace_bytes": ((I, I, I, I, I), ctypes.c_size_t),
+    "cistar_msrb_conv_variant": ((I, I, I, I, I, I, I), I),
     "cistar_conv_zero_grouped_s8_acc": ((P, P, P, I, I, I, I, I, I, I, P), I),
     "cistar_msrb_branch_int8": (
         (P, P, I, P, P, P, I, I, I, P, P, P, I, I, I, I, I, I, P), I),
@@ -40,6 +43,21 @@ def reset_launches() -> None:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     return build.bind(build.load("int8_msrb"), _SIGS)
+
+
+def conv_variant(n: int, h: int, w: int, cin: int, cout: int, kk: int,
+                 groups: int) -> int:
+    """The conv K8 and :func:`conv_zero_grouped_s8` run at (N, H, W, Cin →
+    Cout, kk, groups): the BN of the ``wgmma`` conv (128), or 0 for the
+    ``mma.sync`` one (``conv_s8_kernel``)."""
+    return wgmma_conv.variant(n, h, w, cin, cout, 1, kk, groups,
+                              grouped=True)
+
+
+def conv_variant_card(n: int, h: int, w: int, cin: int, cout: int, kk: int,
+                      groups: int) -> int:
+    """:func:`conv_variant` as the built library answers it."""
+    return _lib().cistar_msrb_conv_variant(n, h, w, cin, cout, kk, groups)
 
 
 def _check_shape(n: int, h: int, w: int, cin: int, cout: int, groups: int,

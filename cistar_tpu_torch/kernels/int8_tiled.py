@@ -4,6 +4,8 @@
     one int32 partial per input group out (the K loop of K7b)
   * :func:`resblock_int8_tiled_a` — K7a (``_resblock_a_kernel``)
   * :func:`resblock_int8_tiled_b` — K7b (``_resblock_b_kernel``)
+  * :func:`conv_variant` — which conv K7b takes at a shape (``wgmma_conv.py``'s
+    rule), and :func:`conv_variant_card`, the library's own answer
 
 Both take ``bn=True`` for their BatchNorm form, counted as
 ``resblock_int8_tiled_a_bn`` / ``resblock_int8_tiled_b_bn``.
@@ -22,7 +24,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from cistar_tpu_torch.kernels import build
+from cistar_tpu_torch.kernels import build, wgmma_conv
 from cistar_tpu_torch.kernels.build import (I, F, P, check_same_device,
                                             check_tensor, raise_on, stream)
 
@@ -34,7 +36,8 @@ launches: Dict[str, int] = {"conv3x3_reflect_grouped_s8": 0,
 
 _SIGS = {
     "cistar_tiled_workspace_bytes": ((I, I, I, I), ctypes.c_size_t),
-    "cistar_conv3x3_reflect_grouped_s8_acc": ((P, P, P, I, I, I, I, I, P), I),
+    "cistar_tiled_conv_variant": ((I, I, I, I, I), I),
+    "cistar_conv3x3_reflect_grouped_s8_acc": ((P, P, P, P, I, I, I, I, I, P), I),
     "cistar_resblock_tiled_a": (
         (P, I, P, P, P, P, P, I, I, I, I, I, F, I, P), I),
     "cistar_resblock_tiled_b": (
@@ -50,6 +53,18 @@ def reset_launches() -> None:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     return build.bind(build.load("int8_tiled"), _SIGS)
+
+
+def conv_variant(n: int, h: int, w: int, c: int, groups: int) -> int:
+    """The conv K7b and :func:`conv3x3_reflect_grouped_s8` run at (N, H, W,
+    C) in ``groups`` input groups: the BN of the ``wgmma`` conv (128), or 0
+    for the ``mma.sync`` one (``conv_s8_kernel``)."""
+    return wgmma_conv.variant(n, h, w, c, c, 1, 3, groups, grouped=True)
+
+
+def conv_variant_card(n: int, h: int, w: int, c: int, groups: int) -> int:
+    """:func:`conv_variant` as the built library answers it."""
+    return _lib().cistar_tiled_conv_variant(n, h, w, c, groups)
 
 
 def _check_shape(n: int, h: int, w: int, c: int, ct: int) -> None:
@@ -83,9 +98,11 @@ def conv3x3_reflect_grouped_s8(xq: torch.Tensor, wk: torch.Tensor,
     lib = _lib()
     acc = torch.empty((groups, n, h, w, c), dtype=torch.int32,
                       device=xq.device)
+    xpad = torch.empty((n, h + 2, w + 2, c), dtype=torch.int8,
+                       device=xq.device)
     err = lib.cistar_conv3x3_reflect_grouped_s8_acc(
-        xq.data_ptr(), wk.data_ptr(), acc.data_ptr(), n, h, w, c, groups,
-        stream())
+        xq.data_ptr(), wk.data_ptr(), acc.data_ptr(), xpad.data_ptr(), n, h,
+        w, c, groups, stream())
     raise_on(err, "conv3x3_reflect_grouped_s8")
     launches["conv3x3_reflect_grouped_s8"] += 1
     return acc
