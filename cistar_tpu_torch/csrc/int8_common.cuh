@@ -1,11 +1,13 @@
 // Pieces shared by the port's int8 kernels (int8_resblock.cu: K1/K2,
 // int8_atrous.cu: K5/K6, int8_tiled.cu: K7, int8_msrb.cu: K8): per-image
-// absmax and quantize, the IN finalize, the IN + ReLU requantize, the IN +
-// skip output pass, the epilogue codes and ConvArgs of both convs, and the
-// cp.async + mma.sync implicit-GEMM int8 conv (conv_s8_kernel) with its
-// epilogues (IN statistics, grouped input scales, ReLU and tile maxima).
-// conv_s8_kernel still serves K5, K6 and K7a, and the K1 / K2 / K7b / K8
-// shapes outside the tile rule of the wgmma + TMA conv (wgmma_conv.cuh).
+// absmax and quantize (also straight into the reflect-padded layout that
+// the wgmma conv reads), the IN finalize, the IN + ReLU requantize, the IN
+// + skip output pass, the epilogue codes and ConvArgs of both convs, and
+// the cp.async + mma.sync implicit-GEMM int8 conv (conv_s8_kernel) with
+// its epilogues (IN statistics, grouped input scales, ReLU and tile
+// maxima). conv_s8_kernel still serves K6 (whose 64 input channels are
+// half a K stage of the wgmma + TMA conv, wgmma_conv.cuh) and the K1 / K2
+// / K5 / K7 / K8 shapes outside that conv's tile rule.
 //
 // Numerical rules, each matched to the plain PyTorch versions
 // (cistar_tpu_torch/ops/quant_int8.py):
@@ -202,6 +204,19 @@ __global__ void absmax_kernel(const T* __restrict__ x, long per_image, Sub sub,
   block_absmax_to(m, amax + n);
 }
 
+// A grid of absmax_kernel for small batches (K7a): blocks enough for 8 an
+// SM of an H100 over the batch, at least 16 an image, each with a vector
+// of every thread to read. A block keeps one load a thread in flight, so
+// (16, n) blocks leave the card mostly idle at a batch of 2-8.
+dim3 absmax_grid(long per_image, int n) {
+  const long per_block = static_cast<long>(EW_THREADS) * EW_VEC;
+  const long most = (per_image + per_block - 1) / per_block;
+  long x = (8L * 132 + n - 1) / n;
+  if (x < 16) x = 16;
+  if (x > most) x = most;
+  return dim3(static_cast<unsigned>(x), n);
+}
+
 // q = clip(rint(x * (127 / max(amax, 1e-6))), -127, 127); scale = amax / 127.
 // q is dense: (N, per_image). With ct > 0 the scales are per (image, tile
 // of ct channels): amax and scale are (N, C / ct) and sub.c is C.
@@ -229,6 +244,48 @@ __global__ void quant_kernel(const T* __restrict__ x, long per_image, Sub sub,
 #pragma unroll
   for (int i = 0; i < EW_VEC; ++i) v[i] = __fmul_rn(v[i], inv);
   store8_s8(q + n * per_image + e, v);
+}
+
+// Stores the 8 int8 values of element e of an (H, W, C) image into its
+// reflect-pad-1 copy qp (H+2, W+2, C): at (y+1, x+1), and at each border
+// position that reflects onto (y, x) (row 0 reflects row 1, row H+1 row
+// H-2; columns the same).
+__device__ __forceinline__ void store8_s8_padded(int8_t* qp, long e, int h, int w, int c,
+                                                 const float* v) {
+  const long p = e / c;
+  const int ch = static_cast<int>(e - p * c);
+  const int y = static_cast<int>(p / w), x = static_cast<int>(p - (p / w) * w);
+  uint2 r;
+  int8_t* b = reinterpret_cast<int8_t*>(&r);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) b[i] = to_s8(v[i]);
+  const int ys[3] = {y + 1, y == 1 ? 0 : -1, y == h - 2 ? h + 1 : -1};
+  const int xs[3] = {x + 1, x == 1 ? 0 : -1, x == w - 2 ? w + 1 : -1};
+#pragma unroll
+  for (int iy = 0; iy < 3; ++iy)
+#pragma unroll
+    for (int ix = 0; ix < 3; ++ix)
+      if (ys[iy] >= 0 && xs[ix] >= 0)
+        *reinterpret_cast<uint2*>(qp + (static_cast<long>(ys[iy]) * (w + 2) + xs[ix]) * c +
+                                  ch) = r;
+}
+
+// quant_kernel (one scale per image, dense x) into the padded layout (K1,
+// K7a: the block input; K5: its branch sum).
+template <typename T>
+__global__ void quant_pad_kernel(const T* __restrict__ x, long per_image,
+                                 const float* __restrict__ amax, int8_t* __restrict__ qp,
+                                 float* __restrict__ scale, int h, int w, int c) {
+  const int n = blockIdx.y;
+  const long e = (static_cast<long>(blockIdx.x) * EW_THREADS + threadIdx.x) * EW_VEC;
+  if (blockIdx.x == 0 && threadIdx.x == 0) scale[n] = __fdiv_rn(fmaxf(amax[n], 1e-6f), 127.f);
+  if (e >= per_image) return;
+  const float inv = __fdiv_rn(127.f, fmaxf(amax[n], 1e-6f));
+  float v[EW_VEC];
+  load8<T>(x + n * per_image + e, v);
+#pragma unroll
+  for (int i = 0; i < EW_VEC; ++i) v[i] = __fmul_rn(v[i], inv);
+  store8_s8_padded(qp + static_cast<long>(n) * (h + 2) * (w + 2) * c, e, h, w, c, v);
 }
 
 // What a conv launch does with its accumulators.
@@ -265,6 +322,13 @@ struct ConvArgs {
   void* out = nullptr;        // EPI_GRELU without WANT_MAX
   int groups = 1;             // input channel groups, each cin / groups wide
   int ct = 0;                 // EPI_GRELU with WANT_MAX: tile of st_max
+  // wg_conv_kernel only (EPI_STATS): branches > 1 independent convs of xq in
+  // one launch (K5's four), branch b at dilation bdil[b] (dil unused) with
+  // weight rows b*cout .. of wk, ws / bias at + b*sb_stride, f at +
+  // b*n*h*w*cout and the statistics at + b*n*cout.
+  int branches = 1;
+  int bdil[4] = {1, 1, 1, 1};
+  int sb_stride = 0;
 };
 
 // Implicit-GEMM KKxKK conv, stride 1, "same" size. xq (N,H,W,Cin) int8; wk

@@ -121,53 +121,6 @@ bool shape_ok(int n, int h, int w, int c) {
   return conv_shape_ok(n, h, w, c, c) && c % 128 == 0;
 }
 
-// The conv a shape takes: the BN of wg_conv_kernel, or 0 for
-// conv_s8_kernel.
-int conv_variant(int n, int h, int w, int c) {
-  return wg_tile_ok(n, h, w, c, c, 1) ? wg_bn(n, h, w, c) : 0;
-}
-
-// Stores the 8 int8 values of element e of an (H, W, C) image into its
-// reflect-pad-1 copy qp (H+2, W+2, C): at (y+1, x+1), and at each border
-// position that reflects onto (y, x) (row 0 reflects row 1, row H+1 row
-// H-2; columns the same).
-__device__ __forceinline__ void store8_s8_padded(int8_t* qp, long e, int h, int w, int c,
-                                                 const float* v) {
-  const long p = e / c;
-  const int ch = static_cast<int>(e - p * c);
-  const int y = static_cast<int>(p / w), x = static_cast<int>(p - (p / w) * w);
-  uint2 r;
-  int8_t* b = reinterpret_cast<int8_t*>(&r);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) b[i] = to_s8(v[i]);
-  const int ys[3] = {y + 1, y == 1 ? 0 : -1, y == h - 2 ? h + 1 : -1};
-  const int xs[3] = {x + 1, x == 1 ? 0 : -1, x == w - 2 ? w + 1 : -1};
-#pragma unroll
-  for (int iy = 0; iy < 3; ++iy)
-#pragma unroll
-    for (int ix = 0; ix < 3; ++ix)
-      if (ys[iy] >= 0 && xs[ix] >= 0)
-        *reinterpret_cast<uint2*>(qp + (static_cast<long>(ys[iy]) * (w + 2) + xs[ix]) * c +
-                                  ch) = r;
-}
-
-// quant_kernel (one scale per image) into the padded layout.
-template <typename T>
-__global__ void quant_pad_kernel(const T* __restrict__ x, long per_image,
-                                 const float* __restrict__ amax, int8_t* __restrict__ qp,
-                                 float* __restrict__ scale, int h, int w, int c) {
-  const int n = blockIdx.y;
-  const long e = (static_cast<long>(blockIdx.x) * EW_THREADS + threadIdx.x) * EW_VEC;
-  if (blockIdx.x == 0 && threadIdx.x == 0) scale[n] = __fdiv_rn(fmaxf(amax[n], 1e-6f), 127.f);
-  if (e >= per_image) return;
-  const float inv = __fdiv_rn(127.f, fmaxf(amax[n], 1e-6f));
-  float v[EW_VEC];
-  load8<T>(x + n * per_image + e, v);
-#pragma unroll
-  for (int i = 0; i < EW_VEC; ++i) v[i] = __fmul_rn(v[i], inv);
-  store8_s8_padded(qp + static_cast<long>(n) * (h + 2) * (w + 2) * c, e, h, w, c, v);
-}
-
 // in_relu_quant_kernel (one scale per image) into the padded layout.
 __global__ void in_relu_quant_pad_kernel(const float* __restrict__ f, long per_image,
                                          const float* __restrict__ mean,
@@ -191,7 +144,7 @@ __global__ void in_relu_quant_pad_kernel(const float* __restrict__ f, long per_i
 
 // Clears the statistics (sum, sum of squares: 0; max: 0xFF bytes, which
 // atomic_max_float treats as below every value), then one conv of q
-// (padded where wg: the layout of conv_variant). bn: no sums, the max only.
+// (padded where wg: the layout of wg_variant_s8). bn: no sums, the max only.
 template <bool WANT_MAX>
 cudaError_t conv_stats(const Workspace& ws, const int8_t* q, const int8_t* wk,
                        const float* xs, const float* wscale, const float* bias, int n,
@@ -241,7 +194,7 @@ int resblock_bf16io(const T* x, const int8_t* w1k, const int8_t* w2k,
   Workspace ws;
   workspace_layout(n, h, w, c, static_cast<char*>(workspace), &ws);
   const long per_image = static_cast<long>(h) * w * c;
-  const bool wg = conv_variant(n, h, w, c) != 0;
+  const bool wg = wg_variant_s8(n, h, w, c) != 0;
   cudaMemsetAsync(ws.amax, 0, n * 4, st);
   absmax_kernel<T><<<dim3(16, n), EW_THREADS, 0, st>>>(x, per_image, dense(per_image),
                                                        ws.amax);
@@ -270,7 +223,7 @@ size_t cistar_resblock_workspace_bytes(int n, int h, int w, int c) {
 // Which conv the blocks and the RAW entry run at (n, h, w, c): the BN of
 // wg_conv_kernel (128 or 256), or 0 for conv_s8_kernel.
 int cistar_resblock_conv_variant(int n, int h, int w, int c) {
-  return conv_variant(n, h, w, c);
+  return wg_variant_s8(n, h, w, c);
 }
 
 // int32 accumulators of the reflect-pad-1 3x3 conv: xq (N,H,W,C) int8,
@@ -284,7 +237,7 @@ int cistar_conv3x3_reflect_s8_acc(const void* xq, const void* wk, void* acc, voi
   const int8_t* wp = static_cast<const int8_t*>(wk);
   const ConvArgs a{x, wp, nullptr, nullptr, nullptr, static_cast<int32_t*>(acc), nullptr,
                    nullptr, nullptr, nullptr, n, h, w, c, c, 1};
-  if (conv_variant(n, h, w, c) != 0) {
+  if (wg_variant_s8(n, h, w, c) != 0) {
     int8_t* xp = static_cast<int8_t*>(xpad);
     launch_reflect_pad(x, xp, n, h, w, c, st);
     const cudaError_t e = launch_wg_conv<int8_t, EPI_RAW, false>(xp, true, wp, a, st);
@@ -328,7 +281,7 @@ int cistar_resblock_int8(const void* hq, const void* hs, const void* w1k,
   const long per_image = static_cast<long>(h) * w * c;
   const int8_t* xq = static_cast<const int8_t*>(hq);
   const float* xs = static_cast<const float*>(hs);
-  const bool wg = conv_variant(n, h, w, c) != 0;
+  const bool wg = wg_variant_s8(n, h, w, c) != 0;
   if (wg) launch_reflect_pad(xq, ws.q, n, h, w, c, st);
   const cudaError_t e = block_body(ws, wg ? ws.q : xq, xs, static_cast<const int8_t*>(w1k),
                                    static_cast<const int8_t*>(w2k),

@@ -20,13 +20,15 @@
 // Design. On the TPU a (batch, tile) grid keeps the whole image in VMEM
 // and streams one weight tile per step. Here each kernel is a short
 // sequence of launches built from int8_common.cuh and wgmma_conv.cuh:
-//   K7a: absmax_kernel, quant_kernel -> conv_s8_kernel (EPI_STATS: f, and
-//        each (image, channel)'s sum, sum of squares and max f) ->
-//        in_stats_kernel over (image, tile) rows, which gives mean, rsigma
-//        and the tile's requantization scale without a pass over f (IN
-//        then ReLU is monotone per channel, so max relu(IN f) over a tile
-//        is max_c relu((max f_c - mean_c) * rsigma_c), exactly, K1's rule
-//        per tile) -> in_relu_quant_kernel with the tile's scale.
+//   K7a: absmax_kernel, quant_pad_kernel (the int8 input written straight
+//        into the reflect-padded (N, H+2, W+2, C) layout that TMA reads) ->
+//        wg_conv_kernel (wgmma + TMA, K1's conv 1 at wg_bn's BN, 128 or
+//        256: EPI_STATS, f and each (image, channel)'s sum, sum of squares
+//        and max f) -> in_stats_kernel over (image, tile) rows, which gives
+//        mean, rsigma and the tile's requantization scale without a pass
+//        over f (IN then ReLU is monotone per channel, so max relu(IN f)
+//        over a tile is max_c relu((max f_c - mean_c) * rsigma_c), exactly,
+//        K1's rule per tile) -> in_relu_quant_kernel with the tile's scale.
 //   K7b: reflect_pad_kernel (rq into the (N, H+2, W+2, C) copy that TMA
 //        reads: TMA fills zeros, not reflections) -> wg_conv_kernel
 //        (wgmma + TMA, BN 128, EPI_GSTATS: the K loop group by group, each
@@ -34,24 +36,28 @@
 //        sum in group order, then the IN statistics) -> in_stats_kernel ->
 //        in_skip_out_kernel.
 // The numerical tile ct sets only the absmax groups and the scales; the
-// CUDA tiles (K7a: 128 couts x 64 of K per stage; K7b: 128 pixels x 128
-// couts x 128 of K) are independent of it. A K7b shape outside wg_tile_ok
-// (a tile of 64 channels, say) takes conv_s8_kernel on rq itself: a choice
-// by shape, reported by cistar_tiled_conv_variant.
+// CUDA tiles (K7a: 128 pixels x 128 or 256 couts x 128 of K per stage;
+// K7b: 128 pixels x 128 couts x 128 of K) are independent of it. A shape
+// outside wg_tile_ok (W = 48, say, or for K7b a tile of 64 channels) takes
+// conv_s8_kernel on the unpadded int8 input: a choice by shape, reported
+// by cistar_tiled_a_conv_variant (K7a) and cistar_tiled_conv_variant
+// (K7b).
 //
 // What bounds it. At (16, 32, 32, 1024) each kernel does one conv: 16 x
 // 1024 px x 9 x 1024 x 1024 MACs = 3.09e11 int8 operations, 0.156 ms at
 // 1,979 dense int8 TOPS, against 34 MB of bf16 carrier, 17 MB of int8 and
-// 9.4 MB of weights (under 0.03 ms at 3.35 TB/s): operation-bound. K7a
-// still runs the mma.sync conv, and both send fp32 f through device
-// memory; K7a on wgmma and keeping f on chip are work for a later change.
+// 9.4 MB of weights (under 0.03 ms at 3.35 TB/s): operation-bound. Both
+// send fp32 f through device memory: K7a's passes move ~240 MB at that
+// shape (~0.07 ms), most of it f written and read back. Keeping f on chip
+// is work for a later change.
 //
 // Numerics: the rules of int8_common.cuh. The IN statistics are summed
 // with atomics in a changing order, so a requantized LSB of K7a can flip
 // against the plain version, and K7b's output moves by its effect. The
 // int32 accumulators of every group of conv 2
-// (cistar_conv3x3_reflect_grouped_s8_acc, on K7b's route) are compared bit
-// for bit.
+// (cistar_conv3x3_reflect_grouped_s8_acc, on K7b's route) and of conv 1
+// (cistar_conv3x3_reflect_s8_acc of int8_resblock.cu, the same template at
+// the same BN) are compared bit for bit.
 //
 // The bn form (bn = 1; the TPU kernels' bn=True, the 512-channel trunk of
 // pix2pixHD's MultiscaleGlobalGenerator at 64x64, ct 128): the inference
@@ -72,8 +78,9 @@
 namespace {
 
 struct TiledWs {
-  int8_t* q;       // N*(H+2)*(W+2)*C int8: the quantized block input (K7a),
-                   // or K7b's reflect-padded rq
+  int8_t* q;       // N*(H+2)*(W+2)*C int8: the quantized block input (K7a;
+                   // reflect-padded on the wgmma route), or K7b's
+                   // reflect-padded rq
   float* f;        // M*C fp32: conv output
   float* st_sum;   // N*C, followed by
   float* st_sq;    // N*C and
@@ -134,18 +141,28 @@ int tiled_a(const T* x, const int8_t* w1k, const float* sb, int8_t* rq, float* r
   tiled_layout(n, h, w, c, static_cast<char*>(workspace), &ws);
   const long per_image = static_cast<long>(h) * w * c;
   const size_t nc = static_cast<size_t>(n) * c;
+  const bool wg = wg_variant_s8(n, h, w, c) != 0;
   cudaMemsetAsync(ws.amax, 0, n * 4, st);
-  absmax_kernel<T><<<dim3(16, n), EW_THREADS, 0, st>>>(x, per_image, dense(per_image),
-                                                       ws.amax);
-  quant_kernel<T><<<ew_grid(per_image, n), EW_THREADS, 0, st>>>(
-      x, per_image, dense(per_image), ws.amax, ws.q, ws.xscale);
+  absmax_kernel<T><<<absmax_grid(per_image, n), EW_THREADS, 0, st>>>(
+      x, per_image, dense(per_image), ws.amax);
+  if (wg)
+    quant_pad_kernel<T><<<ew_grid(per_image, n), EW_THREADS, 0, st>>>(
+        x, per_image, ws.amax, ws.q, ws.xscale, h, w, c);
+  else
+    quant_kernel<T><<<ew_grid(per_image, n), EW_THREADS, 0, st>>>(
+        x, per_image, dense(per_image), ws.amax, ws.q, ws.xscale);
+  // max: 0xFF bytes, which atomic_max_float treats as below every value
   if (!bn) cudaMemsetAsync(ws.st_sum, 0, 2 * nc * 4, st);
   cudaMemsetAsync(ws.st_max, 0xFF, nc * 4, st);
-  launch_conv_wide<EPI_STATS, true, true>(
-      ConvArgs{ws.q, w1k, ws.xscale, sb, sb + c, nullptr, ws.f,
-               bn ? nullptr : ws.st_sum, bn ? nullptr : ws.st_sq, ws.st_max, n, h, w,
-               c, c, 1},
-      st);
+  const ConvArgs a{ws.q, w1k, ws.xscale, sb, sb + c, nullptr, ws.f,
+                   bn ? nullptr : ws.st_sum, bn ? nullptr : ws.st_sq, ws.st_max, n, h, w,
+                   c, c, 1};
+  if (wg) {
+    const cudaError_t e = launch_wg_conv<int8_t, EPI_STATS, true>(ws.q, true, w1k, a, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else {
+    launch_conv_wide<EPI_STATS, true, true>(a, st);
+  }
   // one row of statistics per (image, tile): C = ct
   in_stats_kernel<true><<<n * (c / ct), EW_THREADS, 0, st>>>(
       ws.st_sum, ws.st_sq, ws.st_max, ct, static_cast<float>(h * w), eps, ws.mean,
@@ -186,6 +203,12 @@ extern "C" {
 
 size_t cistar_tiled_workspace_bytes(int n, int h, int w, int c) {
   return tiled_layout(n, h, w, c, nullptr, nullptr);
+}
+
+// Which conv K7a runs at (n, h, w, c): the BN of wg_conv_kernel (128 or
+// 256), or 0 for conv_s8_kernel.
+int cistar_tiled_a_conv_variant(int n, int h, int w, int c) {
+  return wg_variant_s8(n, h, w, c);
 }
 
 // Which conv K7b and cistar_conv3x3_reflect_grouped_s8_acc run at (n, h, w,

@@ -1,17 +1,23 @@
-// The "same" KKxKK conv (KK 3 or 5) of the port's int8 and bf16 kernels on
-// Hopper's wgmma + TMA (sm_90a), templated on the operand type: int8 x int8
-// -> int32 (K1 and K2, csrc/int8_resblock.cu: both convs of every block,
-// the bn=True form and cistar_conv3x3_reflect_s8_acc; K7b and its bn form,
-// csrc/int8_tiled.cu: the grouped conv 2 and
-// cistar_conv3x3_reflect_grouped_s8_acc; K8, csrc/int8_msrb.cu: both
-// branches, 3x3 and 5x5, and cistar_conv_zero_grouped_s8_acc) and bf16 x
-// bf16 -> fp32 (K3, csrc/conv3x3_in_act.cu).
+// The "same" KKxKK conv (KK 3 or 5, any dilation with zero padding) of the
+// port's int8 and bf16 kernels on Hopper's wgmma + TMA (sm_90a), templated
+// on the operand type: int8 x int8 -> int32 (K1 and K2,
+// csrc/int8_resblock.cu: both convs of every block, the bn=True form and
+// cistar_conv3x3_reflect_s8_acc; K7a, K7b and their bn forms,
+// csrc/int8_tiled.cu: conv 1, the grouped conv 2 and
+// cistar_conv3x3_reflect_grouped_s8_acc; K5, csrc/int8_atrous.cu: the
+// four dilated branch convs in one launch, the reflect conv and
+// cistar_conv3x3_zero_s8_acc; K8, csrc/int8_msrb.cu: both branches, 3x3
+// and 5x5, and cistar_conv_zero_grouped_s8_acc) and bf16 x bf16 -> fp32
+// (K3, csrc/conv3x3_in_act.cu).
 //
 // Serves the TPU kernels' convs
 //   cistar_tpu/ops/quant_pallas.py::_conv9_int8 (:114-134), the conv of
 //     _resblock_int8_bf16io_kernel (K1) and _resblock_int8_kernel (K2)
+//   quant_pallas.py::_resblock_a_kernel (:455-470, K7a)
 //   quant_pallas.py::_resblock_b_kernel (:471-490, K7b) and
 //     _msrb_branch_kernel (:720-750, K8), whose K loops run group by group
+//   quant_pallas.py::_atrous_resblock_int8_kernel (:930-970, K5): four
+//     dilated zero-pad convs and one reflect conv
 //   cistar_tpu/ops/pallas_kernels.py::fused_conv3x3_in_act's body
 //     (:181-200, K3)
 // each a padded halo in VMEM and KK*KK shifted (H*W, Cin) x (Cin, Cout)
@@ -26,25 +32,39 @@
 //
 // Design (what it does about that):
 //   * Tap (dy, dx) of an M tile that covers image rows y0 .. y0+R-1 is one
-//     4-D TMA box at (c0, x0 + dx + pad_off, y0 + dy + pad_off, n), box
-//     (128 bytes of C, min(W, 128), R = 128 / min(W, 128), 1): the TPU
-//     kernel's KK*KK shifted windows, fetched by the copy engine with no
-//     address arithmetic in the SM. TMA fills zeros, not reflections,
-//     outside the tensor, so reflect padding reads a reflect-padded (N,
-//     H+2, W+2, C) copy at pad_off 0 (written by K1's quantize passes
-//     directly, by reflect_pad_kernel for K2's input, K7b's rq, the RAW
-//     entries and K3). Zero padding needs no copy: the box starts at
-//     pad_off -KK/2 on the unpadded tensor and TMA zero-fills what lies
-//     outside (K3, K8; a 5x5 box may lie wholly outside).
+//     4-D TMA box at (c0, x0 + dx*r + pad_off, y0 + dy*r + pad_off, n), box
+//     (128 bytes of C, min(W, 128), R = 128 / min(W, 128), 1), r the
+//     dilation (ConvArgs::dil): the TPU kernel's KK*KK shifted windows,
+//     fetched by the copy engine with no address arithmetic in the SM. TMA
+//     fills zeros, not reflections, outside the tensor, so reflect padding
+//     reads a reflect-padded (N, H+2, W+2, C) copy at pad_off 0 and r 1
+//     (written by K1's and K7a's quantize passes directly, K5's requantize
+//     of its branch sum too, by reflect_pad_kernel for K2's input, K7b's
+//     rq, the RAW entries and K3). Zero padding needs no copy: the box
+//     starts at pad_off -(KK/2)*r on the unpadded tensor and TMA
+//     zero-fills what lies outside (K3, K8, K5's branches at r 2/4/6/8; a
+//     box may lie wholly outside, and still completes its bytes).
+//   * K5's four branch convs (one input, four weights, four dilations) run
+//     as one launch (ConvArgs::branches): the tile's column block picks
+//     the branch, its dilation (bdil), its rows of the (4*Cout, 9*Cin)
+//     weight matrix, its f slab, statistics and scale / bias rows.
+//   * Persistent blocks (PERSIST, K5): with a K loop of 9 stages the ring's
+//     fill and the epilogue weigh as much as the products, so one block
+//     per SM walks the output tiles and the producer loads the next tile
+//     while the consumers run this one's epilogue; the ring is one or two
+//     stages shorter and the epilogue's partial sums get their own shared
+//     memory. Measured on an H100 at K5's shapes: the four branch convs
+//     ~15% faster than one block a tile; K7a's long K loops gain nothing,
+//     and keep one block a tile.
 //   * The weights (Cout, KK*KK*Cin), K-contiguous, are a 2-D box of (128
 //     bytes of K, BN rows). Both operands are K-major with 128-byte
 //     swizzle, the layout wgmma reads (and the only one it takes for 8-bit
 //     types).
-//   * A ring of STAGES tiles in shared memory (4 at BN 256, 6 at BN 128;
-//     192 KB), each an A tile of 128 pixels and a B tile of BN channels x
-//     128 bytes of K, filled by one producer thread through an mbarrier per
-//     stage ("full") and released by the consumers through another
-//     ("empty").
+//   * A ring of STAGES tiles in shared memory (4 at BN 256, 6 at BN 128,
+//     192 KB; PERSIST 3 / 5), each an A tile of 128 pixels and a B tile of
+//     BN channels x 128 bytes of K, filled by one producer thread through
+//     an mbarrier per stage ("full") and released by the consumers through
+//     another ("empty").
 //   * Two consumer warpgroups, 64 rows each, run wgmma.mma_async
 //     m64nBNk32 (s8) / k16 (bf16) on the arrived tiles: 4 per stage, one
 //     group kept in flight, so a stage is released while the next one's
@@ -77,13 +97,15 @@
 // The tile rule (wg_tile_ok): W divides 128 or 128 divides W (a tile is
 // whole image rows, or 128 pixels of one row), H*W % 128 == 0 (a tile lies
 // in one image), KK 3 or 5, 128 bytes divide Cin / groups (a K stage lies
-// in one tap of one group) and Cout % 128 == 0. Every K1 shape on the
-// ported paths (ResNet-9 and multiscale 256² at (B, 32, 32, 512), the JAX
-// budget configuration's (B, 16, 16, 128)), K3's (B, 32, 32, 512), K7b's
-// (B, 32, 32, 1024) in 256-channel groups and (B, 64, 64, 512) in 128, and
-// K8's (B, 64, 64, 512 | 1024) in 1 or 8 groups meet it; other shapes keep
-// conv_s8_kernel (K1, K2, K7b, K8) or conv_ffma_kernel (K3), chosen by
-// shape.
+// in one tap of one group) and Cout % 128 == 0; the dilation does not
+// enter it. Every K1 shape on the ported paths (ResNet-9 and multiscale
+// 256² at (B, 32, 32, 512), the JAX budget configuration's (B, 16, 16,
+// 128)), K3's (B, 32, 32, 512), K7a's and K7b's (B, 32, 32, 1024) and (B,
+// 64, 64, 512) (K7b in 256- or 128-channel groups), K5's (B, 64, 64, 128)
+// and K8's (B, 64, 64, 512 | 1024) in 1 or 8 groups meet it; other shapes
+// keep conv_s8_kernel (K1, K2, K5, K7, K8; K6, whose 64 input channels
+// are half a K stage, at every path shape) or conv_ffma_kernel (K3),
+// chosen by shape.
 //
 // The TMA descriptors hold the tensors' pointers, so they are encoded on
 // the host for each launch (cuTensorMapEncodeTiled, reached through
@@ -316,20 +338,68 @@ __device__ __forceinline__ void wg_mma(float* d, uint64_t da, uint64_t db) {
   else wgmma_bf16_n128(d, da, db);
 }
 
-template <int BN>
-__host__ __device__ constexpr int wg_stages() { return BN == 256 ? 4 : 6; }
-
-template <int BN>
-__host__ __device__ constexpr int wg_smem_bytes() {
-  // the ring, 1 KB of slack to align it to 1024, the barriers
-  return wg_stages<BN>() * (WG_BM + BN) * WG_KBYTES + 1024 + 2 * wg_stages<BN>() * 8;
+// Ring stages. A persistent block keeps its epilogue's partial sums out of
+// the ring (the producer refills it meanwhile), so it takes one stage
+// fewer (BN 128) or two (BN 256): shared memory stays under the 196 KB
+// carveout, above which the SM keeps 28 KB of L1 instead of 60: a 9-stage
+// K loop (K5's convs) ran ~10% slower there on an H100.
+template <int BN, bool PERSIST>
+__host__ __device__ constexpr int wg_stages() {
+  return PERSIST ? (BN == 256 ? 3 : 5) : (BN == 256 ? 4 : 6);
 }
 
-// One block: 128 output pixels x BN output channels. Thread layout:
-// warpgroup 0 the producer (thread 0 issues every TMA load), warpgroups 1
-// and 2 the consumers of rows 0-63 and 64-127. The input map `tx` is
-// (C, W', H', N) over the padded tensor (pad_off 0) or the unpadded one
-// (pad_off -KK/2, zero padding by TMA's fill); `tw` is (KK*KK*Cin, Cout).
+template <int BN, bool PERSIST>
+__host__ __device__ constexpr int wg_smem_bytes() {
+  // the ring, 1 KB of slack to align it to 1024, the barriers; PERSIST:
+  // the epilogue's partial sums (8 warps x 3 x BN fp32), else they reuse
+  // the drained ring
+  return wg_stages<BN, PERSIST>() * (WG_BM + BN) * WG_KBYTES + 1024 +
+         2 * wg_stages<BN, PERSIST>() * 8 + (PERSIST ? 8 * 3 * BN * 4 : 0);
+}
+
+// Where output tile `tile` lies: tiles run M tile fastest, then the BN
+// columns of (branches x Cout).
+struct WgTile {
+  long m0;           // first output pixel
+  int img, y0, x0;   // its image and position: the tile is whole rows or
+                     // 128 pixels of one row
+  int wrow;          // first row of the (branches*Cout, K) weights
+  int br, n0;        // its branch (K5's four, else 0) and first channel there
+  int dil, pad_off;  // the branch's dilation and the box offset of tap (0, 0)
+};
+
+__device__ __forceinline__ WgTile wg_tile(const ConvArgs& a, int tile, int mtiles, int bn,
+                                          int kk, int padded) {
+  WgTile c;
+  const int nt = tile / mtiles, HW = a.h * a.w;
+  c.m0 = static_cast<long>(tile - nt * mtiles) * WG_BM;
+  c.img = static_cast<int>(c.m0 / HW);
+  const int rem = static_cast<int>(c.m0 - static_cast<long>(c.img) * HW);
+  c.y0 = rem / a.w;
+  c.x0 = rem - c.y0 * a.w;
+  c.wrow = nt * bn;
+  c.br = c.wrow / a.cout;
+  c.n0 = c.wrow - c.br * a.cout;
+  const int b = c.br;
+  c.dil = a.branches == 1 ? a.dil
+          : b == 0        ? a.bdil[0]
+          : b == 1        ? a.bdil[1]
+          : b == 2        ? a.bdil[2]
+                          : a.bdil[3];
+  c.pad_off = padded ? 0 : -(kk / 2) * c.dil;
+  return c;
+}
+
+// One block computes output tiles of 128 pixels x BN channels: tile
+// blockIdx.x, then every gridDim.x-th after it. Without PERSIST the grid
+// has one block per tile; with it one block per SM, and the producer
+// fills the ring with the next tile's stages while the consumers run this
+// tile's epilogue. Thread layout: warpgroup 0 the
+// producer (thread 0 starts every TMA load), warpgroups 1 and 2 the
+// consumers of rows 0-63 and 64-127. The input map `tx` is
+// (C, W', H', N) over the padded tensor (padded: box offset 0) or the
+// unpadded one (offset -(KK/2)*dil, zero padding by TMA's fill); `tw` is
+// (KK*KK*Cin, branches*Cout).
 // The K loop runs group by group (Cin = a.groups x cg channels) and, inside
 // a group, tap by tap: K stage kt is group kt / SPG, tap (kt % SPG) / CPG,
 // channels grp*cg + (kt % CPG)*KE .. +KE, conv_s8_kernel's order. At the
@@ -337,14 +407,15 @@ __host__ __device__ constexpr int wg_smem_bytes() {
 // acc_out (groups, M, Cout), EPI_GSTATS / EPI_GRELU add float(acc) * gs[img,
 // grp] to an fp32 sum in group order; the accumulators restart from 0.
 // Epilogue fields of `a` as conv_s8_kernel's.
-template <typename T, int BN, int EPI, bool WANT_MAX, int KK = 3, typename TO = float>
+template <typename T, int BN, int EPI, bool WANT_MAX, int KK = 3, typename TO = float,
+          bool PERSIST = false>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     wg_conv_kernel(const __grid_constant__ CUtensorMap tx,
                    const __grid_constant__ CUtensorMap tw, const ConvArgs a,
-                   int pad_off) {
+                   int padded) {
   using Acc = typename WgOperand<T>::Acc;
   constexpr bool GROUPED = EPI == EPI_GSTATS || EPI == EPI_GRELU;
-  constexpr int STAGES = wg_stages<BN>();
+  constexpr int STAGES = wg_stages<BN, PERSIST>();
   constexpr int A_BYTES = WG_BM * WG_KBYTES, B_BYTES = BN * WG_KBYTES;
   constexpr int KE = WG_KBYTES / static_cast<int>(sizeof(T));  // K elements a stage
   constexpr int NA = BN / 2;  // accumulators a thread
@@ -355,13 +426,14 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   uint8_t* sb = smem + STAGES * A_BYTES;
   uint64_t* full = reinterpret_cast<uint64_t*>(sb + STAGES * B_BYTES);
   uint64_t* empty = full + STAGES;
+  // the epilogue's partial sums red[8 warps][3][BN]: after the barriers,
+  // or (one tile a block) in the drained ring
+  float* red = reinterpret_cast<float*>(PERSIST ? reinterpret_cast<uint8_t*>(empty + STAGES)
+                                                : smem);
 
   const int W = a.w, HW = a.h * a.w, Cout = a.cout;
-  const long m0 = static_cast<long>(blockIdx.x) * WG_BM;
-  const int img = static_cast<int>(m0 / HW);
-  const int rem = static_cast<int>(m0 - static_cast<long>(img) * HW);
-  const int y0 = rem / W, x0 = rem - (rem / W) * W;
-  const int n0 = blockIdx.y * BN;
+  const int mtiles = static_cast<int>(static_cast<long>(a.n) * HW / WG_BM);
+  const int tiles = mtiles * (a.branches * Cout / BN);
   const int cg = a.cin / a.groups;  // channels of one input group
   const int CPG = cg / KE;          // K stages per tap of one group
   const int SPG = KK * KK * CPG;    // K stages per group
@@ -377,18 +449,24 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
   __syncthreads();
 
+  // Stage use u (over all tiles of this block) is ring slot u % STAGES in
+  // its phase u / STAGES.
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (t == 0) {
-      for (int kt = 0; kt < KT; ++kt) {
-        const int s = kt % STAGES;
-        if (kt >= STAGES) mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
-        mbar_expect_tx(&full[s], A_BYTES + B_BYTES);
-        const int grp = kt / SPG, r = kt - grp * SPG, tap = r / CPG;
-        const int c0 = grp * cg + (r - tap * CPG) * KE;
-        tma_load_4d(sa + s * A_BYTES, &tx, &full[s], c0, x0 + tap % KK + pad_off,
-                    y0 + tap / KK + pad_off, img);
-        tma_load_2d(sb + s * B_BYTES, &tw, &full[s], tap * a.cin + c0, n0);
+      for (int tile = blockIdx.x, u = 0; tile < tiles; tile += gridDim.x) {
+        const WgTile tc = wg_tile(a, tile, mtiles, BN, KK, padded);
+        for (int kt = 0; kt < KT; ++kt, ++u) {
+          const int s = u % STAGES;
+          if (u >= STAGES) mbar_wait(&empty[s], ((u / STAGES) - 1) & 1);
+          mbar_expect_tx(&full[s], A_BYTES + B_BYTES);
+          const int grp = kt / SPG, r = kt - grp * SPG, tap = r / CPG;
+          const int c0 = grp * cg + (r - tap * CPG) * KE;
+          tma_load_4d(sa + s * A_BYTES, &tx, &full[s], c0,
+                      tc.x0 + (tap % KK) * tc.dil + tc.pad_off,
+                      tc.y0 + (tap / KK) * tc.dil + tc.pad_off, tc.img);
+          tma_load_2d(sb + s * B_BYTES, &tw, &full[s], tap * a.cin + c0, tc.wrow);
+        }
       }
     }
     return;
@@ -399,148 +477,161 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   // Accumulator i of thread t: n8 block j = i / 4, row 16 * (t / 32) +
   // (t % 32) / 4 + 8 * ((i / 2) % 2), column 8 * j + 2 * (t % 4) + i % 2.
   const int wi = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
-  const long row0 = m0 + cw * 64 + wi * 16 + g;  // and row0 + 8
-  Acc acc[NA];
-  float fv[GROUPED ? NA : 1];  // the fp32 group sum
-#pragma unroll
-  for (int i = 0; i < NA; ++i) acc[i] = 0;
-  if constexpr (GROUPED) {
-#pragma unroll
-    for (int i = 0; i < NA; ++i) fv[i] = 0.f;
-  }
-  for (int kt = 0, grp = 0, gk = 0; kt < KT; ++kt) {
-    const int s = kt % STAGES;
-    mbar_wait(&full[s], (kt / STAGES) & 1);
-    const uint64_t da = sw128_desc(sa + s * A_BYTES + cw * 64 * WG_KBYTES);
-    const uint64_t db = sw128_desc(sb + s * B_BYTES);
-    wgmma_fence();
-#pragma unroll
-    for (int k = 0; k < WG_KBYTES / 32; ++k) wg_mma<BN>(acc, da + 2 * k, db + 2 * k);
-    wgmma_commit();
-    // keep this stage's group in flight; the previous one is done: release
-    // it. Each stage is released here exactly once, by the next iteration
-    // (the last one never: the producer needs it no more).
-    wgmma_wait<1>();
-    if (kt > 0 && t == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
-    if (++gk < SPG) continue;
-    // The last K stage of group grp: wait for its products, then flush.
-    gk = 0;
-    wgmma_wait<0>();
-#pragma unroll
-    for (int i = 0; i < NA; ++i) reg_fence(acc[i]);
-    if constexpr (EPI == EPI_RAW) {
-      int32_t* out = a.acc_out + static_cast<long>(grp) * a.n * a.h * W * Cout;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<int2*>(out + (row0 + 8 * h) * Cout + n0 + 8 * j + 2 * q) =
-              make_int2(static_cast<int>(acc[4 * j + 2 * h]),
-                        static_cast<int>(acc[4 * j + 2 * h + 1]));
-    } else if constexpr (GROUPED) {
-      const float gsc = a.gs[img * a.groups + grp];
-#pragma unroll
-      for (int i = 0; i < NA; ++i)
-        fv[i] = __fadd_rn(fv[i], __fmul_rn(static_cast<float>(acc[i]), gsc));
-    }
-    if constexpr (EPI == EPI_RAW || GROUPED) {
-#pragma unroll
-      for (int i = 0; i < NA; ++i) acc[i] = 0;
-    }
-    ++grp;
-  }
-  if constexpr (EPI == EPI_RAW) return;
-
+  const int cwarp = cw * 4 + wi;
   const bool sums = a.st_sum != nullptr;
   // EPI_GRELU without WANT_MAX writes TO and reduces nothing (st_sum null)
   const bool reduce = sums || WANT_MAX;
-  // Both consumer warpgroups are done with the ring before it holds the
-  // partial sums: red[8 warps][3][BN].
-  float* red = reinterpret_cast<float*>(smem);
-  if (reduce) asm volatile("bar.sync 1, 256;\n" ::: "memory");
-  const int cwarp = cw * 4 + wi;
-  const float xsc = EPI == EPI_STATS && sizeof(T) == 1 ? a.xs[img] : 0.f;
+  Acc acc[NA];
+  float fv[GROUPED ? NA : 1];  // the fp32 group sum
+  for (int tile = blockIdx.x, u = 0; tile < tiles; tile += gridDim.x) {
+    const WgTile tc = wg_tile(a, tile, mtiles, BN, KK, padded);
+    const int img = tc.img, n0 = tc.n0;
+    const long row0 = tc.m0 + cw * 64 + wi * 16 + g;  // and row0 + 8
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int col = n0 + 8 * j + 2 * q;
-    float v[2][2], s[2], sq[2], mx[2];
+    for (int i = 0; i < NA; ++i) acc[i] = 0;
+    if constexpr (GROUPED) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float b = a.bias[col + e];
-      // the grouped sum already holds the input scales
-      const float scale = GROUPED ? a.ws[col + e]
-                                  : (sizeof(T) == 1 ? __fmul_rn(xsc, a.ws[col + e]) : 0.f);
-      s[e] = 0.f;
-      sq[e] = 0.f;
-      mx[e] = -INFINITY;
+      for (int i = 0; i < NA; ++i) fv[i] = 0.f;
+    }
+    for (int kt = 0, grp = 0, gk = 0; kt < KT; ++kt, ++u) {
+      const int s = u % STAGES;
+      mbar_wait(&full[s], (u / STAGES) & 1);
+      const uint64_t da = sw128_desc(sa + s * A_BYTES + cw * 64 * WG_KBYTES);
+      const uint64_t db = sw128_desc(sb + s * B_BYTES);
+      wgmma_fence();
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = 4 * j + 2 * h + e;
-        float x;
-        if constexpr (GROUPED)
-          x = __fadd_rn(__fmul_rn(fv[i], scale), b);
-        else
-          x = sizeof(T) == 1 ? __fadd_rn(__fmul_rn(static_cast<float>(acc[i]), scale), b)
-                             : __fadd_rn(static_cast<float>(acc[i]), b);
-        if (EPI == EPI_GRELU) x = fmaxf(x, 0.f);
-        v[h][e] = x;
-        s[e] = __fadd_rn(s[e], x);
-        sq[e] = __fadd_rn(sq[e], __fmul_rn(x, x));
-        mx[e] = fmaxf(mx[e], x);
+      for (int k = 0; k < WG_KBYTES / 32; ++k) wg_mma<BN>(acc, da + 2 * k, db + 2 * k);
+      wgmma_commit();
+      // keep this stage's group in flight; the previous one is done: release
+      // it. Each stage use is released exactly once: here, by the next
+      // iteration, or (the tile's last) after the K loop.
+      wgmma_wait<1>();
+      if (kt > 0 && t == 0) mbar_arrive(&empty[(u - 1) % STAGES]);
+      if (++gk < SPG) continue;
+      // The last K stage of group grp: wait for its products, then flush.
+      gk = 0;
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < NA; ++i) reg_fence(acc[i]);
+      if constexpr (EPI == EPI_RAW) {
+        int32_t* out = a.acc_out + static_cast<long>(grp) * a.n * a.h * W * Cout;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<int2*>(out + (row0 + 8 * h) * Cout + n0 + 8 * j + 2 * q) =
+                make_int2(static_cast<int>(acc[4 * j + 2 * h]),
+                          static_cast<int>(acc[4 * j + 2 * h + 1]));
+      } else if constexpr (GROUPED) {
+        const float gsc = a.gs[img * a.groups + grp];
+#pragma unroll
+        for (int i = 0; i < NA; ++i)
+          fv[i] = __fadd_rn(fv[i], __fmul_rn(static_cast<float>(acc[i]), gsc));
       }
-    }
+      if constexpr (EPI == EPI_RAW || GROUPED) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (EPI == EPI_GRELU && !WANT_MAX)
-        store2(static_cast<TO*>(a.out) + (row0 + 8 * h) * Cout + col, v[h][0], v[h][1]);
-      else
-        store2(a.f + (row0 + 8 * h) * Cout + col, v[h][0], v[h][1]);
+        for (int i = 0; i < NA; ++i) acc[i] = 0;
+      }
+      ++grp;
     }
-    if (reduce) {
+    // the tile's last stage use: its products are done (wgmma_wait<0> of the
+    // last group), so the producer may refill it for the next tile
+    if (t == 0) mbar_arrive(&empty[(u - 1) % STAGES]);
+    if constexpr (EPI == EPI_RAW) continue;
+
+    // the branch's f, statistics and scale / bias rows (all at offset 0 for
+    // one conv)
+    const long bs = static_cast<long>(tc.br) * a.n * Cout;
+    float* const fo = a.f + bs * HW;
+    const float* const wsc = a.ws + static_cast<long>(tc.br) * a.sb_stride;
+    const float* const bia = a.bias + static_cast<long>(tc.br) * a.sb_stride;
+    // Both consumer warpgroups are done with the ring (one tile a block) or
+    // with the previous tile's partial sums (PERSIST) before this tile
+    // writes them.
+    if (reduce) asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    const float xsc = EPI == EPI_STATS && sizeof(T) == 1 ? a.xs[img] : 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * q;
+      float v[2][2], s[2], sq[2], mx[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
+        const float b = bia[col + e];
+        // the grouped sum already holds the input scales
+        const float scale = GROUPED ? wsc[col + e]
+                                    : (sizeof(T) == 1 ? __fmul_rn(xsc, wsc[col + e]) : 0.f);
+        s[e] = 0.f;
+        sq[e] = 0.f;
+        mx[e] = -INFINITY;
 #pragma unroll
-        for (int o = 4; o < 32; o <<= 1) {
-          if (EPI != EPI_GRELU) {
-            s[e] = __fadd_rn(s[e], __shfl_xor_sync(0xffffffffu, s[e], o));
-            sq[e] = __fadd_rn(sq[e], __shfl_xor_sync(0xffffffffu, sq[e], o));
-          }
-          mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], o));
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h + e;
+          float x;
+          if constexpr (GROUPED)
+            x = __fadd_rn(__fmul_rn(fv[i], scale), b);
+          else
+            x = sizeof(T) == 1 ? __fadd_rn(__fmul_rn(static_cast<float>(acc[i]), scale), b)
+                               : __fadd_rn(static_cast<float>(acc[i]), b);
+          if (EPI == EPI_GRELU) x = fmaxf(x, 0.f);
+          v[h][e] = x;
+          s[e] = __fadd_rn(s[e], x);
+          sq[e] = __fadd_rn(sq[e], __fmul_rn(x, x));
+          mx[e] = fmaxf(mx[e], x);
         }
-        if (g == 0) {
-          const int c = 8 * j + 2 * q + e;
-          red[(cwarp * 3 + 0) * BN + c] = s[e];
-          red[(cwarp * 3 + 1) * BN + c] = sq[e];
-          red[(cwarp * 3 + 2) * BN + c] = mx[e];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (EPI == EPI_GRELU && !WANT_MAX)
+          store2(static_cast<TO*>(a.out) + (row0 + 8 * h) * Cout + col, v[h][0], v[h][1]);
+        else
+          store2(fo + (row0 + 8 * h) * Cout + col, v[h][0], v[h][1]);
+      }
+      if (reduce) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) {
+            if (EPI != EPI_GRELU) {
+              s[e] = __fadd_rn(s[e], __shfl_xor_sync(0xffffffffu, s[e], o));
+              sq[e] = __fadd_rn(sq[e], __shfl_xor_sync(0xffffffffu, sq[e], o));
+            }
+            mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], o));
+          }
+          if (g == 0) {
+            const int c = 8 * j + 2 * q + e;
+            red[(cwarp * 3 + 0) * BN + c] = s[e];
+            red[(cwarp * 3 + 1) * BN + c] = sq[e];
+            red[(cwarp * 3 + 2) * BN + c] = mx[e];
+          }
         }
       }
     }
-  }
-  if (!reduce) return;
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");
-  const int c = threadIdx.x - 128;
-  if (c < BN) {
-    float s = 0.f, sq = 0.f, m = -INFINITY;
+    if (!reduce) continue;
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    const int c = threadIdx.x - 128;
+    if (c < BN) {
+      float s = 0.f, sq = 0.f, m = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      s = __fadd_rn(s, red[(w * 3 + 0) * BN + c]);
-      sq = __fadd_rn(sq, red[(w * 3 + 1) * BN + c]);
-      m = fmaxf(m, red[(w * 3 + 2) * BN + c]);
+      for (int w = 0; w < 8; ++w) {
+        s = __fadd_rn(s, red[(w * 3 + 0) * BN + c]);
+        sq = __fadd_rn(sq, red[(w * 3 + 1) * BN + c]);
+        m = fmaxf(m, red[(w * 3 + 2) * BN + c]);
+      }
+      if (EPI == EPI_GRELU) {
+        // the max of each (image, tile of a.ct channels); m >= 0 after the
+        // ReLU, so its bits order like ints
+        atomicMax(reinterpret_cast<int*>(a.st_max + static_cast<long>(img) * (Cout / a.ct) +
+                                         (n0 + c) / a.ct),
+                  __float_as_int(m));
+      } else {
+        const long o = bs + static_cast<long>(img) * Cout + n0 + c;
+        if (sums) {
+          atomicAdd(a.st_sum + o, s);
+          atomicAdd(a.st_sq + o, sq);
+        }
+        if (WANT_MAX) atomic_max_float(a.st_max + o, m);
+      }
     }
-    if (EPI == EPI_GRELU) {
-      // the max of each (image, tile of a.ct channels); m >= 0 after the
-      // ReLU, so its bits order like ints
-      atomicMax(reinterpret_cast<int*>(a.st_max + static_cast<long>(img) * (Cout / a.ct) +
-                                       (n0 + c) / a.ct),
-                __float_as_int(m));
-      return;
-    }
-    const long o = static_cast<long>(img) * Cout + n0 + c;
-    if (sums) {
-      atomicAdd(a.st_sum + o, s);
-      atomicAdd(a.st_sq + o, sq);
-    }
-    if (WANT_MAX) atomic_max_float(a.st_max + o, m);
   }
 }
 
@@ -589,6 +680,12 @@ int wg_bn(int n, int h, int w, int cout) {
   return cout % 256 == 0 && tiles * (cout / 256) >= 2L * WG_SMS ? 256 : 128;
 }
 
+// The conv an ungrouped C -> C int8 3x3 (K1, K2, K7a and K1's RAW entry)
+// takes: the BN of wg_bn, or 0 for conv_s8_kernel.
+int wg_variant_s8(int n, int h, int w, int c) {
+  return wg_tile_ok(n, h, w, c, c, 1) ? wg_bn(n, h, w, c) : 0;
+}
+
 // The BN of the grouped convs (K7b, K8 and their RAW entries): a consumer
 // thread holds 64 int32 accumulators and 64 fp32 group sums at BN 128; BN
 // 256 would need 256 registers for them alone.
@@ -616,11 +713,13 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-template <typename T, int BN, int EPI, bool WANT_MAX, int KK, typename TO>
+// One block per output tile, or (PERSIST) one per SM of the current
+// device, each walking the tiles gridDim.x apart.
+template <typename T, int BN, int EPI, bool WANT_MAX, int KK, typename TO, bool PERSIST>
 cudaError_t wg_launch(const CUtensorMap& tx, const CUtensorMap& tw, const ConvArgs& a,
-                      int pad_off, cudaStream_t st) {
-  auto kern = wg_conv_kernel<T, BN, EPI, WANT_MAX, KK, TO>;
-  constexpr int smem = wg_smem_bytes<BN>();
+                      int padded, cudaStream_t st) {
+  auto kern = wg_conv_kernel<T, BN, EPI, WANT_MAX, KK, TO, PERSIST>;
+  constexpr int smem = wg_smem_bytes<BN, PERSIST>();
   static bool attr = false;
   if (!attr) {
     const cudaError_t e =
@@ -628,21 +727,38 @@ cudaError_t wg_launch(const CUtensorMap& tx, const CUtensorMap& tw, const ConvAr
     if (e != cudaSuccess) return e;
     attr = true;
   }
-  const dim3 grid(static_cast<unsigned>(static_cast<long>(a.n) * a.h * a.w / WG_BM),
-                  a.cout / BN);
-  kern<<<grid, WG_THREADS, smem, st>>>(tx, tw, a, pad_off);
+  long blocks = static_cast<long>(a.n) * a.h * a.w / WG_BM * (a.branches * a.cout / BN);
+  if (PERSIST) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    if (sms < blocks) blocks = sms;
+  }
+  kern<<<static_cast<unsigned>(blocks), WG_THREADS, smem, st>>>(tx, tw, a, padded);
   return cudaGetLastError();
 }
 
-// The KKxKK conv of `a` (n, h, w, cin, cout, groups and the epilogue's
-// pointers) on x and wk (Cout, KK*KK*Cin), BN output channels a block.
-// padded: x is the reflect-padded (N, H+2, W+2, Cin) (KK 3); else x is (N,
-// H, W, Cin) and the padding is zeros, KK/2 a side. The shape meets
-// wg_tile_ok. Returns the launch's error, or cudaErrorInvalidValue where a
-// descriptor cannot be encoded.
-template <int BN, typename T, int EPI, bool WANT_MAX, int KK = 3, typename TO = float>
+// The KKxKK conv of `a` (n, h, w, cin, cout, groups, dil and the
+// epilogue's pointers) on x and wk (Cout, KK*KK*Cin), BN output channels a
+// block. padded: x is the reflect-padded (N, H+2, W+2, Cin) (KK 3,
+// dilation 1); else x is (N, H, W, Cin) and the padding is zeros,
+// (KK/2)*dil a side. a.branches > 1 (EPI_STATS): that many convs of x in
+// one launch, wk (branches*Cout, KK*KK*Cin), at the dilations a.bdil.
+// PERSIST: one block per SM walks the tiles (short K loops, K5). The
+// shape meets wg_tile_ok. Returns the launch's error, or
+// cudaErrorInvalidValue where the arguments or a descriptor cannot be
+// taken.
+template <int BN, typename T, int EPI, bool WANT_MAX, int KK = 3, typename TO = float,
+          bool PERSIST = false>
 cudaError_t launch_wg_conv_bn(const T* x, bool padded, const T* wk, const ConvArgs& a,
                               cudaStream_t st) {
+  if (a.branches < 1 || a.branches > 4 || a.dil < 1 ||
+      (padded && (a.dil != 1 || a.branches != 1)))
+    return cudaErrorInvalidValue;
+  if (a.branches > 1)
+    for (int b = 0; b < a.branches; ++b)
+      if (a.bdil[b] < 1) return cudaErrorInvalidValue;
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return cudaErrorInvalidValue;
   const int es = static_cast<int>(sizeof(T)), ke = WG_KBYTES / es, p = KK / 2;
@@ -659,7 +775,7 @@ cudaError_t launch_wg_conv_bn(const T* x, bool padded, const T* wk, const ConvAr
           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  const cuuint64_t wdim[2] = {kc, static_cast<cuuint64_t>(a.cout)};
+  const cuuint64_t wdim[2] = {kc, static_cast<cuuint64_t>(a.branches) * a.cout};
   const cuuint64_t wstride[1] = {kc * es};
   const cuuint32_t wbox[2] = {static_cast<cuuint32_t>(ke), static_cast<cuuint32_t>(BN)};
   if (enc(&tw, WgOperand<T>::tma, 2, const_cast<T*>(wk), wdim, wstride, wbox, ones,
@@ -667,16 +783,18 @@ cudaError_t launch_wg_conv_bn(const T* x, bool padded, const T* wk, const ConvAr
           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  return wg_launch<T, BN, EPI, WANT_MAX, KK, TO>(tx, tw, a, padded ? 0 : -p, st);
+  return wg_launch<T, BN, EPI, WANT_MAX, KK, TO, PERSIST>(tx, tw, a, padded ? 1 : 0, st);
 }
 
-// The 3x3 conv of the ungrouped callers (K1, K2, K3) at the BN of wg_bn.
-template <typename T, int EPI, bool WANT_MAX>
+// The 3x3 conv of the ungrouped callers (K1, K2, K3, K7a) at the BN of
+// wg_bn.
+template <typename T, int EPI, bool WANT_MAX, bool PERSIST = false>
 cudaError_t launch_wg_conv(const T* x, bool padded, const T* wk, const ConvArgs& a,
                            cudaStream_t st) {
+  constexpr bool P = PERSIST;
   return wg_bn(a.n, a.h, a.w, a.cout) == 256
-             ? launch_wg_conv_bn<256, T, EPI, WANT_MAX>(x, padded, wk, a, st)
-             : launch_wg_conv_bn<128, T, EPI, WANT_MAX>(x, padded, wk, a, st);
+             ? launch_wg_conv_bn<256, T, EPI, WANT_MAX, 3, float, P>(x, padded, wk, a, st)
+             : launch_wg_conv_bn<128, T, EPI, WANT_MAX, 3, float, P>(x, padded, wk, a, st);
 }
 
 }  // namespace

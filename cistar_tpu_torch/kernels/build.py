@@ -127,8 +127,8 @@ def ptxas_report(name: str, kernel: str) -> List[str]:
     """What ptxas said of each ``kernel`` entry of ``csrc/<name>.cu``
     (registers, spills) when this process built it; empty where the library
     was already built. Each line starts with the entry's template arguments
-    as mangled (e.g. ``IaLi256ELi1ELb1E``: int8, BN 256, EPI 1, WANT_MAX
-    true)."""
+    as mangled (e.g. ``IaLi256ELi1ELb1ELi3EfLb0EE``: int8, BN 256, EPI
+    1, WANT_MAX true, 3×3 taps, fp32 out, not persistent)."""
     out, entry = [], None
     for line in _logs.get(name, "").splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) "

@@ -5,6 +5,9 @@
   * :func:`atrous_resblock_int8` — K5 (``_atrous_resblock_int8_kernel``)
   * :func:`multi_atrous_stage_int8` — K6
     (``_multi_atrous_stage_int8_kernel``)
+  * :func:`conv_variant` — which conv the branch convs, K5's reflect conv
+    and :func:`conv3x3_dilated_s8` take at a shape (``wgmma_conv.py``'s
+    rule at BN 128), and :func:`conv_variant_card`, the library's own answer
 
 Each takes CUDA tensors only and launches on PyTorch's current stream; the
 CPU path is the plain version in :mod:`cistar_tpu_torch.ops.quant_int8`.
@@ -20,7 +23,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-from cistar_tpu_torch.kernels import build
+from cistar_tpu_torch.kernels import build, wgmma_conv
 from cistar_tpu_torch.kernels.build import (I, F, P, check_same_device,
                                             check_tensor, raise_on, stream)
 
@@ -30,6 +33,7 @@ launches: Dict[str, int] = {"conv3x3_dilated_s8": 0,
 
 _SIGS = {
     "cistar_atrous_workspace_bytes": ((I, I, I, I, I), ctypes.c_size_t),
+    "cistar_atrous_conv_variant": ((I, I, I, I, I), I),
     "cistar_conv3x3_zero_s8_acc": ((P, P, P, I, I, I, I, I, I, P), I),
     "cistar_atrous_resblock_int8": (
         (P, I, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P), I),
@@ -46,6 +50,25 @@ def reset_launches() -> None:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     return build.bind(build.load("int8_atrous"), _SIGS)
+
+
+# BN of the wgmma conv in this library: K5's convs have Cout 128, where
+# wgmma_conv.block_n too answers 128, so one build serves them
+BN = 128
+
+
+def conv_variant(n: int, h: int, w: int, cin: int, cout: int) -> int:
+    """The conv K5's and K6's branch convs, K5's reflect conv and
+    :func:`conv3x3_dilated_s8` run at (N, H, W) pixels, Cin → Cout, at any
+    dilation: the BN of the ``wgmma`` conv (:data:`BN`), or 0 for the
+    ``mma.sync`` one (``conv_s8_kernel``; K6's 64 input channels are half a
+    K stage)."""
+    return BN if wgmma_conv.tile_ok(n, h, w, cin, cout, 1) else 0
+
+
+def conv_variant_card(n: int, h: int, w: int, cin: int, cout: int) -> int:
+    """:func:`conv_variant` as the built library answers it."""
+    return _lib().cistar_atrous_conv_variant(n, h, w, cin, cout)
 
 
 def _check_shape(n: int, h: int, w: int, cin: int, cout: int) -> None:

@@ -6,6 +6,8 @@
   * :func:`resblock_int8_tiled_b` — K7b (``_resblock_b_kernel``)
   * :func:`conv_variant` — which conv K7b takes at a shape (``wgmma_conv.py``'s
     rule), and :func:`conv_variant_card`, the library's own answer
+  * :func:`a_conv_variant` / :func:`a_conv_variant_card` — the same for
+    K7a's conv 1 (K1's rule: BN 128 or 256)
 
 Both take ``bn=True`` for their BatchNorm form, counted as
 ``resblock_int8_tiled_a_bn`` / ``resblock_int8_tiled_b_bn``.
@@ -37,6 +39,7 @@ launches: Dict[str, int] = {"conv3x3_reflect_grouped_s8": 0,
 _SIGS = {
     "cistar_tiled_workspace_bytes": ((I, I, I, I), ctypes.c_size_t),
     "cistar_tiled_conv_variant": ((I, I, I, I, I), I),
+    "cistar_tiled_a_conv_variant": ((I, I, I, I), I),
     "cistar_conv3x3_reflect_grouped_s8_acc": ((P, P, P, P, I, I, I, I, I, P), I),
     "cistar_resblock_tiled_a": (
         (P, I, P, P, P, P, P, I, I, I, I, I, F, I, P), I),
@@ -65,6 +68,18 @@ def conv_variant(n: int, h: int, w: int, c: int, groups: int) -> int:
 def conv_variant_card(n: int, h: int, w: int, c: int, groups: int) -> int:
     """:func:`conv_variant` as the built library answers it."""
     return _lib().cistar_tiled_conv_variant(n, h, w, c, groups)
+
+
+def a_conv_variant(n: int, h: int, w: int, c: int) -> int:
+    """The conv K7a runs at (N, H, W, C), K1's conv 1 on the reflect-padded
+    int8 input: the BN of the ``wgmma`` conv (128 or 256), or 0 for the
+    ``mma.sync`` one (``conv_s8_kernel``)."""
+    return wgmma_conv.variant(n, h, w, c, c, 1)
+
+
+def a_conv_variant_card(n: int, h: int, w: int, c: int) -> int:
+    """:func:`a_conv_variant` as the built library answers it."""
+    return _lib().cistar_tiled_a_conv_variant(n, h, w, c)
 
 
 def _check_shape(n: int, h: int, w: int, c: int, ct: int) -> None:

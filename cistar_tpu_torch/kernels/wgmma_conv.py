@@ -2,13 +2,17 @@
 mirrored in Python so that the CPU tests and ``chip_smoke.py`` can show
 which conv a shape takes.
 
-K1 / K2 (``kernels/int8_resblock.py``) and K3 (``kernels/fused_conv.py``)
-run its 3×3 form at the BN of :func:`block_n`; K7b (``kernels/int8_tiled.py``)
-and K8 (``kernels/int8_msrb.py``) its grouped form (3×3 or 5×5 taps, input
-groups) at BN :data:`GROUPED_BN`, each where :func:`tile_ok` holds. Their C
+K1 / K2 (``kernels/int8_resblock.py``), K3 (``kernels/fused_conv.py``) and
+K7a (``kernels/int8_tiled.py``) run its 3×3 form at the BN of
+:func:`block_n`; K7b (``kernels/int8_tiled.py``) and K8
+(``kernels/int8_msrb.py``) its grouped form (3×3 or 5×5 taps, input
+groups) at BN :data:`GROUPED_BN`; K5 (``kernels/int8_atrous.py``) its
+dilated zero-pad and reflect 3×3 forms at BN 128; each where
+:func:`tile_ok` holds, which does not depend on the dilation. Their C
 libraries answer the same question through ``cistar_resblock_conv_variant``,
-``cistar_conv3x3_in_act_variant``, ``cistar_tiled_conv_variant`` and
-``cistar_msrb_conv_variant``.
+``cistar_conv3x3_in_act_variant``, ``cistar_tiled_a_conv_variant``,
+``cistar_tiled_conv_variant``, ``cistar_msrb_conv_variant`` and
+``cistar_atrous_conv_variant``.
 """
 
 from __future__ import annotations

@@ -1,0 +1,160 @@
+"""The schedules of the ``wgmma`` conv that K5 and K7a could take, timed
+against each other on one card.
+
+    python3 -m cistar_tpu_torch.tools.conv_schedule
+
+Builds ``conv_schedule.cu`` (K5's and K7a's own conv code from
+``csrc/int8_atrous.cu`` / ``csrc/wgmma_conv.cuh``, plus entries that launch
+it other ways) into the kernel build directory, then times with CUDA
+events, in turns (A B … B A), on random int8 inputs from seed 0:
+
+* K5's four dilated branch convs at (4 | 32, 64, 64, 128), rates 2/4/6/8:
+  four launches of one block a tile, one launch of one block a tile, and
+  one launch of persistent blocks (what ``int8_atrous.cu`` runs);
+* one reflect 3×3 conv at K5's shape (its fifth conv, BN 128) and at
+  K7a's path shapes (BN of ``wg_bn``, with the max): one block a tile
+  (K7a's schedule), persistent blocks (K5's), and one block a tile with the
+  shared-memory carveout forced to its most (L1 28 KB), the carveout a
+  persistent block's larger shared memory falls into.
+
+Every schedule's fp32 output must equal the first's bit for bit. Prints
+the card's name and power limit, one line a case, then one JSON object.
+Exits non-zero without a card. Not part of any path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+SRC = Path(__file__).resolve().with_suffix(".cu")
+RATES = (2, 4, 6, 8)
+# K5's trunk at bilinear_content's checked and timed batch; K7a's trunks
+# (global ct 256, multiscale / local ct 128) at their checked and timed
+# batches
+K5_SHAPES = ((4, 64, 64, 128), (32, 64, 64, 128))
+K7A_SHAPES = ((4, 32, 32, 1024), (16, 32, 32, 1024), (2, 64, 64, 512),
+              (4, 64, 64, 512), (8, 64, 64, 512))
+
+
+def _library():
+    from cistar_tpu_torch.kernels import build
+
+    h = hashlib.sha256(SRC.read_bytes())
+    for p in sorted(build.CSRC.iterdir()):
+        h.update(p.read_bytes())
+    h.update(" ".join(build.NVCC_FLAGS).encode())
+    so = build.BUILD_DIR / f"libconv_schedule-{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(".tmp")
+        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(tmp),
+                        str(SRC)], check=True, capture_output=True)
+        tmp.replace(so)
+    lib = ctypes.CDLL(str(so))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.sched_branches.argtypes = [P] * 6 + [I] * 9 + [P]
+    lib.sched_conv.argtypes = [P] * 6 + [I] * 6 + [P]
+    lib.sched_branches.restype = lib.sched_conv.restype = I
+    return lib
+
+
+def _ms(fn, iters: int = 30) -> float:
+    import torch
+
+    fn()
+    fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def _compare(label: str, runs: dict, outs: dict) -> dict:
+    """Run each schedule once, check every output equals the first's, then
+    time them in turns; ms per launch, two readings each."""
+    import torch
+
+    for k, run in runs.items():
+        err = run()
+        if err:
+            raise RuntimeError(f"{label} {k}: CUDA error {err}")
+    torch.cuda.synchronize()
+    first = next(iter(outs.values()))
+    if not all(torch.equal(first, o) for o in outs.values()):
+        raise RuntimeError(f"{label}: the schedules' outputs differ")
+    names = list(runs)
+    res = {k: [] for k in names}
+    for order in (names, names[::-1]):
+        for k in order:
+            res[k].append(_ms(runs[k]))
+    print(f"[schedule] {label}: " + "; ".join(
+        f"{k} {v!r}" for k, v in res.items()), flush=True)
+    return res
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("conv_schedule: no CUDA device, nothing run")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"[device] {torch.cuda.get_device_name(0)} | {smi}", flush=True)
+    lib = _library()
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+
+    def s8(*shape):
+        return torch.randint(-127, 128, shape, generator=g,
+                             dtype=torch.int8).to(dev)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    out = {}
+    for n, h, w, c in K5_SHAPES:
+        q, wbk = s8(n, h, w, c), s8(4 * c, 9 * c)
+        sb = torch.rand(8, c, generator=g).to(dev)
+        xs = torch.full((n,), 0.01, device=dev)
+        st = torch.empty(8 * n * c, device=dev)
+        modes = {"four launches": 0, "one launch": 1, "one launch, persistent": 2}
+        fs = {k: torch.empty(4, n, h, w, c, device=dev) for k in modes}
+        runs = {k: (lambda m=m, f=fs[k]: lib.sched_branches(
+            q.data_ptr(), wbk.data_ptr(), sb.data_ptr(), xs.data_ptr(),
+            f.data_ptr(), st.data_ptr(), n, h, w, c, *RATES, m, stream()))
+            for k, m in modes.items()}
+        out[f"K5 branches {(n, h, w, c)}"] = _compare(
+            f"K5's four branch convs {(n, h, w, c)}", runs, fs)
+    for shape, want_max in ([(s, 0) for s in K5_SHAPES]
+                            + [(s, 1) for s in K7A_SHAPES]):
+        n, h, w, c = shape
+        xp, wk = s8(n, h + 2, w + 2, c), s8(c, 9 * c)
+        sb = torch.rand(2, c, generator=g).to(dev)
+        xs = torch.full((n,), 0.01, device=dev)
+        st = torch.empty(3 * n * c, device=dev)
+        modes = {"one block a tile": 0, "persistent": 1,
+                 "one block a tile, carveout at most": 2}
+        fs = {k: torch.empty(n, h, w, c, device=dev) for k in modes}
+        runs = {k: (lambda m=m, f=fs[k]: lib.sched_conv(
+            xp.data_ptr(), wk.data_ptr(), xs.data_ptr(), sb.data_ptr(),
+            f.data_ptr(), st.data_ptr(), n, h, w, c, want_max, m, stream()))
+            for k, m in modes.items()}
+        what = "K7a's conv" if want_max else "K5's reflect conv"
+        out[f"{what} {shape}"] = _compare(f"{what} {shape}", runs, fs)
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "nvidia_smi": smi, "ms": out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
