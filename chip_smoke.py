@@ -11,7 +11,9 @@ Phases, each of which raises on failure (the script catches nothing):
    source, all at once, sm_90a); print what ptxas reported of the
    ``wgmma`` conv's entries in that build (registers, spills; none may
    spill), in each of the five libraries that use it (K1/K2, K3, K5, K7,
-   K8).
+   K8), and of every entry of K9's and K4's libraries (``head_cout1``,
+   ``in_act``); count the HMMA instructions of K9's bf16 kernel in the
+   library's SASS (``cuobjdump``; none would fail).
 
 The ResNet path (slice 1): the CycleGAN ResNet-9 generator, 64 features,
 256², random weights from seed 0.
@@ -124,7 +126,11 @@ The fused-kernel paths of ResNet-9 (slice 4), the phase-4 generator
     (``fused_instance_norm_act``) on the raw down_1, down_2 and up_0
     outputs with ReLU, and on down_2 in the leaky, tanh and residual forms,
     within ``K4_*``; K9 on the raw up_2 output (8, 256, 256, 64), with and
-    without ``pre_in``, within ``K9_*``;
+    without ``pre_in``, within ``K9_*``; ``cistar_in_act_variant`` at the
+    three K4 shapes (a cluster of 8 CTAs at 64² × 256, 2 at 32² × 512)
+    against its Python mirror, and K9's shared memory; then K4 (relu) on the
+    three stage outputs and K9 (tanh, and ``pre_in``) on the up_2 output
+    of the timed batch, 64, within the same tolerances;
 16. the bf16 fast forward (``resnet_generator_fast_apply``) of the module
     with bf16 weights, counted: 18 K3 launches and no other kernel; the
     same forward of the fp32-weight module: no K3 launch, equal to the bf16
@@ -140,7 +146,11 @@ The fused-kernel paths of ResNet-9 (slice 4), the phase-4 generator
     default engine and to the fp32 forward within the plain's + 0.1,
     mean-abs to fp32 within 1.1×; three requests served through
     ``CycleGANInference("p2p")`` (counted: three generator calls each),
-    img/s at batch 64;
+    img/s at batch 64; K4 (relu) at its three shapes and K9 (tanh, and
+    ``pre_in``) at batch 8 and 64 beside their bounds, with GB/s or
+    TFLOP/s and their yardsticks (``F.instance_norm``; cuDNN's bf16
+    ``F.conv2d`` of the pre-padded input to one channel, channels_last,
+    the pad excluded);
 18. ``global_generator_fast_apply`` at the pix2pixHD CLI defaults, batch
     4: no K3 launch (the 1024-channel weights exceed the JAX rule), equal
     to the bf16 ``GlobalGenerator`` forward.
@@ -408,6 +418,15 @@ def k9_bound_ms(x) -> tuple:
     n, h, w, c = x.shape
     return bound(2 * n * h * w * 49 * c,
                  x.numel() * x.element_size() + 49 * c * 4
+                 + n * h * w * x.element_size(), PEAK_BF16_FLOPS)
+
+
+def k9_pre_bound_ms(x) -> tuple:
+    """K9 with ``pre_in``: as :func:`k9_bound_ms`, and the statistics read
+    x once more."""
+    n, h, w, c = x.shape
+    return bound(2 * n * h * w * 49 * c,
+                 2 * x.numel() * x.element_size() + 49 * c * 4
                  + n * h * w * x.element_size(), PEAK_BF16_FLOPS)
 
 
@@ -1516,6 +1535,7 @@ def p2phd_breakdown(family: str, gen, qb, x) -> None:
 def fused_path(dev, images, counters) -> list:
     """Phases 15-18; the kernels' JSON rows of K3, K4 and K9."""
     import copy
+    import functools
 
     import torch
     import torch.nn.functional as F
@@ -1523,6 +1543,8 @@ def fused_path(dev, images, counters) -> list:
     from cistar_tpu_torch.engines.cyclegan import CycleGANInference
     from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
     from cistar_tpu_torch.kernels import fused_conv as kf
+    from cistar_tpu_torch.kernels import head_cout1 as kh
+    from cistar_tpu_torch.kernels import in_act as kn
     from cistar_tpu_torch.models import fast_infer as fi
     from cistar_tpu_torch.models.cyclegan import seeded_generator
     from cistar_tpu_torch.ops import fused
@@ -1650,6 +1672,45 @@ def fused_path(dev, images, counters) -> list:
         within("K9 (tap_matmul) pre_in, tanh", head_conv_tanh_pallas(
             u2, wh, bh, pre_in=True), fused.conv2d_reflect_cout1_plain(
             u2, wh, bh, "tanh", pre_in=True), K9_REL, K9_PRE_ABS))
+    # which kernel the library takes at these shapes, against the mirror:
+    # K4's cluster (8 CTAs at 64² x 256, 2 at 32² x 512)
+    for label, v in (("down_1", d1), ("down_2", d2), ("up_0", u0)):
+        _, hv, wv, cv = v.shape
+        vc = kn.variant_card(hv, wv, cv, v.element_size())
+        print(f"[kernels] K4 {label} {tuple(v.shape)}: cistar_in_act_variant "
+              f"{vc}, mirror {kn.variant(hv, wv, cv, v.element_size())}",
+              flush=True)
+        check(vc == kn.variant(hv, wv, cv, v.element_size()) > 0,
+              f"K4 {label}: the cluster kernel, as the mirror says")
+    check(kh.smem_bytes_card() == kh.SMEM_BYTES,
+          "K9's shared memory as the mirror says")
+    # the same checks at the timed batch, on its own activations
+    d1b = gen.down[1](fi._in_relu(gen.down[0](fi._in_relu(
+        gen.init_conv(xbb)))))
+    d2b_ = gen.down[2](fi._in_relu(d1b))
+    u0b = gen.up[0](qi.resblock_chain_int8_bf16io(fi._in_relu(d2b_),
+                                                  qblocks))
+    u2b_ = gen.up[2](fi._in_relu(gen.up[1](fi._in_relu(u0b)))).contiguous()
+    for label, v in (("down_1", d1b), ("down_2", d2b_), ("up_0", u0b)):
+        check(fused.in_act_fits(v), f"K4 rule: {label} batch "
+              f"{BENCH_BATCH} fits")
+        k4_err = max(k4_err, within(
+            f"K4 {label} batch {BENCH_BATCH}, relu",
+            fused.fused_instance_norm_act(v, "relu"),
+            fused.fused_instance_norm_act_plain(v, "relu"), K4_REL, K4_ABS))
+    u2nb = fi._in_relu(u2b_)
+    k9_err = max(
+        k9_err,
+        within(f"K9 batch {BENCH_BATCH}, tanh",
+               fused.conv2d_reflect_cout1_loop(u2nb, wh, bh, "tanh"),
+               fused.conv2d_reflect_cout1_plain(u2nb, wh, bh, "tanh"),
+               K9_REL, K9_ABS),
+        within(f"K9 batch {BENCH_BATCH} pre_in, tanh",
+               head_conv_tanh_pallas(u2b_, wh, bh, pre_in=True),
+               fused.conv2d_reflect_cout1_plain(u2b_, wh, bh, "tanh",
+                                                pre_in=True),
+               K9_REL, K9_PRE_ABS))
+    del d1b, d2b_, u0b, u2b_, u2nb
 
     # 16. the bf16 fast forward, counted
     y_fast, n16 = counted(lambda: fi.resnet_generator_fast_apply(gen16, xb))
@@ -1794,6 +1855,20 @@ def fused_path(dev, images, counters) -> list:
     check(all(v == 0 for v in ng.values()) and torch.equal(yg, yg_fw),
           "global at the CLI defaults: no K3, equal to the bf16 forward")
 
+    def cudnn_head_ms(v):
+        """cuDNN's bf16 conv of the reflect-padded NHWC ``v`` (padded
+        beforehand, pad excluded) to one channel, channels_last: the
+        yardstick of K9, never called by the port."""
+        xp = F.pad(v.permute(0, 3, 1, 2), (3, 3, 3, 3), mode="reflect") \
+            .contiguous(memory_format=torch.channels_last)
+        wc = wh.detach().to(v.dtype).contiguous(
+            memory_format=torch.channels_last)
+        return cuda_ms(lambda: F.conv2d(xp, wc), 10)
+
+    def in_norm_ms(v):
+        """``F.instance_norm`` of NHWC ``v``: the yardstick of K4."""
+        return cuda_ms(lambda: F.instance_norm(v.permute(0, 3, 1, 2)), 10)
+
     # the kernels' rows, at the checked batch
     rows = []
     v4 = d1.contiguous()
@@ -1808,13 +1883,12 @@ def fused_path(dev, images, counters) -> list:
             ("in_act", "in_act.cu", "pallas_kernels.py:111", k4_launches,
              k4_err, lambda: fused.fused_instance_norm_act(v4, "relu"),
              lambda: fused.fused_instance_norm_act_plain(v4, "relu"),
-             bound(0, 2 * v4.numel() * v4.element_size()),
-             cuda_ms(lambda: F.instance_norm(v4.permute(0, 3, 1, 2)), 20)),
+             bound(0, 2 * v4.numel() * v4.element_size()), in_norm_ms(v4)),
             ("head_cout1", "head_cout1.cu", "head_conv.py:341", k9_launches,
              k9_err,
              lambda: fused.conv2d_reflect_cout1_loop(u2c, wh, bh, "tanh"),
              lambda: fused.conv2d_reflect_cout1_plain(u2c, wh, bh, "tanh"),
-             k9_bound_ms(u2c), None)):
+             k9_bound_ms(u2c), cudnn_head_ms(u2c))):
         ms, plain_ms = cuda_ms(kfn, 20), cuda_ms(pfn, 5)
         rows.append({"name": name, "route": "cuda",
                      "source": "cistar_tpu_torch/csrc/" + src,
@@ -1831,24 +1905,40 @@ def fused_path(dev, images, counters) -> list:
     d2b = gen.down[2](fi._in_relu(v4b)).contiguous()
     u2b = torch.relu(torch.randn(BENCH_BATCH, SIZE, SIZE, FEATURES, device=dev,
                                  dtype=torch.bfloat16, generator=g32))
-    for name, fn, (bnd, by) in (
-            (f"in_act {tuple(v4b.shape)}",
-             lambda: fused.fused_instance_norm_act(v4b, "relu"),
-             bound(0, 2 * v4b.numel() * 2)),
-            (f"in_act {tuple(d2b.shape)}",
-             lambda: fused.fused_instance_norm_act(d2b, "relu"),
-             bound(0, 2 * d2b.numel() * 2)),
-            (f"head_cout1 {tuple(u2b.shape)}",
-             lambda: fused.conv2d_reflect_cout1_loop(u2b, wh, bh, "tanh"),
-             k9_bound_ms(u2b)),
-            (f"head_cout1 pre_in {tuple(u2b.shape)}",
-             lambda: head_conv_tanh_pallas(u2b, wh, bh, pre_in=True),
-             k9_bound_ms(u2b))):
-        print(f"[times] {name}: {cuda_ms(fn, 10)!r} ms, bound {bnd!r} ms "
-              f"({by})", flush=True)
-    print(f"[times] F.instance_norm {tuple(v4b.shape)}: "
-          f"{cuda_ms(lambda: F.instance_norm(v4b.permute(0, 3, 1, 2)), 10)!r}"
-          f" ms", flush=True)
+    # K4 (relu) at the path's three stage shapes, both batches: ms, bound,
+    # GB/s, and F.instance_norm on the same input. At batch 8 the calls
+    # back to back are host-bound: the device time of one call (profiler,
+    # all its kernels) is printed beside them
+    for v in (v4, d2.contiguous(), v4b, d2b):
+        fn = functools.partial(fused.fused_instance_norm_act, v, "relu")
+        ms, busy = cuda_ms(fn, 20), profile_top(fn)[1]
+        nbytes = 2 * v.numel() * v.element_size()
+        bnd, by = bound(0, nbytes)
+        print(f"[times] in_act {tuple(v.shape)}, relu, cluster "
+              f"{kn.variant(*v.shape[1:], v.element_size())}: {ms!r} ms "
+              f"(device {busy!r} ms a call), bound {bnd!r} ms ({by}), "
+              f"{nbytes / ms * 1e-6!r} GB/s; F.instance_norm "
+              f"{in_norm_ms(v)!r} ms", flush=True)
+    # K9 (tanh, and pre_in) at both batches: ms, bound, TFLOP/s, GB/s of x,
+    # and cuDNN's conv of the pre-padded input; the device time as above
+    for vn, vr in ((u2c, u2), (u2b, u2b)):
+        flops = 2 * vn.shape[0] * vn.shape[1] * vn.shape[2] * 49 * vn.shape[3]
+        nbytes = vn.numel() * vn.element_size()
+        for label, fn, (bnd, by) in (
+                ("tanh", functools.partial(fused.conv2d_reflect_cout1_loop,
+                                           vn, wh, bh, "tanh"),
+                 k9_bound_ms(vn)),
+                ("pre_in", functools.partial(head_conv_tanh_pallas, vr, wh,
+                                             bh, pre_in=True),
+                 k9_pre_bound_ms(vr))):
+            ms, busy = cuda_ms(fn, 20), profile_top(fn)[1]
+            print(f"[times] head_cout1 {tuple(vn.shape)} {label}: {ms!r} ms "
+                  f"(device {busy!r} ms a call), bound {bnd!r} ms ({by}), "
+                  f"{flops / ms * 1e-9!r} TFLOP/s, {nbytes / ms * 1e-6!r} "
+                  f"GB/s of x", flush=True)
+        print(f"[times] cuDNN F.conv2d bf16 channels_last, pre-padded "
+              f"{tuple(vn.shape)} -> 1 channel: {cudnn_head_ms(vn)!r} ms",
+              flush=True)
     return rows
 
 
@@ -2270,12 +2360,32 @@ def main() -> int:
     # 2. build
     print(f"[build] csrc/*.cu -> sm_90a in {build.build_all():.1f} s",
           flush=True)
-    for src in ("int8_resblock", "conv3x3_in_act", "int8_tiled", "int8_msrb",
-                "int8_atrous"):
-        for line in build.ptxas_report(src, "wg_conv_kernel"):
-            print(f"[ptxas] {src}: {line}", flush=True)
-            check(" 0 bytes spill stores, 0 bytes spill loads" in line
-                  or "spill" not in line, f"{src} {line}: no spills")
+    for src, kernels in (
+            *((s, ("wg_conv_kernel",)) for s in (
+                "int8_resblock", "conv3x3_in_act", "int8_tiled", "int8_msrb",
+                "int8_atrous")),
+            ("head_cout1", ("head_tc_kernel", "head_kernel", "sums_kernel",
+                            "stats_kernel")),
+            ("in_act", ("in_act_cluster_kernel", "in_act_kernel"))):
+        for kernel in kernels:
+            for line in build.ptxas_report(src, kernel):
+                print(f"[ptxas] {src}: {line}", flush=True)
+                check(" 0 bytes spill stores, 0 bytes spill loads" in line
+                      or "spill" not in line, f"{src} {line}: no spills")
+    # K9's bf16 kernel runs on the tensor cores: HMMA in its SASS
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
+         "-sass", str(build.lib_path("head_cout1"))], capture_output=True,
+        text=True, check=True).stdout
+    fun, hmma = "", 0
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fun = line
+        elif "head_tc_kernel" in fun and "HMMA" in line:
+            hmma += 1
+    print(f"[sass] head_cout1: {hmma} HMMA instructions in head_tc_kernel",
+          flush=True)
+    check(hmma > 0, "K9's bf16 kernel runs HMMA")
 
     cpu_gen = torch.Generator().manual_seed(0)
 

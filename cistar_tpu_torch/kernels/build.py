@@ -74,7 +74,9 @@ def _headers(path: Path, seen: Optional[set] = None) -> List[Path]:
     return out
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """The library of ``csrc/<name>.cu`` built from its current source,
+    headers and flags (it may not exist yet)."""
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
     for hdr in _headers(src):
@@ -87,7 +89,7 @@ _Job = Tuple[subprocess.Popen, str, Path]
 
 
 def _start(name: str) -> Optional[_Job]:
-    out = _lib_path(name)
+    out = lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -128,14 +130,15 @@ def ptxas_report(name: str, kernel: str) -> List[str]:
     (registers, spills) when this process built it; empty where the library
     was already built. Each line starts with the entry's template arguments
     as mangled (e.g. ``IaLi256ELi1ELb1ELi3EfLb0EE``: int8, BN 256, EPI
-    1, WANT_MAX true, 3×3 taps, fp32 out, not persistent)."""
+    1, WANT_MAX true, 3×3 taps, fp32 out, not persistent), none for a
+    kernel that is no template."""
     out, entry = [], None
     for line in _logs.get(name, "").splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) "
                       r"'?(\S+?)'?(?: for|$)", line)
         if m:
-            t = re.search(kernel + r"(I.*?E)Ev", m.group(1))
-            entry = t.group(1) if t else None
+            t = re.search(r"\d" + kernel + r"(?:(I.*?E)Ev|E[^v])", m.group(1))
+            entry = (t.group(1) or "") if t else None
         elif entry is not None and ("registers" in line or "spill" in line):
             out.append(f"{kernel}<{entry}>: {line.split(':', 1)[-1].strip()}")
     return sorted(set(out))
@@ -146,7 +149,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         _finish(name, _start(name))
-        lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        lib = _libs[name] = ctypes.CDLL(str(lib_path(name)))
     return lib
 
 

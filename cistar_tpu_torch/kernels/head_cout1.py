@@ -4,6 +4,10 @@
   * :func:`head_cout1` — K9, one kernel for the four TPU kernels of the
     same function (``pallas_kernels.py::conv2d_reflect_cout1``,
     ``_masked``, ``_loop`` and ``head_conv.py::head_conv_tanh_pallas``)
+  * :func:`tiles`, :func:`blocks` and :data:`SMEM_BYTES` — the launch of
+    its bf16 kernel (the tensor-core tap matmul; fp32 takes the FMA
+    kernel), mirrored; :func:`smem_bytes_card` is the library's own
+    shared-memory size
 
 It takes CUDA tensors only and launches on PyTorch's current stream; the
 CPU path is the plain version in :mod:`cistar_tpu_torch.ops.fused`. The
@@ -28,7 +32,32 @@ launches: Dict[str, int] = {"head_cout1": 0}
 _SIGS = {
     "cistar_head_cout1_workspace_bytes": ((I, I), ctypes.c_size_t),
     "cistar_head_cout1": ((P, I, P, P, P, P, I, I, I, I, I, I, F, P), I),
+    "cistar_head_cout1_smem_bytes": ((), I),
 }
+
+TILE_H, TILE_W = 16, 26     # output tile of the tensor-core kernel
+SPAN_H, SPAN_W = TILE_H + 6, TILE_W + 6   # its staged halo: 22 x 32
+CHUNK = 64                  # channels a staged chunk
+ROWS = TILE_H * SPAN_W      # plane rows (y < 16, x < 32): 32 m-tiles of 16
+PLANE_STRIDE = ROWS + 4     # floats between two dx planes
+BLOCKS_PER_SM = 2
+# the halo of 128-byte pixels and the 7 fp32 dx planes
+SMEM_BYTES = SPAN_H * SPAN_W * CHUNK * 2 + 7 * PLANE_STRIDE * 4
+
+
+def tiles(n: int, h: int, w: int) -> int:
+    """The (image, 16 × 26 output tile) pairs of one launch."""
+    return n * -(-h // TILE_H) * -(-w // TILE_W)
+
+
+def blocks(n: int, h: int, w: int, sms: int = 132) -> int:
+    """Persistent blocks of the tensor-core kernel: two an SM."""
+    return min(tiles(n, h, w), BLOCKS_PER_SM * sms)
+
+
+def smem_bytes_card() -> int:
+    """:data:`SMEM_BYTES` as the built library answers it."""
+    return _lib().cistar_head_cout1_smem_bytes()
 
 
 def reset_launches() -> None:
