@@ -10,8 +10,9 @@ Phases, each of which raises on failure (the script catches nothing):
 2. build the CUDA kernels from ``cistar_tpu_torch/csrc`` (one ``nvcc`` per
    source, all at once, sm_90a); print what ptxas reported of the
    ``wgmma`` conv's entries in that build (registers, spills; none may
-   spill), in each of the five libraries that use it (K1/K2, K3, K5, K7,
-   K8), and of every entry of K9's and K4's libraries (``head_cout1``,
+   spill), in each of the five libraries that use it (K1/K2, K3, K5-K6,
+   K7, K8), of K6's ``wg_branch_kernel``, and of every entry of K9's and
+   K4's libraries (``head_cout1``,
    ``in_act``); count the HMMA instructions of K9's bf16 kernel in the
    library's SASS (``cuobjdump``; none would fail).
 
@@ -53,8 +54,10 @@ residual blocks, 512², random weights from seed 0.
    bit at every rate, at K5's trunk shape (4, 64, 64, 128), at K6's stage
    shape (4, 64, 64, 64→128) and at the 256² stage-1 shape
    (4, 64, 64, 32→64), and ``cistar_atrous_conv_variant`` equals its
-   Python mirror at each: 128 (the ``wgmma`` conv) at K5's, 0
-   (``conv_s8_kernel``) at the other two; K5 and K6 agree with their plain
+   Python mirror at each, as (BN, bytes of K a stage): the ``wgmma`` conv
+   at (128, 128) at K5's, at (128, 64) at K6's, ``conv_s8_kernel`` (0, 0)
+   at stage 1's; K6 at stage 2 runs its two passes with the branch outputs
+   on chip (``int8_atrous.stage_fused``); K5 and K6 agree with their plain
    versions within ``K5_*`` / ``K6_*``; their distance to the JAX
    package's family budgets vs the fp32 modules is printed;
 8. the path at batch 4: the bf16 forward and the int8 engine, counted: one
@@ -70,7 +73,8 @@ residual blocks, 512², random weights from seed 0.
     of their GEMM part (one ``torch._int_mm`` of their convs' im2col
     matrices stacked: K5's four dilated zero-pad and one reflect, K6's
     four dilated). Before the times, phase 7's checks at batch 32: the
-    variant queries, every rate's int32 accumulators, K5 within ``K5_*``.
+    variant queries, every rate's int32 accumulators, K5 within ``K5_*``,
+    K6 within ``K6_*``.
 
 The pix2pixHD paths (slice 3), random weights from seed 0, 512²:
 ``global`` (``GlobalGenerator``) at the reference CLI's defaults, ngf 64,
@@ -534,12 +538,12 @@ def atrous_gemm_ms(xq, wk, rates, reflect: bool) -> float:
     return gemm_ms(torch.cat(cols), wk)
 
 
-def dilated_conv_vs_plain(label: str, xq, q, rates, want: int) -> None:
+def dilated_conv_vs_plain(label: str, xq, q, rates, want: tuple) -> None:
     """The dilated zero-pad conv of K5's / K6's branches at ``xq``'s shape:
     the library's variant query against the Python mirror and ``want``
-    (128: the ``wgmma`` conv; 0: ``conv_s8_kernel``), and the int32
-    accumulators of each branch's weights at its rate bit for bit against
-    the plain version."""
+    ((BN, bytes of K a stage) of the ``wgmma`` conv; (0, 0):
+    ``conv_s8_kernel``), and the int32 accumulators of each branch's
+    weights at its rate bit for bit against the plain version."""
     import torch
 
     from cistar_tpu_torch.kernels import int8_atrous as ka
@@ -548,8 +552,8 @@ def dilated_conv_vs_plain(label: str, xq, q, rates, want: int) -> None:
     shape = (*xq.shape, q["wbq"].shape[-1])
     card, mirror = ka.conv_variant_card(*shape), ka.conv_variant(*shape)
     print(f"[kernels] {label} conv at {tuple(xq.shape)} -> {shape[-1]}: "
-          f"variant {card} (Python mirror {mirror}; 128 the wgmma conv, 0 "
-          f"mma.sync)", flush=True)
+          f"variant {card} (Python mirror {mirror}; (BN, K stage bytes) of "
+          f"the wgmma conv, (0, 0) mma.sync)", flush=True)
     check(card == mirror == want, f"{label} {shape}: variant {want}")
     for bi, r in enumerate(rates):
         acc_k = ka.conv3x3_dilated_s8(xq, q["wbk"][bi], r)
@@ -575,6 +579,28 @@ def k5_vs_plain(h, q) -> tuple:
           f"max|kernel-plain| {err!r}, max over one ulp {over!r} (tol "
           f"{K5_ABS})", flush=True)
     check(over <= K5_ABS, f"K5 {tuple(h.shape)} within one bf16 ulp + 0.01 "
+          "of plain")
+    return yk, err
+
+
+def k6_vs_plain(x, q) -> tuple:
+    """K6 on the full-resolution stage input ``x`` against its plain
+    version on ``x[:, ::2, ::2]`` within one bf16 ulp + ``K6_ABS``: (the
+    kernel's output, its max-abs error)."""
+    from cistar_tpu_torch.kernels import int8_atrous as ka
+    from cistar_tpu_torch.ops import quant_int8 as qi
+
+    yk = ka.multi_atrous_stage_int8(x, q, RATES2, qi.EPS)
+    yp = qi.multi_atrous_stage_int8_plain(x[:, ::2, ::2], q, RATES2)
+    d = (yk.float() - yp.float()).abs()
+    err, over = d.max().item(), (d - K6_REL * yp.float().abs()).max().item()
+    fused = ka.stage_fused(*yk.shape[:3], x.shape[-1], yk.shape[-1], RATES2)
+    print(f"[kernels] K6 multi_atrous_stage_int8 {tuple(x.shape)} -> "
+          f"{tuple(yk.shape)} bf16: max|kernel-plain| {err!r}, max over one "
+          f"ulp {over!r} (tol {K6_ABS}); branch outputs on chip: {fused}",
+          flush=True)
+    check(fused, f"K6 {tuple(x.shape)} on its fused passes")
+    check(over <= K6_ABS, f"K6 {tuple(x.shape)} within one bf16 ulp + 1e-4 "
           "of plain")
     return yk, err
 
@@ -945,30 +971,24 @@ def bilinear_path(dev, images, counters) -> list:
     q5, q6 = qt["res"][0], qt["enc"][2]
     ins256, _ = encode(images(n, 256).bfloat16(), qi.multi_atrous_stage_int8)
     for label, xin, q, rates, want in (
-            ("K5 trunk", h5, q5, RATES, 128),
-            ("K6 stage 2", x6[:, ::2, ::2], q6, RATES2, 0),
-            ("256² stage 1", ins256[1][:, ::2, ::2], qt["enc"][1], RATES2, 0)):
+            ("K5 trunk", h5, q5, RATES, (128, 128)),
+            ("K6 stage 2", x6[:, ::2, ::2], q6, RATES2, (128, 64)),
+            ("256² stage 1", ins256[1][:, ::2, ::2], qt["enc"][1], RATES2,
+             (0, 0))):
         xq, _ = qi.quantize_act(xin.contiguous())
         dilated_conv_vs_plain(label, xq, q, rates, want)
 
     y5k, k5_err = k5_vs_plain(h5, q5)
-    y6k = ka.multi_atrous_stage_int8(x6, q6, RATES2, qi.EPS)
-    y6p = qi.multi_atrous_stage_int8_plain(x6[:, ::2, ::2], q6, RATES2)
-    d6 = (y6k.float() - y6p.float()).abs()
-    k6_err = d6.max().item()
-    k6_over = (d6 - K6_REL * y6p.float().abs()).max().item()
+    y6k, k6_err = k6_vs_plain(x6, q6)
     with fp32_exact():
         f5 = (y5k.float() - gen.res[0](h5.float())).abs().max().item()
         f6 = (y6k.float() - gen.down[2](x6.float())).abs().max().item()
     print(f"[kernels] K5 atrous_resblock_int8 {tuple(h5.shape)} vs the fp32 "
           f"block {f5!r}, {ATROUS_BUDGET} budget "
           f"{'met' if f5 <= ATROUS_BUDGET else 'missed'}", flush=True)
-    print(f"[kernels] K6 multi_atrous_stage_int8 {tuple(x6.shape)} -> "
-          f"{tuple(y6k.shape)} bf16: max|kernel-plain| {k6_err!r}, max over "
-          f"one ulp {k6_over!r} (tol {K6_ABS}); vs the fp32 stage {f6!r}, "
-          f"{STAGE_BUDGET} budget "
+    print(f"[kernels] K6 multi_atrous_stage_int8 {tuple(x6.shape)} vs the "
+          f"fp32 stage {f6!r}, {STAGE_BUDGET} budget "
           f"{'met' if f6 <= STAGE_BUDGET else 'missed'}", flush=True)
-    check(k6_over <= K6_ABS, "K6 within one bf16 ulp + 1e-4 of plain")
 
     # 8. the main path, counted
     for m in counters:
@@ -1015,12 +1035,13 @@ def bilinear_path(dev, images, counters) -> list:
     ins_b, outs_b = encode(xbb, qi.multi_atrous_stage_int8)
     x6b, h5b = ins_b[2].contiguous(), outs_b[2].contiguous()
     # K5 / K6 at the timed batch, checked as at the checked one: the
-    # variant queries, every rate's int32 accumulators, K5 vs plain
+    # variant queries, every rate's int32 accumulators, K5 and K6 vs plain
     h5bq, _ = qi.quantize_act(h5b)
     x6bq, _ = qi.quantize_act(x6b[:, ::2, ::2].contiguous())
-    dilated_conv_vs_plain("K5 trunk", h5bq, q5, RATES, 128)
-    dilated_conv_vs_plain("K6 stage 2", x6bq, q6, RATES2, 0)
+    dilated_conv_vs_plain("K5 trunk", h5bq, q5, RATES, (128, 128))
+    dilated_conv_vs_plain("K6 stage 2", x6bq, q6, RATES2, (128, 64))
     k5_vs_plain(h5b, q5)
+    k6_vs_plain(x6b, q6)
     h5q, _ = qi.quantize_act(h5)
     x6q, _ = qi.quantize_act(x6[:, ::2, ::2].contiguous())
     rows = []
@@ -2362,8 +2383,8 @@ def main() -> int:
           flush=True)
     for src, kernels in (
             *((s, ("wg_conv_kernel",)) for s in (
-                "int8_resblock", "conv3x3_in_act", "int8_tiled", "int8_msrb",
-                "int8_atrous")),
+                "int8_resblock", "conv3x3_in_act", "int8_tiled", "int8_msrb")),
+            ("int8_atrous", ("wg_conv_kernel", "wg_branch_kernel")),
             ("head_cout1", ("head_tc_kernel", "head_kernel", "sums_kernel",
                             "stats_kernel")),
             ("in_act", ("in_act_cluster_kernel", "in_act_kernel"))):

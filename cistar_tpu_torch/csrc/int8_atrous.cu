@@ -24,9 +24,12 @@
 // has 227 KB of shared memory, so each kernel is a short sequence of
 // launches on PyTorch's current stream, built from K1's pieces
 // (int8_common.cuh, wgmma_conv.cuh):
-//   absmax_kernel, quant_kernel   per-image quantize; K6 reads the
-//                                 full-resolution x at stride 2, so no
-//                                 subsampled copy is made
+//   absmax_kernel, quant_kernel   per-image quantize (the absmax grid sized
+//                                 to fill the card); K6 reads the
+//                                 full-resolution x at stride 2 and writes
+//                                 the subsampled q, so no other copy is
+//                                 made
+// K5:
 //   wg_conv_kernel (one launch)   the four zero-pad branch convs on wgmma +
 //                                 TMA (BN 128, one persistent block an SM
 //                                 walking the four branches' tiles, which
@@ -41,37 +44,53 @@
 //                                 of squares into global statistics with
 //                                 atomics.
 //   in_stats_kernel               IN finalize for the four branches at once
-//   branch_sum_kernel             sum_b relu(IN f_b), in branch order; K5
-//                                 writes it over f_0 with its per-image
-//                                 absmax, K6 writes it out in the input dtype
-//   K5 only: quant_pad_kernel (the branch sum, straight into the
-//            reflect-padded layout TMA reads) -> wg_conv_kernel (reflect,
-//            EPI_STATS) -> in_stats_kernel -> in_skip_out_kernel.
+//   branch_sum_kernel             sum_b relu(IN f_b), in branch order, over
+//                                 f_0, with its per-image absmax
+//   quant_pad_kernel (the branch sum, straight into the reflect-padded
+//   layout TMA reads) -> wg_conv_kernel (reflect, EPI_STATS) ->
+//   in_stats_kernel -> in_skip_out_kernel.
 // K1's requantization shortcut (max |relu(IN f)| from per-channel maxima)
 // does not hold for a sum of four branches, so K5 reduces |sum| for real.
+// K6 keeps its branch outputs on chip: two passes over the same products,
+// each a launch of wg_branch_kernel (wgmma_conv.cuh: a tile's K loop walks
+// the four branches, 4 x 9 taps of 64 bytes, its A operand the tile's
+// input and halo loaded once, each branch flushed by a warpgroup of its
+// own while the next one's products run):
+//   branch_weights_kernel          the weights as one swizzled B tile a K
+//                                  stage (both passes read them)
+//   wg_branch_kernel (EPI_BSTATS)  each branch's IN sums of f; writes no f
+//   in_stats_kernel                IN finalize of the four branches
+//   wg_branch_kernel (EPI_BSUM)    the same f, relu(IN f_b) added into
+//                                  fp32 registers in branch order, the sum
+//                                  written once in the input dtype:
+//                                  branch_sum_kernel's ops, so given the
+//                                  same statistics the output equals the
+//                                  route through f_b bit for bit
 // A shape outside wg_tile_ok takes conv_s8_kernel (cp.async + mma.sync,
 // four launches, zero taps filled in shared memory; reflect index in the
-// loader) on unpadded inputs: K6 at every path shape, whose 64 input
-// channels are half a K stage. A choice by shape, reported by
-// cistar_atrous_conv_variant.
+// loader) on unpadded inputs. K6 off wg_branch_kernel's shapes (its 256²
+// stage 1, 32 -> 64 channels) runs K5's branch convs and sends f_b through
+// device memory to branch_sum_kernel. The conv's BN and K stage, by shape,
+// are what cistar_atrous_conv_variant reports.
 //
 // What bounds it. K5 at (32, 64, 64, 128): 5 convs x 131,072 px x 9 x 128 x
 // 128 MACs = 1.93e11 int8 operations, 0.098 ms at 1,979 dense int8 TOPS,
 // against 67 MB of bf16 carrier in and out (0.020 ms at 3.35 TB/s):
 // operation-bound. K6 at (32, 64, 64, 64 -> 128): 4 convs, 7.7e10
 // operations (0.039 ms) against 50 MB of carrier read (the even pixels
-// only) and written (0.015 ms): operation-bound too. Both send each
+// only) and written (0.015 ms): operation-bound too. K5 sends each
 // branch's fp32 f_b through device memory, which the TPU kernel kept in
-// VMEM: K5 moves ~970 MB at batch 32 (the four f_b written and read back,
-// the branch sum, the fifth conv's f), ~0.29 ms at 3.35 TB/s, more than
-// its convs take at the wgmma conv's rate. Keeping f_b on chip is work for
-// a later change.
+// VMEM: ~970 MB at batch 32 (the four f_b written and read back, the
+// branch sum, the fifth conv's f), ~0.29 ms at 3.35 TB/s, more than its
+// convs take at the wgmma conv's rate. K6's f_b would be 537 MB at batch
+// 32 (0.16 ms, four times its bound); its two passes instead compute the
+// products twice (0.078 ms at the int8 peak) and move ~75 MB.
 //
 // Numerics: the rules of int8_common.cuh. The IN statistics are summed with
 // atomics in a changing order: K6's output can differ from the plain
 // version by a bf16 ulp, K5's requantized sum by an LSB. The int32
-// accumulators (cistar_conv3x3_zero_s8_acc, on K5's route at every rate)
-// are compared bit for bit.
+// accumulators (cistar_conv3x3_zero_s8_acc, on K5's and K6's conv at
+// every rate) are compared bit for bit.
 //
 // Interface: plain C, loaded with ctypes. Every entry returns
 // cudaGetLastError() as an int. Nothing here allocates: the caller passes a
@@ -82,24 +101,29 @@
 namespace {
 
 constexpr int NB = 4;  // branches
-// BN of the wgmma conv here: K5's convs have Cout 128 (where wg_bn too
-// answers 128), so one build serves them
+// BN of the wgmma conv here: K5's and K6's convs have Cout 128 (where
+// wg_bn too answers 128), so one build serves them
 constexpr int ATROUS_BN = 128;
 
 // The conv the branch convs, K5's reflect conv and the RAW entry run at
-// (n, h, w, cin -> cout): BN 128 of wg_conv_kernel, or 0 for
-// conv_s8_kernel.
+// (n, h, w, cin -> cout): 1000 * BN + the bytes of K a stage of
+// wg_conv_kernel (128128, or 128064 where Cin is 64 bytes but not 128:
+// K6's stage 2), or 0 for conv_s8_kernel.
 int conv_variant(int n, int h, int w, int cin, int cout) {
-  return wg_tile_ok(n, h, w, cin, cout, 1) ? ATROUS_BN : 0;
+  const int kb = wg_kbytes(n, h, w, cin, cout, 1);
+  return kb != 0 ? 1000 * ATROUS_BN + kb : 0;
 }
 
 // The wgmma conv of this library: BN 128, persistent blocks (9 K stages a
-// tile at Cin 128).
+// tile at Cin 128), K stages of 128 bytes where 128 divide Cin, else 64.
 template <int EPI>
 cudaError_t atrous_wg_conv(const int8_t* x, bool padded, const int8_t* wk,
                            const ConvArgs& a, cudaStream_t st) {
-  return launch_wg_conv_bn<ATROUS_BN, int8_t, EPI, false, 3, float, true>(x, padded, wk, a,
-                                                                          st);
+  if (a.cin % 128 == 0)
+    return launch_wg_conv_bn<ATROUS_BN, int8_t, EPI, false, 3, float, true, 128>(x, padded,
+                                                                                 wk, a, st);
+  return launch_wg_conv_bn<ATROUS_BN, int8_t, EPI, false, 3, float, true, 64>(x, padded, wk,
+                                                                             a, st);
 }
 
 // out = sum_b relu((f_b - mean_b) * rsig_b), added in branch order from 0.
@@ -141,7 +165,8 @@ struct AtrousWs {
                   // input, then (K5) the quantized branch sum, reflect-
                   // padded on the wgmma route
   float* f;       // NB * N*HW*Cout fp32: the branch outputs f_b; K5 puts
-                  // the branch sum, then the reflect conv's output, in slab 0
+                  // the branch sum, then the reflect conv's output, in slab
+                  // 0 (null where K6 keeps them on chip)
   float* st_sum;  // NB*N*Cout, followed by
   float* st_sq;   // NB*N*Cout (one memset clears both)
   float* mean;    // NB*N*Cout
@@ -150,9 +175,11 @@ struct AtrousWs {
   float* xscale;  // N: its quantization scale
   float* samax;   // N: absmax of the branch sum (K5)
   float* sscale;  // N: its quantization scale
+  int8_t* wbulk;  // NB*Cout*9*Cin: K6's weights as B tiles (branch_weights_kernel)
 };
 
-size_t atrous_layout(long n, long h, long w, long cin, long cout, char* base,
+// with_f: room for f_b (K5, and K6 off its fused passes).
+size_t atrous_layout(long n, long h, long w, long cin, long cout, bool with_f, char* base,
                      AtrousWs* wsp) {
   const size_t mc = static_cast<size_t>(n * h * w * cout);
   const size_t nbc = static_cast<size_t>(NB * n * cout);
@@ -160,7 +187,7 @@ size_t atrous_layout(long n, long h, long w, long cin, long cout, char* base,
   AtrousWs ws;
   const long cmax = cin > cout ? cin : cout;
   ws.q = cv.take<int8_t>(static_cast<size_t>(n * (h + 2) * (w + 2) * cmax));
-  ws.f = cv.take<float>(NB * mc * 4);
+  ws.f = with_f ? cv.take<float>(NB * mc * 4) : nullptr;
   ws.st_sum = cv.take<float>(2 * nbc * 4);
   ws.st_sq = ws.st_sum ? ws.st_sum + nbc : nullptr;
   ws.mean = cv.take<float>(nbc * 4);
@@ -169,8 +196,41 @@ size_t atrous_layout(long n, long h, long w, long cin, long cout, char* base,
   ws.xscale = cv.take<float>(n * 4);
   ws.samax = cv.take<float>(n * 4);
   ws.sscale = cv.take<float>(n * 4);
+  ws.wbulk = cv.take<int8_t>(static_cast<size_t>(NB * cout * 9 * cin));
   if (wsp != nullptr) *wsp = ws;
   return cv.off;
+}
+
+// Quantize x per image into ws.q (dense, (N, per_in)) and ws.xscale; sub
+// picks the pixels read. The absmax grid fills the card at small batches
+// (absmax_grid); a max, so its result does not depend on the grid.
+template <typename T>
+void quantize_input(const AtrousWs& ws, const T* x, Sub sub, int n, long per_in,
+                    cudaStream_t st) {
+  cudaMemsetAsync(ws.amax, 0, n * 4, st);
+  absmax_kernel<T><<<absmax_grid(per_in, n), EW_THREADS, 0, st>>>(x, per_in, sub, ws.amax);
+  quant_kernel<T><<<ew_grid(per_in, n), EW_THREADS, 0, st>>>(x, per_in, sub, ws.amax,
+                                                             ws.q, ws.xscale);
+}
+
+// The four branch convs of ws.q: weights wbk (NB*Cout, 9*Cin); branch b's
+// f, statistics and sb rows at the offsets of ConvArgs::branches; K6's
+// passes read the weights from ws.wbulk and a halo of the largest rate.
+ConvArgs branch_args(const AtrousWs& ws, const int8_t* wbk, const float* sb, int n, int h,
+                     int w, int cin, int cout, const int* rates) {
+  ConvArgs a{ws.q, wbk, ws.xscale, sb, sb + cout, nullptr, ws.f, ws.st_sum,
+             ws.st_sq, nullptr, n, h, w, cin, cout, 1};
+  a.branches = NB;
+  for (int b = 0; b < NB; ++b) a.bdil[b] = rates[b];
+  a.sb_stride = 2 * cout;
+  a.wbulk = ws.wbulk;
+  for (int b = 0; b < NB; ++b) a.hpad = rates[b] > a.hpad ? rates[b] : a.hpad;
+  return a;
+}
+
+// wbk (NB*Cout, 9*64) into ws.wbulk, the B tiles of K6's two passes.
+void branch_weights(const AtrousWs& ws, const int8_t* wbk, int cout, cudaStream_t st) {
+  launch_branch_weights(wbk, ws.wbulk, NB, cout, st);
 }
 
 // Quantize per image (sub picks the pixels read), then the four branch
@@ -182,22 +242,12 @@ template <typename T>
 cudaError_t branches(const AtrousWs& ws, const T* x, Sub sub, const int8_t* wbk,
                      const float* sb, int n, int h, int w, int cin, int cout,
                      const int* rates, float eps, cudaStream_t st) {
-  const long per_in = static_cast<long>(h) * w * cin;
   const long mc = static_cast<long>(n) * h * w * cout;
   const size_t nc = static_cast<size_t>(n) * cout;
-  cudaMemsetAsync(ws.amax, 0, n * 4, st);
-  absmax_kernel<T><<<dim3(16, n), EW_THREADS, 0, st>>>(x, per_in, sub, ws.amax);
-  quant_kernel<T><<<ew_grid(per_in, n), EW_THREADS, 0, st>>>(x, per_in, sub, ws.amax,
-                                                             ws.q, ws.xscale);
+  quantize_input(ws, x, sub, n, static_cast<long>(h) * w * cin, st);
   cudaMemsetAsync(ws.st_sum, 0, 2 * NB * nc * 4, st);
   if (conv_variant(n, h, w, cin, cout) != 0) {
-    // weights (NB*Cout, 9*Cin); branch b's f, statistics and sb rows at the
-    // offsets of ConvArgs::branches
-    ConvArgs a{ws.q, wbk, ws.xscale, sb, sb + cout, nullptr, ws.f, ws.st_sum,
-               ws.st_sq, nullptr, n, h, w, cin, cout, 1};
-    a.branches = NB;
-    for (int b = 0; b < NB; ++b) a.bdil[b] = rates[b];
-    a.sb_stride = 2 * cout;
+    const ConvArgs a = branch_args(ws, wbk, sb, n, h, w, cin, cout, rates);
     const cudaError_t e = atrous_wg_conv<EPI_STATS>(ws.q, false, wbk, a, st);
     if (e != cudaSuccess) return e;
   } else {
@@ -220,7 +270,7 @@ int atrous_resblock(const T* x, const int8_t* wbk, const int8_t* wck, const floa
                     T* out, void* workspace, int n, int h, int w, int c,
                     const int* rates, float eps, cudaStream_t st) {
   AtrousWs ws;
-  atrous_layout(n, h, w, c, c, static_cast<char*>(workspace), &ws);
+  atrous_layout(n, h, w, c, c, true, static_cast<char*>(workspace), &ws);
   const long per_image = static_cast<long>(h) * w * c;
   const long mc = n * per_image;
   const size_t nc = static_cast<size_t>(n) * c;
@@ -254,18 +304,78 @@ int atrous_resblock(const T* x, const int8_t* wbk, const int8_t* wck, const floa
   return static_cast<int>(cudaGetLastError());
 }
 
+// K6's first half on the fused passes (stage_fused): quantize x[::2, ::2]
+// and lay the weights out as B tiles, then pass A (the four branches' IN
+// sums, no f written) and the IN finalize, leaving the statistics in
+// ws.mean / ws.rsig.
+template <typename T>
+cudaError_t stage_stats(const AtrousWs& ws, const T* x, Sub sub, const int8_t* wbk,
+                        const float* sb, int n, int h, int w, int cin, int cout,
+                        const int* rates, float eps, cudaStream_t st) {
+  const ConvArgs a = branch_args(ws, wbk, sb, n, h, w, cin, cout, rates);
+  quantize_input(ws, x, sub, n, static_cast<long>(h) * w * cin, st);
+  branch_weights(ws, wbk, cout, st);
+  cudaMemsetAsync(ws.st_sum, 0, 2 * NB * static_cast<size_t>(n) * cout * 4, st);
+  const cudaError_t e = launch_wg_branches<EPI_BSTATS, float>(ws.q, a, st);
+  if (e != cudaSuccess) return e;
+  in_stats_kernel<false><<<NB * n, EW_THREADS, 0, st>>>(
+      ws.st_sum, ws.st_sq, nullptr, cout, static_cast<float>(h * w), eps, ws.mean,
+      ws.rsig, nullptr, nullptr);
+  return cudaSuccess;
+}
+
+// K6's second half: pass B, the branch sum of ws.q's four convs (weights
+// in ws.wbulk) under the statistics in ws.mean / ws.rsig, written to out
+// (N, h, w, Cout) as T.
+template <typename T>
+cudaError_t stage_sum(const AtrousWs& ws, const int8_t* wbk, const float* sb, T* out, int n,
+                      int h, int w, int cin, int cout, const int* rates, cudaStream_t st) {
+  ConvArgs a = branch_args(ws, wbk, sb, n, h, w, cin, cout, rates);
+  a.mean = ws.mean;
+  a.rsig = ws.rsig;
+  a.out = out;
+  return launch_wg_branches<EPI_BSUM, T>(ws.q, a, st);
+}
+
+// K6's route through f_b in device memory: the branch convs (EPI_STATS),
+// then branch_sum_kernel. Its path off stage_fused's shapes.
+template <typename T>
+cudaError_t stage_via_f(const AtrousWs& ws, const T* x, Sub sub, const int8_t* wbk,
+                        const float* sb, T* out, int n, int h, int w, int cin, int cout,
+                        const int* rates, float eps, cudaStream_t st) {
+  const cudaError_t e = branches(ws, x, sub, wbk, sb, n, h, w, cin, cout, rates, eps, st);
+  if (e != cudaSuccess) return e;
+  const long per_out = static_cast<long>(h) * w * cout;
+  branch_sum_kernel<T, false><<<ew_grid(per_out, n), EW_THREADS, 0, st>>>(
+      ws.f, per_out, n * per_out, cout, n, ws.mean, ws.rsig, out, nullptr);
+  return cudaSuccess;
+}
+
+// Whether K6 takes its fused passes (wg_branch_kernel) at (n, h, w, cin ->
+// cout) and rates: on the wgmma conv, Cin 64, and a halo of the largest
+// rate that the kernel takes (wb_shape_ok); else the route through f_b.
+bool stage_fused(int n, int h, int w, int cin, int cout, const int* rates) {
+  int rmax = 0;
+  for (int b = 0; b < NB; ++b) rmax = rates[b] > rmax ? rates[b] : rmax;
+  return conv_variant(n, h, w, cin, cout) != 0 && wb_shape_ok(w, cin, rmax);
+}
+
 template <typename T>
 int multi_atrous_stage(const T* x, int hin, int win, const int8_t* wbk, const float* sb,
                        T* out, void* workspace, int n, int h, int w, int cin,
                        int cout, const int* rates, float eps, cudaStream_t st) {
+  const bool fused = stage_fused(n, h, w, cin, cout, rates);
   AtrousWs ws;
-  atrous_layout(n, h, w, cin, cout, static_cast<char*>(workspace), &ws);
+  atrous_layout(n, h, w, cin, cout, !fused, static_cast<char*>(workspace), &ws);
   const Sub sub{2, w, win, cin, static_cast<long>(hin) * win * cin};
-  const cudaError_t e = branches(ws, x, sub, wbk, sb, n, h, w, cin, cout, rates, eps, st);
+  cudaError_t e;
+  if (fused) {
+    e = stage_stats(ws, x, sub, wbk, sb, n, h, w, cin, cout, rates, eps, st);
+    if (e == cudaSuccess) e = stage_sum(ws, wbk, sb, out, n, h, w, cin, cout, rates, st);
+  } else {
+    e = stage_via_f(ws, x, sub, wbk, sb, out, n, h, w, cin, cout, rates, eps, st);
+  }
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long per_out = static_cast<long>(h) * w * cout;
-  branch_sum_kernel<T, false><<<ew_grid(per_out, n), EW_THREADS, 0, st>>>(
-      ws.f, per_out, n * per_out, cout, n, ws.mean, ws.rsig, out, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -273,21 +383,25 @@ int multi_atrous_stage(const T* x, int hin, int win, const int8_t* wbk, const fl
 
 extern "C" {
 
-// Workspace of K5 (cin = cout = C) or K6 at (n, h, w) output pixels.
-size_t cistar_atrous_workspace_bytes(int n, int h, int w, int cin, int cout) {
-  return atrous_layout(n, h, w, cin, cout, nullptr, nullptr);
+// Workspace of K5 (k6_rmax = 0, cin = cout = C) or K6 (k6_rmax: its
+// largest rate) at (n, h, w) output pixels.
+size_t cistar_atrous_workspace_bytes(int n, int h, int w, int cin, int cout, int k6_rmax) {
+  const int rates[NB] = {k6_rmax, 1, 1, 1};
+  const bool fused = k6_rmax > 0 && stage_fused(n, h, w, cin, cout, rates);
+  return atrous_layout(n, h, w, cin, cout, !fused, nullptr, nullptr);
 }
 
 // Which conv K5's and K6's branch convs, K5's reflect conv and
-// cistar_conv3x3_zero_s8_acc run at (n, h, w, cin -> cout): the BN of
-// wg_conv_kernel (128), or 0 for conv_s8_kernel.
+// cistar_conv3x3_zero_s8_acc run at (n, h, w, cin -> cout): 1000 * BN +
+// the K stage's bytes of wg_conv_kernel (128128 or 128064), or 0 for
+// conv_s8_kernel.
 int cistar_atrous_conv_variant(int n, int h, int w, int cin, int cout) {
   return conv_variant(n, h, w, cin, cout);
 }
 
 // int32 accumulators of the zero-pad 3x3 conv at dilation dil: xq
 // (N,H,W,Cin) int8, wk (Cout, 9*Cin) int8 -> acc (N,H,W,Cout) int32. The
-// conv of K5's branches at every rate (conv_variant).
+// conv of K5's and K6's branches at every rate (conv_variant).
 int cistar_conv3x3_zero_s8_acc(const void* xq, const void* wk, void* acc, int n,
                                int h, int w, int cin, int cout, int dil,
                                void* stream) {

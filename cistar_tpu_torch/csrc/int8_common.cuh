@@ -5,9 +5,9 @@
 // + skip output pass, the epilogue codes and ConvArgs of both convs, and
 // the cp.async + mma.sync implicit-GEMM int8 conv (conv_s8_kernel) with
 // its epilogues (IN statistics, grouped input scales, ReLU and tile
-// maxima). conv_s8_kernel still serves K6 (whose 64 input channels are
-// half a K stage of the wgmma + TMA conv, wgmma_conv.cuh) and the K1 / K2
-// / K5 / K7 / K8 shapes outside that conv's tile rule.
+// maxima). conv_s8_kernel still serves the K1 / K2 / K5 / K6 / K7 / K8
+// shapes outside the tile rule of the wgmma + TMA conv (wgmma_conv.cuh),
+// K6's 256² stage 1 (32 -> 64 channels) among them.
 //
 // Numerical rules, each matched to the plain PyTorch versions
 // (cistar_tpu_torch/ops/quant_int8.py):
@@ -302,7 +302,18 @@ __global__ void quant_pad_kernel(const T* __restrict__ x, long per_image,
 //   EPI_GRELU   the same f, then ReLU. WANT_MAX: f into f (fp32) and its max
 //               per (image, tile of ct channels) into st_max; else f into out
 //               as TO (K8)
-enum Epi { EPI_RAW = 0, EPI_STATS = 1, EPI_GSTATS = 2, EPI_GRELU = 3 };
+//   wg_branch_kernel only (K6's two passes, wgmma_conv.cuh):
+//   EPI_BSTATS  each branch's sum and sum of squares of f; no f written
+//   EPI_BSUM    sum_b relu((f_b - mean_b) * rsig_b) in branch order, into out
+//               as TO
+enum Epi {
+  EPI_RAW = 0,
+  EPI_STATS = 1,
+  EPI_GSTATS = 2,
+  EPI_GRELU = 3,
+  EPI_BSTATS = 4,
+  EPI_BSUM = 5
+};
 
 // One conv launch. Its operands; the pointers an epilogue does not use may
 // be null.
@@ -322,13 +333,21 @@ struct ConvArgs {
   void* out = nullptr;        // EPI_GRELU without WANT_MAX
   int groups = 1;             // input channel groups, each cin / groups wide
   int ct = 0;                 // EPI_GRELU with WANT_MAX: tile of st_max
-  // wg_conv_kernel only (EPI_STATS): branches > 1 independent convs of xq in
-  // one launch (K5's four), branch b at dilation bdil[b] (dil unused) with
-  // weight rows b*cout .. of wk, ws / bias at + b*sb_stride, f at +
-  // b*n*h*w*cout and the statistics at + b*n*cout.
+  // wg_conv_kernel (EPI_STATS) and wg_branch_kernel: branches > 1 convs of
+  // xq in one launch (K5's and K6's four), branch b at dilation bdil[b]
+  // (dil unused) with weight rows b*cout .. of wk, ws / bias at +
+  // b*sb_stride, f at + b*n*h*w*cout and the statistics at + b*n*cout.
   int branches = 1;
   int bdil[4] = {1, 1, 1, 1};
   int sb_stride = 0;
+  // EPI_BSUM: each branch's IN statistics, (branches, N, Cout)
+  const float* mean = nullptr;
+  const float* rsig = nullptr;
+  // wg_branch_kernel: wk as one swizzled B tile a K stage
+  // (branch_weights_kernel), each loaded by one bulk copy; the halo of xq
+  // loaded with each tile, at least the largest bdil
+  const int8_t* wbulk = nullptr;
+  int hpad = 0;
 };
 
 // Implicit-GEMM KKxKK conv, stride 1, "same" size. xq (N,H,W,Cin) int8; wk

@@ -6,8 +6,9 @@
 // csrc/int8_tiled.cu: conv 1, the grouped conv 2 and
 // cistar_conv3x3_reflect_grouped_s8_acc; K5, csrc/int8_atrous.cu: the
 // four dilated branch convs in one launch, the reflect conv and
-// cistar_conv3x3_zero_s8_acc; K8, csrc/int8_msrb.cu: both branches, 3x3
-// and 5x5, and cistar_conv_zero_grouped_s8_acc) and bf16 x bf16 -> fp32
+// cistar_conv3x3_zero_s8_acc; K6, same file: its four branch convs, in
+// wg_branch_kernel below; K8, csrc/int8_msrb.cu: both branches, 3x3 and
+// 5x5, and cistar_conv_zero_grouped_s8_acc) and bf16 x bf16 -> fp32
 // (K3, csrc/conv3x3_in_act.cu).
 //
 // Serves the TPU kernels' convs
@@ -18,6 +19,8 @@
 //     _msrb_branch_kernel (:720-750, K8), whose K loops run group by group
 //   quant_pallas.py::_atrous_resblock_int8_kernel (:930-970, K5): four
 //     dilated zero-pad convs and one reflect conv
+//   quant_pallas.py::_multi_atrous_stage_int8_kernel (:1121-1140, K6):
+//     four dilated zero-pad convs, IN + ReLU each, summed
 //   cistar_tpu/ops/pallas_kernels.py::fused_conv3x3_in_act's body
 //     (:181-200, K3)
 // each a padded halo in VMEM and KK*KK shifted (H*W, Cin) x (Cin, Cout)
@@ -33,7 +36,7 @@
 // Design (what it does about that):
 //   * Tap (dy, dx) of an M tile that covers image rows y0 .. y0+R-1 is one
 //     4-D TMA box at (c0, x0 + dx*r + pad_off, y0 + dy*r + pad_off, n), box
-//     (128 bytes of C, min(W, 128), R = 128 / min(W, 128), 1), r the
+//     (KB bytes of C, min(W, 128), R = 128 / min(W, 128), 1), r the
 //     dilation (ConvArgs::dil): the TPU kernel's KK*KK shifted windows,
 //     fetched by the copy engine with no address arithmetic in the SM. TMA
 //     fills zeros, not reflections, outside the tensor, so reflect padding
@@ -56,17 +59,19 @@
 //     memory. Measured on an H100 at K5's shapes: the four branch convs
 //     ~15% faster than one block a tile; K7a's long K loops gain nothing,
 //     and keep one block a tile.
-//   * The weights (Cout, KK*KK*Cin), K-contiguous, are a 2-D box of (128
-//     bytes of K, BN rows). Both operands are K-major with 128-byte
-//     swizzle, the layout wgmma reads (and the only one it takes for 8-bit
-//     types).
+//   * The weights (Cout, KK*KK*Cin), K-contiguous, are a 2-D box of (KB
+//     bytes of K, BN rows). Both operands are K-major with KB-byte swizzle,
+//     the layout wgmma reads (and the only kind it takes for 8-bit types).
+//     KB, the bytes of K a stage, is 128 (one 128-byte swizzle row) or 64
+//     (64-byte swizzle, 8-row groups 512 B apart): K6's 64 input channels
+//     are 64 bytes, and a 128-byte stage would span two taps.
 //   * A ring of STAGES tiles in shared memory (4 at BN 256, 6 at BN 128,
-//     192 KB; PERSIST 3 / 5), each an A tile of 128 pixels and a B tile of
-//     BN channels x 128 bytes of K, filled by one producer thread through
-//     an mbarrier per stage ("full") and released by the consumers through
-//     another ("empty").
+//     192 KB; PERSIST 3 / 5; twice as many at KB 64), each an A tile of
+//     128 pixels and a B tile of BN channels x KB bytes of K, filled by
+//     one producer thread through an mbarrier per stage ("full") and
+//     released by the consumers through another ("empty").
 //   * Two consumer warpgroups, 64 rows each, run wgmma.mma_async
-//     m64nBNk32 (s8) / k16 (bf16) on the arrived tiles: 4 per stage, one
+//     m64nBNk32 (s8) / k16 (bf16) on the arrived tiles: KB / 32 a stage, one
 //     group kept in flight, so a stage is released while the next one's
 //     products run. setmaxnreg moves registers from the producer warpgroup
 //     (40) to the consumers (232): BN 256 holds 128 accumulators a thread.
@@ -96,16 +101,18 @@
 //
 // The tile rule (wg_tile_ok): W divides 128 or 128 divides W (a tile is
 // whole image rows, or 128 pixels of one row), H*W % 128 == 0 (a tile lies
-// in one image), KK 3 or 5, 128 bytes divide Cin / groups (a K stage lies
-// in one tap of one group) and Cout % 128 == 0; the dilation does not
-// enter it. Every K1 shape on the ported paths (ResNet-9 and multiscale
-// 256² at (B, 32, 32, 512), the JAX budget configuration's (B, 16, 16,
-// 128)), K3's (B, 32, 32, 512), K7a's and K7b's (B, 32, 32, 1024) and (B,
-// 64, 64, 512) (K7b in 256- or 128-channel groups), K5's (B, 64, 64, 128)
-// and K8's (B, 64, 64, 512 | 1024) in 1 or 8 groups meet it; other shapes
-// keep conv_s8_kernel (K1, K2, K5, K7, K8; K6, whose 64 input channels
-// are half a K stage, at every path shape) or conv_ffma_kernel (K3),
-// chosen by shape.
+// in one image), KK 3 or 5, the stage's KB bytes divide Cin / groups (a K
+// stage lies in one tap of one group) and Cout % 128 == 0; the dilation
+// does not enter it. wg_kbytes takes KB 128 wherever that holds, else 64;
+// only int8_atrous.cu (K5, K6) asks it, the other libraries keep KB 128.
+// Every K1 shape on the ported paths (ResNet-9 and multiscale 256² at (B,
+// 32, 32, 512), the JAX budget configuration's (B, 16, 16, 128)), K3's (B,
+// 32, 32, 512), K7a's and K7b's (B, 32, 32, 1024) and (B, 64, 64, 512) (K7b
+// in 256- or 128-channel groups), K5's (B, 64, 64, 128) and K8's (B, 64,
+// 64, 512 | 1024) in 1 or 8 groups meet it; other shapes keep
+// conv_s8_kernel (K1, K2, K5, K7, K8; K6's 256² stage 1, 32 -> 64 channels)
+// or conv_ffma_kernel (K3), chosen by shape. K6's stage 2 (B, 64, 64, 64 ->
+// 128) takes KB 64.
 //
 // The TMA descriptors hold the tensors' pointers, so they are encoded on
 // the host for each launch (cuTensorMapEncodeTiled, reached through
@@ -122,8 +129,9 @@ namespace {
 
 constexpr int WG_BM = 128;        // output pixels per block
 constexpr int WG_THREADS = 384;   // producer warpgroup + 2 consumer warpgroups
-constexpr int WG_KBYTES = 128;    // bytes of K per stage: one swizzle row
+constexpr int WG_KBYTES = 128;    // bytes of K per stage, unless KB says 64
 constexpr int WG_SMS = 132;       // SMs of an H100 SXM, for the choice of BN
+constexpr int WG_SMEM_MAX = 232448;  // dynamic shared memory a block may have
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -179,13 +187,29 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Shared-memory matrix descriptor of a K-major tile with 128-byte swizzle:
-// rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), layout type 1.
-// The tile starts on a 1024-byte boundary; a K step of 32 bytes inside the
+// One bulk copy (no tensor map) of `bytes` contiguous bytes, completing on
+// bar's transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major tile with KB-byte swizzle:
+// rows of KB bytes, 8-row groups 8 * KB bytes apart (SBO), layout type 1
+// (128-byte swizzle) or 2 (64-byte). The tile starts at a row of a pattern
+// laid out from a 1024-byte boundary; a K step of 32 bytes inside the
 // swizzle row adds 2 to the address field.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+template <int KB>
+__device__ __forceinline__ uint64_t sw_desc(const void* p) {
+  static_assert(KB == 128 || KB == 64, "a K stage of 128 or 64 bytes");
+  // the swizzle follows the absolute shared-memory address (base offset
+  // 0), so a tile may start rows into its pattern (K6's halo windows)
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
-         (64ull << 32) | (1ull << 62);
+         (static_cast<uint64_t>(8 * KB / 16) << 32) | ((KB == 128 ? 1ull : 2ull) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -342,19 +366,20 @@ __device__ __forceinline__ void wg_mma(float* d, uint64_t da, uint64_t db) {
 // the ring (the producer refills it meanwhile), so it takes one stage
 // fewer (BN 128) or two (BN 256): shared memory stays under the 196 KB
 // carveout, above which the SM keeps 28 KB of L1 instead of 60: a 9-stage
-// K loop (K5's convs) ran ~10% slower there on an H100.
-template <int BN, bool PERSIST>
+// K loop (K5's convs) ran ~10% slower there on an H100. A 64-byte stage
+// is half as large: the same bytes hold twice the stages.
+template <int BN, bool PERSIST, int KB = WG_KBYTES>
 __host__ __device__ constexpr int wg_stages() {
-  return PERSIST ? (BN == 256 ? 3 : 5) : (BN == 256 ? 4 : 6);
+  return (PERSIST ? (BN == 256 ? 3 : 5) : (BN == 256 ? 4 : 6)) * (WG_KBYTES / KB);
 }
 
-template <int BN, bool PERSIST>
+template <int BN, bool PERSIST, int KB = WG_KBYTES>
 __host__ __device__ constexpr int wg_smem_bytes() {
   // the ring, 1 KB of slack to align it to 1024, the barriers; PERSIST:
   // the epilogue's partial sums (8 warps x 3 x BN fp32), else they reuse
   // the drained ring
-  return wg_stages<BN, PERSIST>() * (WG_BM + BN) * WG_KBYTES + 1024 +
-         2 * wg_stages<BN, PERSIST>() * 8 + (PERSIST ? 8 * 3 * BN * 4 : 0);
+  return wg_stages<BN, PERSIST, KB>() * (WG_BM + BN) * KB + 1024 +
+         2 * wg_stages<BN, PERSIST, KB>() * 8 + (PERSIST ? 8 * 3 * BN * 4 : 0);
 }
 
 // Where output tile `tile` lies: tiles run M tile fastest, then the BN
@@ -368,6 +393,12 @@ struct WgTile {
   int dil, pad_off;  // the branch's dilation and the box offset of tap (0, 0)
 };
 
+// The dilation of branch b (ConvArgs::bdil), without indexing the kernel
+// parameter by a register.
+__device__ __forceinline__ int branch_dil(const ConvArgs& a, int b) {
+  return b == 0 ? a.bdil[0] : b == 1 ? a.bdil[1] : b == 2 ? a.bdil[2] : a.bdil[3];
+}
+
 __device__ __forceinline__ WgTile wg_tile(const ConvArgs& a, int tile, int mtiles, int bn,
                                           int kk, int padded) {
   WgTile c;
@@ -380,12 +411,7 @@ __device__ __forceinline__ WgTile wg_tile(const ConvArgs& a, int tile, int mtile
   c.wrow = nt * bn;
   c.br = c.wrow / a.cout;
   c.n0 = c.wrow - c.br * a.cout;
-  const int b = c.br;
-  c.dil = a.branches == 1 ? a.dil
-          : b == 0        ? a.bdil[0]
-          : b == 1        ? a.bdil[1]
-          : b == 2        ? a.bdil[2]
-                          : a.bdil[3];
+  c.dil = a.branches == 1 ? a.dil : branch_dil(a, c.br);
   c.pad_off = padded ? 0 : -(kk / 2) * c.dil;
   return c;
 }
@@ -408,16 +434,16 @@ __device__ __forceinline__ WgTile wg_tile(const ConvArgs& a, int tile, int mtile
 // grp] to an fp32 sum in group order; the accumulators restart from 0.
 // Epilogue fields of `a` as conv_s8_kernel's.
 template <typename T, int BN, int EPI, bool WANT_MAX, int KK = 3, typename TO = float,
-          bool PERSIST = false>
+          bool PERSIST = false, int KB = WG_KBYTES>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     wg_conv_kernel(const __grid_constant__ CUtensorMap tx,
                    const __grid_constant__ CUtensorMap tw, const ConvArgs a,
                    int padded) {
   using Acc = typename WgOperand<T>::Acc;
   constexpr bool GROUPED = EPI == EPI_GSTATS || EPI == EPI_GRELU;
-  constexpr int STAGES = wg_stages<BN, PERSIST>();
-  constexpr int A_BYTES = WG_BM * WG_KBYTES, B_BYTES = BN * WG_KBYTES;
-  constexpr int KE = WG_KBYTES / static_cast<int>(sizeof(T));  // K elements a stage
+  constexpr int STAGES = wg_stages<BN, PERSIST, KB>();
+  constexpr int A_BYTES = WG_BM * KB, B_BYTES = BN * KB;
+  constexpr int KE = KB / static_cast<int>(sizeof(T));  // K elements a stage
   constexpr int NA = BN / 2;  // accumulators a thread
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -496,11 +522,11 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     for (int kt = 0, grp = 0, gk = 0; kt < KT; ++kt, ++u) {
       const int s = u % STAGES;
       mbar_wait(&full[s], (u / STAGES) & 1);
-      const uint64_t da = sw128_desc(sa + s * A_BYTES + cw * 64 * WG_KBYTES);
-      const uint64_t db = sw128_desc(sb + s * B_BYTES);
+      const uint64_t da = sw_desc<KB>(sa + s * A_BYTES + cw * 64 * KB);
+      const uint64_t db = sw_desc<KB>(sb + s * B_BYTES);
       wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < WG_KBYTES / 32; ++k) wg_mma<BN>(acc, da + 2 * k, db + 2 * k);
+      for (int k = 0; k < KB / 32; ++k) wg_mma<BN>(acc, da + 2 * k, db + 2 * k);
       wgmma_commit();
       // keep this stage's group in flight; the previous one is done: release
       // it. Each stage use is released exactly once: here, by the next
@@ -663,15 +689,25 @@ void launch_reflect_pad(const T* x, T* xp, int n, int h, int w, int c, cudaStrea
                           st>>>(x, xp, n, h, w, c);
 }
 
-// Whether a conv takes wg_conv_kernel (see the note at the top); elem:
-// bytes of one operand value; kk: 3 or 5 taps a side; groups: input groups,
-// each Cin / groups wide, of which 128 bytes must divide.
+// Whether a conv takes wg_conv_kernel at K stages of kbytes bytes (see the
+// note at the top); elem: bytes of one operand value; kk: 3 or 5 taps a
+// side; groups: input groups, each Cin / groups wide, of which kbytes must
+// divide.
 bool wg_tile_ok(int n, int h, int w, int cin, int cout, int elem, int kk = 3,
-                int groups = 1) {
+                int groups = 1, int kbytes = WG_KBYTES) {
   const bool rows = (w <= WG_BM && WG_BM % w == 0) || w % WG_BM == 0;
   return n > 0 && h >= 2 && w >= 2 && rows && (h * w) % WG_BM == 0 &&
          (kk == 3 || kk == 5) && groups > 0 && cin % groups == 0 &&
-         (cin / groups * elem) % WG_KBYTES == 0 && cout % 128 == 0;
+         (cin / groups * elem) % kbytes == 0 && cout % 128 == 0;
+}
+
+// The K stage a conv takes: 128 bytes wherever wg_tile_ok holds at 128,
+// else 64 where it holds at 64, else 0 (conv_s8_kernel).
+int wg_kbytes(int n, int h, int w, int cin, int cout, int elem, int kk = 3,
+              int groups = 1) {
+  return wg_tile_ok(n, h, w, cin, cout, elem, kk, groups, 128)  ? 128
+         : wg_tile_ok(n, h, w, cin, cout, elem, kk, groups, 64) ? 64
+                                                                 : 0;
 }
 
 // BN 256 where Cout allows it and the grid keeps 2 blocks per SM, else 128.
@@ -715,11 +751,12 @@ EncodeTiledFn encode_tiled() {
 
 // One block per output tile, or (PERSIST) one per SM of the current
 // device, each walking the tiles gridDim.x apart.
-template <typename T, int BN, int EPI, bool WANT_MAX, int KK, typename TO, bool PERSIST>
+template <typename T, int BN, int EPI, bool WANT_MAX, int KK, typename TO, bool PERSIST,
+          int KB>
 cudaError_t wg_launch(const CUtensorMap& tx, const CUtensorMap& tw, const ConvArgs& a,
                       int padded, cudaStream_t st) {
-  auto kern = wg_conv_kernel<T, BN, EPI, WANT_MAX, KK, TO, PERSIST>;
-  constexpr int smem = wg_smem_bytes<BN, PERSIST>();
+  auto kern = wg_conv_kernel<T, BN, EPI, WANT_MAX, KK, TO, PERSIST, KB>;
+  constexpr int smem = wg_smem_bytes<BN, PERSIST, KB>();
   static bool attr = false;
   if (!attr) {
     const cudaError_t e =
@@ -745,12 +782,12 @@ cudaError_t wg_launch(const CUtensorMap& tx, const CUtensorMap& tw, const ConvAr
 // dilation 1); else x is (N, H, W, Cin) and the padding is zeros,
 // (KK/2)*dil a side. a.branches > 1 (EPI_STATS): that many convs of x in
 // one launch, wk (branches*Cout, KK*KK*Cin), at the dilations a.bdil.
-// PERSIST: one block per SM walks the tiles (short K loops, K5). The
-// shape meets wg_tile_ok. Returns the launch's error, or
-// cudaErrorInvalidValue where the arguments or a descriptor cannot be
-// taken.
+// PERSIST: one block per SM walks the tiles (short K loops, K5). KB: the
+// bytes of K a stage, 128 or 64. The shape meets wg_tile_ok at KB. Returns
+// the launch's error, or cudaErrorInvalidValue where the arguments or a
+// descriptor cannot be taken.
 template <int BN, typename T, int EPI, bool WANT_MAX, int KK = 3, typename TO = float,
-          bool PERSIST = false>
+          bool PERSIST = false, int KB = WG_KBYTES>
 cudaError_t launch_wg_conv_bn(const T* x, bool padded, const T* wk, const ConvArgs& a,
                               cudaStream_t st) {
   if (a.branches < 1 || a.branches > 4 || a.dil < 1 ||
@@ -761,7 +798,9 @@ cudaError_t launch_wg_conv_bn(const T* x, bool padded, const T* wk, const ConvAr
       if (a.bdil[b] < 1) return cudaErrorInvalidValue;
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return cudaErrorInvalidValue;
-  const int es = static_cast<int>(sizeof(T)), ke = WG_KBYTES / es, p = KK / 2;
+  const int es = static_cast<int>(sizeof(T)), ke = KB / es, p = KK / 2;
+  const CUtensorMapSwizzle swz =
+      KB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   const cuuint32_t bxw = static_cast<cuuint32_t>(a.w < WG_BM ? a.w : WG_BM);
   const cuuint64_t wp = a.w + (padded ? 2 * p : 0), hp = a.h + (padded ? 2 * p : 0);
   const cuuint64_t c = a.cin, kc = static_cast<cuuint64_t>(KK * KK) * c;
@@ -771,7 +810,7 @@ cudaError_t launch_wg_conv_bn(const T* x, bool padded, const T* wk, const ConvAr
   const cuuint32_t xbox[4] = {static_cast<cuuint32_t>(ke), bxw, WG_BM / bxw, 1};
   const cuuint32_t ones[4] = {1, 1, 1, 1};
   if (enc(&tx, WgOperand<T>::tma, 4, const_cast<T*>(x), xdim, xstride, xbox, ones,
-          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
@@ -779,11 +818,11 @@ cudaError_t launch_wg_conv_bn(const T* x, bool padded, const T* wk, const ConvAr
   const cuuint64_t wstride[1] = {kc * es};
   const cuuint32_t wbox[2] = {static_cast<cuuint32_t>(ke), static_cast<cuuint32_t>(BN)};
   if (enc(&tw, WgOperand<T>::tma, 2, const_cast<T*>(wk), wdim, wstride, wbox, ones,
-          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  return wg_launch<T, BN, EPI, WANT_MAX, KK, TO, PERSIST>(tx, tw, a, padded ? 1 : 0, st);
+  return wg_launch<T, BN, EPI, WANT_MAX, KK, TO, PERSIST, KB>(tx, tw, a, padded ? 1 : 0, st);
 }
 
 // The 3x3 conv of the ungrouped callers (K1, K2, K3, K7a) at the BN of
@@ -795,6 +834,353 @@ cudaError_t launch_wg_conv(const T* x, bool padded, const T* wk, const ConvArgs&
   return wg_bn(a.n, a.h, a.w, a.cout) == 256
              ? launch_wg_conv_bn<256, T, EPI, WANT_MAX, 3, float, P>(x, padded, wk, a, st)
              : launch_wg_conv_bn<128, T, EPI, WANT_MAX, 3, float, P>(x, padded, wk, a, st);
+}
+
+// ---------------------------------------------------------------------------
+// K6's four branch convs (quant_pallas.py::_multi_atrous_stage_int8_kernel:
+// four dilated zero-pad 3x3 convs of one input, each dequantized, IN +
+// ReLU, summed), twice over the same products: EPI_BSTATS sums each
+// branch's IN statistics, EPI_BSUM adds relu(IN f_b) in branch order. No
+// f_b leaves the SM (as f_b, K5's route would move 537 MB at batch 32).
+//
+// wg_branch_kernel<EPI, TO>: persistent blocks of four warpgroups, a tile
+// of 128 pixels x WB_BN channels, Cin = 64 int8 (one 64-byte K stage a
+// tap), the tile's K loop the four branches x 9 taps:
+//   * warpgroup 0, thread 0 (the producer): per tile, one TMA box of the
+//     tile's input and a halo of a.hpad pixels a side (zeros outside the
+//     image) into one of two buffers; per K stage, one bulk copy of its B
+//     tile, pre-swizzled (branch_weights_kernel), into a ring of
+//     WB_STAGES. A box a tap would read each input pixel 36 times over the
+//     L2, in rows of 64 bytes.
+//   * warpgroups 1 and 2 (64 rows each: one image row, W % 64 == 0):
+//     wgmma m64n128k32 with A the tap's window of the halo, 64 consecutive
+//     pixels (the swizzle follows the shared-memory address, so a window
+//     may start at any pixel), and B the ring's stage. At a branch's last
+//     stage they wait for its products, copy the int32 accumulators into
+//     a 64 KB buffer and go on with the next branch.
+//   * warpgroup 3, one thread a channel of the tile (the epilogue): the
+//     flush of each branch from that buffer, f = acc * (xs * ws) + bias
+//     (EPI_STATS's ops), then
+//       EPI_BSTATS  the column's sum and sum of squares over the tile's
+//                   128 pixels in order, into the (branch, image, channel)
+//                   statistics with atomics;
+//       EPI_BSUM    v += relu((f - mean) * rsig) into fp32 registers, in
+//                   branch order (branch_sum_kernel's ops: given the same
+//                   statistics, its output bit for bit), the tile's sum
+//                   written once as TO.
+//     A branch's flush runs while the tensor cores work on the next one:
+//     in the MMA warpgroups it would stall them about as long as the
+//     products take (a second register set there makes ptxas serialize
+//     the wgmmas).
+constexpr int WB_THREADS = 512;  // producer, 2 MMA warpgroups, epilogue warpgroup
+constexpr int WB_BN = 128;       // output channels a tile
+constexpr int WB_KB = 64;        // bytes of K a stage: Cin
+constexpr int WB_STAGES = 8;     // B stages in the ring
+constexpr int WB_EP = WG_BM + 4;  // words a column of the accumulator buffer
+
+// The tile's input and its halo of hpad pixels a side: (cols + 2 hpad) x
+// (rows + 2 hpad) pixels of WB_KB bytes (the tile is rows image rows of
+// cols pixels). Bytes of the TMA box, and of a buffer (a multiple of 1 KB).
+__host__ __device__ inline int wb_halo_box_bytes(int w, int hpad) {
+  const int cols = w < WG_BM ? w : WG_BM;
+  return (cols + 2 * hpad) * (WG_BM / cols + 2 * hpad) * WB_KB;
+}
+__host__ __device__ inline int wb_halo_stride(int w, int hpad) {
+  return (wb_halo_box_bytes(w, hpad) + 1023) / 1024 * 1024;
+}
+
+// Dynamic shared memory of wg_branch_kernel: two halo buffers, the B ring,
+// the accumulator buffer (WB_BN columns of WB_EP int32), 1 KB of alignment
+// slack, the barriers.
+inline int wb_smem_bytes(int w, int hpad) {
+  return 2 * wb_halo_stride(w, hpad) + WB_STAGES * WB_BN * WB_KB + WB_BN * WB_EP * 4 + 1024 +
+         (2 * WB_STAGES + 6) * 8;
+}
+
+// Whether wg_branch_kernel takes a shape with a halo of hpad pixels: Cin
+// 64, each MMA warpgroup's 64 pixels in one image row (W % 64 == 0), the
+// halo box at most 256 a side, the shared memory within a block's.
+bool wb_shape_ok(int w, int cin, int hpad) {
+  const int cols = w < WG_BM ? w : WG_BM;
+  return cin == WB_KB && w % 64 == 0 && hpad >= 0 && cols + 2 * hpad <= 256 &&
+         WG_BM / cols + 2 * hpad <= 256 && wb_smem_bytes(w, hpad) <= WG_SMEM_MAX;
+}
+
+// The accumulator buffer is column-major, a column WB_EP words apart: the
+// epilogue thread of a column reads 4 rows a 16-byte load, and neither
+// those loads nor the MMA threads' stores meet a bank conflict.
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// wk (branches*Cout, 9*64) int8 -> wbulk: the B tile of K stage kt (branch
+// kt / 9, tap kt % 9) and column block nb at (kt * (Cout / WB_BN) + nb) *
+// WB_BN * WB_KB, its WB_BN rows of 64 bytes in the swizzle TMA would write:
+// 16-byte chunk c of row r at chunk c ^ ((r / 2) % 4). One thread a chunk.
+__global__ void branch_weights_kernel(const int8_t* __restrict__ wk,
+                                      int8_t* __restrict__ wbulk, int cout, long chunks) {
+  constexpr int CPR = WB_KB / 16;  // chunks a row
+  const int nbs = cout / WB_BN;
+  for (long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x; i < chunks;
+       i += static_cast<long>(gridDim.x) * blockDim.x) {
+    const int c = static_cast<int>(i % CPR);
+    const long row = i / CPR;
+    const int rr = static_cast<int>(row % WB_BN);
+    const long tile = row / WB_BN;
+    const int nb = static_cast<int>(tile % nbs);
+    const int kt = static_cast<int>(tile / nbs);
+    const long src = (static_cast<long>(kt / 9) * cout + nb * WB_BN + rr) * 9 * WB_KB +
+                     (kt % 9) * WB_KB + c * 16;
+    *reinterpret_cast<uint4*>(wbulk + row * WB_KB + (c ^ ((rr >> 1) & 3)) * 16) =
+        *reinterpret_cast<const uint4*>(wk + src);
+  }
+}
+
+void launch_branch_weights(const int8_t* wk, int8_t* wbulk, int branches, int cout,
+                           cudaStream_t st) {
+  const long chunks = static_cast<long>(branches) * cout * 9 * WB_KB / 16;
+  const long blocks = (chunks + EW_THREADS - 1) / EW_THREADS;
+  branch_weights_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), EW_THREADS, 0,
+                          st>>>(wk, wbulk, cout, chunks);
+}
+
+// tx: the input x (N, H, W, 64) int8, box (64, cols + 2 hpad, rows + 2
+// hpad, 1) with 64-byte swizzle. `a`: n, h, w, cout, branches, bdil, hpad,
+// xs, ws / bias (sb_stride apart a branch), wbulk; EPI_BSTATS st_sum /
+// st_sq, EPI_BSUM mean / rsig and out.
+template <int EPI, typename TO>
+__global__ void __launch_bounds__(WB_THREADS, 1)
+    wg_branch_kernel(const __grid_constant__ CUtensorMap tx, const ConvArgs a) {
+  constexpr int NA = WB_BN / 2, B_BYTES = WB_BN * WB_KB, STAGES = WB_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int hstride = wb_halo_stride(a.w, a.hpad);
+  uint8_t* halo = smem;  // two buffers
+  uint8_t* sb = smem + 2 * hstride;
+  int* ebuf = reinterpret_cast<int*>(sb + STAGES * B_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ebuf + WB_BN * WB_EP);
+  uint64_t* empty = full + STAGES;
+  uint64_t* hfull = empty + STAGES;  // a halo buffer loaded / done with
+  uint64_t* hempty = hfull + 2;
+  uint64_t* efull = hempty + 2;      // the accumulator buffer written / read
+  uint64_t* eempty = efull + 1;
+
+  const int Cout = a.cout, KT = a.branches * 9;
+  const int mtiles = static_cast<int>(static_cast<long>(a.n) * a.h * a.w / WG_BM);
+  const int tiles = mtiles * (Cout / WB_BN);
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per MMA warpgroup
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&hfull[b], 1);
+      mbar_init(&hempty[b], 2);
+    }
+    mbar_init(efull, 256);  // every MMA thread
+    mbar_init(eempty, 128);  // every epilogue thread
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Stage use u (over all tiles of this block) is ring slot u % STAGES in
+  // its phase u / STAGES; tile it of the block uses halo buffer it % 2 in
+  // its phase it / 2; e, the block's branch-tiles, the accumulator
+  // buffer's phases.
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (t == 0) {
+      // tile it's halo into buffer it % 2, once tile it - 2 is done with it
+      const auto load_halo = [&](int tile, int it) {
+        const WgTile tc = wg_tile(a, tile, mtiles, WB_BN, 3, 0);
+        const int hb = it & 1;
+        if (it >= 2) mbar_wait(&hempty[hb], ((it >> 1) - 1) & 1);
+        mbar_expect_tx(&hfull[hb], wb_halo_box_bytes(a.w, a.hpad));
+        tma_load_4d(halo + hb * hstride, &tx, &hfull[hb], 0, tc.x0 - a.hpad, tc.y0 - a.hpad,
+                    tc.img);
+      };
+      if (blockIdx.x < tiles) load_halo(blockIdx.x, 0);
+      // the stage at which the next tile's halo is asked for: the ring's
+      // depth into this tile, so the MMA warpgroups are done with the
+      // previous tile and its buffer, and a few branches ahead of its use
+      const int hk = KT > STAGES + 1 ? STAGES + 1 : KT - 1;
+      for (int tile = blockIdx.x, u = 0, it = 0; tile < tiles; tile += gridDim.x, ++it) {
+        const WgTile tc = wg_tile(a, tile, mtiles, WB_BN, 3, 0);
+        for (int kt = 0; kt < KT; ++kt, ++u) {
+          if (kt == hk && tile + gridDim.x < tiles) load_halo(tile + gridDim.x, it + 1);
+          const int s = u % STAGES;
+          if (u >= STAGES) mbar_wait(&empty[s], ((u / STAGES) - 1) & 1);
+          mbar_expect_tx(&full[s], B_BYTES);
+          bulk_load(sb + s * B_BYTES,
+                    a.wbulk + (static_cast<long>(kt) * (Cout / WB_BN) + tc.n0 / WB_BN) * B_BYTES,
+                    B_BYTES, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  if (wg == 3) {
+    // the epilogue: thread t is column t of each tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 208;\n");
+    float fv[EPI == EPI_BSUM ? WG_BM : 1];  // the tile's branch sum, one a row
+    for (int tile = blockIdx.x, e = 0; tile < tiles; tile += gridDim.x) {
+      const WgTile tc = wg_tile(a, tile, mtiles, WB_BN, 3, 0);
+      const float xs = a.xs[tc.img];
+      if constexpr (EPI == EPI_BSUM) {
+#pragma unroll
+        for (int r = 0; r < WG_BM; ++r) fv[r] = 0.f;
+      }
+      for (int br = 0; br < a.branches; ++br, ++e) {
+        const long sbo = static_cast<long>(br) * a.sb_stride + tc.n0 + t;
+        const float scale = __fmul_rn(xs, a.ws[sbo]), b = a.bias[sbo];
+        const long so = (static_cast<long>(br) * a.n + tc.img) * Cout + tc.n0 + t;
+        const float mu = EPI == EPI_BSUM ? a.mean[so] : 0.f;
+        const float rs = EPI == EPI_BSUM ? a.rsig[so] : 0.f;
+        mbar_wait(efull, e & 1);
+        float sm = 0.f, sq = 0.f;
+        const int4* col = reinterpret_cast<const int4*>(ebuf + t * WB_EP);
+#pragma unroll
+        for (int r4 = 0; r4 < WG_BM / 4; ++r4) {
+          const int4 v4 = col[r4];
+          const int v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float x = __fadd_rn(__fmul_rn(static_cast<float>(v[i]), scale), b);
+            if constexpr (EPI == EPI_BSTATS) {
+              sm = __fadd_rn(sm, x);
+              sq = __fadd_rn(sq, __fmul_rn(x, x));
+            } else {
+              const int r = 4 * r4 + i;
+              fv[r] = __fadd_rn(fv[r], fmaxf(__fmul_rn(__fsub_rn(x, mu), rs), 0.f));
+            }
+          }
+        }
+        mbar_arrive(eempty);
+        if constexpr (EPI == EPI_BSTATS) {
+          atomicAdd(a.st_sum + so, sm);
+          atomicAdd(a.st_sq + so, sq);
+        }
+      }
+      if constexpr (EPI == EPI_BSUM) {
+        TO* const out = static_cast<TO*>(a.out) + tc.m0 * Cout + tc.n0 + t;
+#pragma unroll
+        for (int r = 0; r < WG_BM; ++r) store1(out + static_cast<long>(r) * Cout, fv[r]);
+      }
+    }
+    return;
+  }
+
+  // the MMA warpgroups: rows cw*64 .. cw*64+63 of the tile, one image row
+  // from (prow, pcol) of the tile; its halo rows hold hcols pixels
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 120;\n");
+  const int cw = wg - 1;
+  const int cols = a.w < WG_BM ? a.w : WG_BM, hcols = cols + 2 * a.hpad;
+  const int prow = cw * 64 / cols, pcol = cw * 64 % cols;
+  // Accumulator i of thread t: n8 block j = i / 4, row 16 * (t / 32) +
+  // (t % 32) / 4 + 8 * ((i / 2) % 2), column 8 * j + 2 * (t % 4) + i % 2.
+  const int g = (t & 31) >> 2, q = t & 3;
+  const int r0 = cw * 64 + (t >> 5) * 16 + g;  // and r0 + 8
+  int acc[NA];
+  for (int tile = blockIdx.x, u = 0, it = 0, e = 0; tile < tiles; tile += gridDim.x, ++it) {
+    const uint8_t* const hb = halo + (it & 1) * hstride;
+    mbar_wait(&hfull[it & 1], (it >> 1) & 1);
+    for (int br = 0; br < a.branches; ++br, ++e) {
+      const int dil = branch_dil(a, br);
+#pragma unroll
+      for (int i = 0; i < NA; ++i) acc[i] = 0;
+      for (int k = 0; k < 9; ++k, ++u) {
+        const int s = u % STAGES;
+        mbar_wait(&full[s], (u / STAGES) & 1);
+        const int hy = prow + (k / 3 - 1) * dil + a.hpad, hx = pcol + (k % 3 - 1) * dil + a.hpad;
+        const uint64_t da = sw_desc<WB_KB>(hb + (hy * hcols + hx) * WB_KB);
+        const uint64_t db = sw_desc<WB_KB>(sb + s * B_BYTES);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < WB_KB / 32; ++kk) wg_mma<WB_BN>(acc, da + 2 * kk, db + 2 * kk);
+        wgmma_commit();
+        // the previous stage's products are done: release it (each stage
+        // use once: here, or the branch's last below)
+        wgmma_wait<1>();
+        if (k > 0 && t == 0) mbar_arrive(&empty[(u - 1) % STAGES]);
+      }
+      wgmma_wait<0>();
+      if (t == 0) {
+        mbar_arrive(&empty[(u - 1) % STAGES]);
+        if (br == a.branches - 1) mbar_arrive(&hempty[it & 1]);  // done with the halo
+      }
+#pragma unroll
+      for (int i = 0; i < NA; ++i) reg_fence(acc[i]);
+      // hand the branch's accumulators to the epilogue, once it has read
+      // the previous branch's
+      if (e > 0) mbar_wait(eempty, (e - 1) & 1);
+#pragma unroll
+      for (int j = 0; j < WB_BN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          int* const p = ebuf + (8 * j + 2 * q) * WB_EP + r0 + 8 * h;
+          p[0] = acc[4 * j + 2 * h];
+          p[WB_EP] = acc[4 * j + 2 * h + 1];
+        }
+      mbar_arrive(efull);
+    }
+  }
+}
+
+// K6's passes on x (N, H, W, 64) int8 (see wg_branch_kernel): one block per
+// SM. `a` as the kernel takes it; the shape meets wb_shape_ok and every
+// bdil is at most a.hpad. Returns the launch's error, or
+// cudaErrorInvalidValue where the arguments or the descriptor cannot be
+// taken.
+template <int EPI, typename TO>
+cudaError_t launch_wg_branches(const int8_t* x, const ConvArgs& a, cudaStream_t st) {
+  static_assert(EPI == EPI_BSTATS || EPI == EPI_BSUM, "K6's passes");
+  bool ok = a.branches >= 1 && a.branches <= 4 && a.wbulk != nullptr && a.cout % WB_BN == 0 &&
+            (static_cast<long>(a.n) * a.h * a.w) % WG_BM == 0 && a.h * a.w % WG_BM == 0 &&
+            wb_shape_ok(a.w, a.cin, a.hpad) &&
+            (a.w <= WG_BM ? WG_BM % a.w == 0 : a.w % WG_BM == 0);
+  for (int b = 0; b < a.branches; ++b) ok = ok && a.bdil[b] >= 1 && a.bdil[b] <= a.hpad;
+  EncodeTiledFn enc = encode_tiled();
+  if (!ok || enc == nullptr) return cudaErrorInvalidValue;
+  const cuuint32_t cols = static_cast<cuuint32_t>(a.w < WG_BM ? a.w : WG_BM);
+  const cuuint32_t hp2 = static_cast<cuuint32_t>(2 * a.hpad);
+  const cuuint64_t c = WB_KB, w = a.w, h = a.h;
+  const cuuint64_t xdim[4] = {c, w, h, static_cast<cuuint64_t>(a.n)};
+  const cuuint64_t xstride[3] = {c, w * c, h * w * c};
+  const cuuint32_t xbox[4] = {WB_KB, cols + hp2, WG_BM / cols + hp2, 1};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  CUtensorMap tx;
+  if (enc(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<int8_t*>(x), xdim, xstride, xbox,
+          ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  auto kern = wg_branch_kernel<EPI, TO>;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM_MAX);
+    if (e != cudaSuccess) return e;
+    attr = true;
+  }
+  // SMs of each device, asked once (K6's calls are short: host time counts)
+  static int sms_of[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 64) return cudaErrorInvalidValue;
+  if (sms_of[dev] == 0) {
+    const cudaError_t e =
+        cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  const int sms = sms_of[dev];
+  const long tiles = static_cast<long>(a.n) * a.h * a.w / WG_BM * (a.cout / WB_BN);
+  kern<<<static_cast<unsigned>(tiles < sms ? tiles : sms), WB_THREADS,
+         wb_smem_bytes(a.w, a.hpad), st>>>(tx, a);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -5,9 +5,10 @@
   * :func:`atrous_resblock_int8` — K5 (``_atrous_resblock_int8_kernel``)
   * :func:`multi_atrous_stage_int8` — K6
     (``_multi_atrous_stage_int8_kernel``)
-  * :func:`conv_variant` — which conv the branch convs, K5's reflect conv
-    and :func:`conv3x3_dilated_s8` take at a shape (``wgmma_conv.py``'s
-    rule at BN 128), and :func:`conv_variant_card`, the library's own answer
+  * :func:`conv_variant` — which conv K5's and K6's branch convs, K5's
+    reflect conv and :func:`conv3x3_dilated_s8` take at a shape
+    (``wgmma_conv.py``'s rule at BN 128: its BN and K stage), and
+    :func:`conv_variant_card`, the library's own answer
 
 Each takes CUDA tensors only and launches on PyTorch's current stream; the
 CPU path is the plain version in :mod:`cistar_tpu_torch.ops.quant_int8`.
@@ -32,7 +33,7 @@ launches: Dict[str, int] = {"conv3x3_dilated_s8": 0,
                             "multi_atrous_stage_int8": 0}
 
 _SIGS = {
-    "cistar_atrous_workspace_bytes": ((I, I, I, I, I), ctypes.c_size_t),
+    "cistar_atrous_workspace_bytes": ((I, I, I, I, I, I), ctypes.c_size_t),
     "cistar_atrous_conv_variant": ((I, I, I, I, I), I),
     "cistar_conv3x3_zero_s8_acc": ((P, P, P, I, I, I, I, I, I, P), I),
     "cistar_atrous_resblock_int8": (
@@ -52,23 +53,39 @@ def _lib() -> ctypes.CDLL:
     return build.bind(build.load("int8_atrous"), _SIGS)
 
 
-# BN of the wgmma conv in this library: K5's convs have Cout 128, where
-# wgmma_conv.block_n too answers 128, so one build serves them
+# BN of the wgmma conv in this library: K5's and K6's convs have Cout 128,
+# where wgmma_conv.block_n too answers 128, so one build serves them
 BN = 128
 
 
-def conv_variant(n: int, h: int, w: int, cin: int, cout: int) -> int:
+def conv_variant(n: int, h: int, w: int, cin: int, cout: int
+                 ) -> Tuple[int, int]:
     """The conv K5's and K6's branch convs, K5's reflect conv and
     :func:`conv3x3_dilated_s8` run at (N, H, W) pixels, Cin → Cout, at any
-    dilation: the BN of the ``wgmma`` conv (:data:`BN`), or 0 for the
-    ``mma.sync`` one (``conv_s8_kernel``; K6's 64 input channels are half a
-    K stage)."""
-    return BN if wgmma_conv.tile_ok(n, h, w, cin, cout, 1) else 0
+    dilation: (BN, bytes of K a stage) of the ``wgmma`` conv — (128, 128),
+    or (128, 64) where Cin is 64 bytes but not 128 (K6's stage 2) — or
+    (0, 0) for the ``mma.sync`` one (``conv_s8_kernel``)."""
+    kb = wgmma_conv.kbytes(n, h, w, cin, cout, 1)
+    return (BN, kb) if kb else (0, 0)
 
 
-def conv_variant_card(n: int, h: int, w: int, cin: int, cout: int) -> int:
-    """:func:`conv_variant` as the built library answers it."""
-    return _lib().cistar_atrous_conv_variant(n, h, w, cin, cout)
+def stage_fused(n: int, h: int, w: int, cin: int, cout: int,
+                rates: Sequence[int]) -> bool:
+    """Whether K6 at (N, H, W) output pixels, Cin → Cout, runs its two
+    passes with the branch outputs on chip (``stage_fused`` in
+    ``csrc/int8_atrous.cu``, ``wg_branch_kernel``): on the ``wgmma`` conv,
+    Cin 64, and the tile's halo at the largest rate in shared memory; else
+    its branch outputs go through device memory."""
+    return conv_variant(n, h, w, cin, cout)[0] != 0 and \
+        wgmma_conv.halo_ok(w, cin, max(rates))
+
+
+def conv_variant_card(n: int, h: int, w: int, cin: int, cout: int
+                      ) -> Tuple[int, int]:
+    """:func:`conv_variant` as the built library answers it (its C query
+    returns 1000·BN + the stage's bytes, or 0)."""
+    v = _lib().cistar_atrous_conv_variant(n, h, w, cin, cout)
+    return divmod(v, 1000)
 
 
 def _check_shape(n: int, h: int, w: int, cin: int, cout: int) -> None:
@@ -91,10 +108,18 @@ def _check_carrier(x: torch.Tensor, what: str) -> None:
     check_tensor(x, "x", x.dtype)
 
 
-def _workspace(lib, n: int, h: int, w: int, cin: int, cout: int, device
-               ) -> torch.Tensor:
-    return build.workspace(
-        lib.cistar_atrous_workspace_bytes(n, h, w, cin, cout), device)
+@functools.lru_cache(maxsize=64)
+def _workspace_bytes(n: int, h: int, w: int, cin: int, cout: int,
+                     k6_rmax: int) -> int:
+    return _lib().cistar_atrous_workspace_bytes(n, h, w, cin, cout, k6_rmax)
+
+
+def _workspace(n: int, h: int, w: int, cin: int, cout: int, k6_rmax: int,
+               device) -> torch.Tensor:
+    """K5's (``k6_rmax`` 0) or K6's workspace (``k6_rmax``: its largest
+    rate)."""
+    return build.workspace(_workspace_bytes(n, h, w, cin, cout, k6_rmax),
+                           device)
 
 
 def conv3x3_dilated_s8(xq: torch.Tensor, wk: torch.Tensor, rate: int
@@ -132,7 +157,7 @@ def atrous_resblock_int8(hx: torch.Tensor, qblk, rates: Sequence[int],
     check_same_device(hx.device, wbk, wck, sb)
     lib = _lib()
     out = torch.empty_like(hx)
-    ws = _workspace(lib, n, h, w, c, c, hx.device)
+    ws = _workspace(n, h, w, c, c, 0, hx.device)
     err = lib.cistar_atrous_resblock_int8(
         hx.data_ptr(), int(hx.dtype == torch.bfloat16), wbk.data_ptr(),
         wck.data_ptr(), sb.data_ptr(), out.data_ptr(), ws.data_ptr(),
@@ -159,7 +184,7 @@ def multi_atrous_stage_int8(x: torch.Tensor, qstage, rates2: Sequence[int],
     check_same_device(x.device, wbk, sb)
     lib = _lib()
     out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
-    ws = _workspace(lib, n, h, w, cin, cout, x.device)
+    ws = _workspace(n, h, w, cin, cout, max(r), x.device)
     err = lib.cistar_multi_atrous_stage_int8(
         x.data_ptr(), int(x.dtype == torch.bfloat16), hin, win,
         wbk.data_ptr(), sb.data_ptr(), out.data_ptr(), ws.data_ptr(),

@@ -1,7 +1,7 @@
 // Measurement only (tools/conv_schedule.py): the schedules of the wgmma
-// conv (csrc/wgmma_conv.cuh) that K5 and K7a could take, on the same
-// inputs. Not part of any path; built by the script into the kernel build
-// directory.
+// conv (csrc/wgmma_conv.cuh) that K5 and K7a could take, and K6's two
+// routes, on the same inputs. Not part of any path; built by the script
+// into the kernel build directory.
 
 #include "../csrc/int8_atrous.cu"
 
@@ -97,6 +97,42 @@ int sched_conv(const void* xp, const void* wk, const void* xs, const void* sb, v
     if (e == cudaSuccess) e = r;
   }
   return static_cast<int>(e);
+}
+
+// K6 of x (n, hin, win, cin) bf16, read at x[:, ::2, ::2], into out (n, h,
+// w, cout) bf16. mode 0: route 2, the four branch convs as one launch
+// writing f_b, then branch_sum_kernel (csrc/int8_atrous.cu's path at shapes
+// off the wgmma conv, here on it); 1: route 3, the two passes that keep f_b
+// on chip (K6's path); 2: route 3's pass B alone on the statistics that a
+// mode-0 call left in the same workspace with the quantized input, so that
+// its output must equal mode 0's bit for bit.
+// workspace: cistar_atrous_workspace_bytes(n, h, w, cin, cout, 0) bytes
+// (with room for f_b).
+int sched_k6(const void* x, int hin, int win, const void* wbk, const void* sb, void* out,
+             void* workspace, int n, int h, int w, int cin, int cout, int r0, int r1, int r2,
+             int r3, float eps, int mode, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rates[4] = {r0, r1, r2, r3};
+  if (!stage_fused(n, h, w, cin, cout, rates)) return static_cast<int>(cudaErrorInvalidValue);
+  AtrousWs ws;
+  atrous_layout(n, h, w, cin, cout, true, static_cast<char*>(workspace), &ws);
+  const Sub sub{2, w, win, cin, static_cast<long>(hin) * win * cin};
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* wk = static_cast<const int8_t*>(wbk);
+  const auto* b = static_cast<const float*>(sb);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  cudaError_t e = cudaSuccess;
+  if (mode == 0) {
+    e = stage_via_f(ws, xb, sub, wk, b, o, n, h, w, cin, cout, rates, eps, s);
+  } else {
+    if (mode == 1) {
+      e = stage_stats(ws, xb, sub, wk, b, n, h, w, cin, cout, rates, eps, s);
+    } else {
+      branch_weights(ws, wk, cout, s);
+    }
+    if (e == cudaSuccess) e = stage_sum(ws, wk, b, o, n, h, w, cin, cout, rates, s);
+  }
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 """The ``wgmma`` + TMA conv of K7a and K5 (``csrc/wgmma_conv.cuh``: K1's
 reflect 3×3 conv for K7a; zero-pad 3×3 convs at a dilation for K5's four
-branches) on the CPU: which conv each path's K7a / K7a-bn / K5 shapes take,
+branches) on the CPU: which conv each path's K7a / K7a-bn / K5 / K6 shapes
+take (K6's 64-byte stage is modelled in ``test_torch_narrow_tiles.py``),
 from the Python mirrors of the tile rule (``kernels/int8_tiled.py::
 a_conv_variant`` and ``kernels/int8_atrous.py::conv_variant``, what
 ``cistar_tiled_a_conv_variant`` and ``cistar_atrous_conv_variant`` answer;
@@ -69,17 +70,20 @@ def test_k7a_takes_the_wgmma_conv_at_wg_bn(name):
 @pytest.mark.parametrize("n", [4, 32])
 @pytest.mark.parametrize("rate", [1, 2, 4, 6, 8])
 def test_k5_takes_the_wgmma_conv_at_every_rate(n, rate):
-    assert ka.conv_variant(n, 64, 64, 128, 128) == ka.BN == 128
-    assert ka.BN == wgmma_conv.block_n(n, 64, 64, 128)
+    # (BN, bytes of K a stage): K5's 128 channels fill a 128-byte stage
+    assert ka.conv_variant(n, 64, 64, 128, 128) == (ka.BN, 128)
+    assert ka.BN == 128 == wgmma_conv.block_n(n, 64, 64, 128)
 
 
-# K6's stage 2 at 512² (64 → 128 on the subsampled (B, 64, 64) image) and
-# the 256² stage 1 (32 → 64): a K stage of 128 bytes is two taps of 64 or
-# four of 32 channels, so both keep conv_s8_kernel.
+# K6's stage 2 at 512² (64 → 128 on the subsampled (B, 64, 64) image) takes
+# the wgmma conv at a 64-byte K stage (a 128-byte one would span two taps
+# of 64 channels); the 256² stage 1 (32 → 64: Cout 64 is under BN 128, and
+# 32 channels fill neither stage) keeps conv_s8_kernel, (0, 0).
 @pytest.mark.parametrize("n", [4, 32])
 @pytest.mark.parametrize("cin,cout", [(64, 128), (32, 64)])
 def test_k6_shapes_keep_the_mma_sync_conv(n, cin, cout):
-    assert ka.conv_variant(n, 64, 64, cin, cout) == 0
+    want = (ka.BN, 64) if cin == 64 else (0, 0)
+    assert ka.conv_variant(n, 64, 64, cin, cout) == want
 
 
 # --------------------------------------------------------------------------- #
