@@ -195,6 +195,32 @@ layer (``calibrate``).
     within ``K7_MAX_*``, each with its TOPS and the GEMM yardstick of its
     conv).
 
+The CycleGAN training path (slice 11), ``CycleGAN`` at the JAX CLI's
+defaults: ``bilinear_content``, 16 features, 6 atrous blocks, 512², batch
+4, pool 50, bf16 compute with fp32 params, gradients, Adam state and
+losses, weights from seed 0. It runs the plain ops under autograd (the
+kernels are forward-only), in ``torch.enable_grad()``:
+
+23. the card's train step against the CPU's, the same seed and 16
+    features / 6 blocks at 64², batch 2, pool 8, fp32 with TF32 off: 3
+    steps on the same dense frames (all in the pools' fill phase), the
+    card's each from the CPU's state before it; every metric within
+    ``TRAIN_RTOL``, and G_A2B's output after each step within
+    ``TRAIN_ABS`` max-abs;
+24. the full-width step on frames of ``tools/make_synthetic_r2l.py``,
+    counted: 2 warm-up and 10 timed steps (CUDA events) with every launch
+    counter set to 0 before and still 0 after; ms a step, img/s and
+    ``torch.cuda.max_memory_allocated``; ``skipped`` 0 on every step,
+    finite losses, G's and D's params moved;
+25. one step under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+    sync in a step), a ``[breakdown]`` of one step by phase (G forward +
+    loss, G backward, G Adam, the pools, the D_A step, the D_B step) and a
+    ``[profile]`` top 8;
+26. the training CLI, ``apps/cyclegan_train.py``, on 16 synthetic pairs at
+    512²: one epoch (8 train pairs, 2 steps at batch 4), the per-epoch and
+    latest ``.npz`` of the four nets written, and a ``--resume`` run that
+    loads them.
+
 The fp32 reference forwards run with TF32 off, the rest under PyTorch's
 defaults. The line before the last is the card's name and power limit; the
 kernels' JSON line comes before it; the last line is
@@ -2351,6 +2377,278 @@ def bn_local_breakdown(msg, ms_q, xm, log, lo_q, xl) -> None:
               + f"; sum {sum(ms.values())!r}", flush=True)
 
 
+# The training path (slice 11): the CycleGAN train step at the JAX CLI's
+# defaults (apps/cyclegan_train.py:19-48): bilinear_content, 16 features, 6
+# atrous blocks, 512², batch 4, pool 50, bf16 compute with fp32 params,
+# gradients, Adam state and losses. The card is held to the CPU on a small
+# copy (TRAIN_CHECK): 3 steps of batch 2 stay in pool 8's fill phase, so the
+# two devices' coin draws are never read. Both run fp32 with TF32 off and
+# sum in other orders (cuDNN's algorithms, atomics). The metrics come from
+# the forward before the update: ~1e-6 apart. The update is Adam's, about
+# lr = 2e-4 a weight whatever the gradient's size, so a gradient within
+# rounding of 0 can take either sign (on an H100 80GB HBM3 at 700 W against
+# the CPU, 4,811-4,894 of G's 10,021,442 did at step 0, most of them biases
+# ahead of an instance norm), and G_A2B's output after one step differed by
+# 3.5e-4. Free-running, the steps amplify that
+# (0.023-0.031 after three), so each card step starts from the CPU's state;
+# phase 23 prints both numbers.
+TRAIN = dict(features=16, blocks=6, size=512, batch=4, pool=50)
+TRAIN_CHECK = dict(size=64, batch=2, pool=8, steps=3)
+TRAIN_RTOL, TRAIN_ABS = 1e-3, 1e-3
+TRAIN_WARMUP, TRAIN_STEPS, CLI_PAIRS = 2, 10, 16
+
+
+def synthetic_tool():
+    """``tools/make_synthetic_r2l.py``, loaded from its file."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_synthetic_r2l", os.path.join(ROOT, "tools",
+                                           "make_synthetic_r2l.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def synthetic_pairs(n: int, size: int):
+    """``n`` (radar, lidar) frames of the synthetic tool, scenes 0 … n-1,
+    NHWC in [-1, 1], as two fp32 numpy arrays."""
+    import numpy as np
+
+    pairs = [synthetic_tool().make_pair(i, size) for i in range(n)]
+    return tuple((np.stack([p[j] for p in pairs])[..., None] * 2
+                  - 1).astype(np.float32) for j in (0, 1))
+
+
+def copy_train_state(src, src_st, dst, dst_st) -> None:
+    """Copy one ``CycleGAN``'s nets, Adam states, pools and epoch into
+    another's (on another device), in place."""
+    import torch
+
+    with torch.no_grad():
+        for a, b in zip(src._nets(), dst._nets()):
+            b.load_state_dict(a.state_dict())
+        for f in ("opt_g", "opt_d_a", "opt_d_b"):
+            a, b = getattr(src_st, f), getattr(dst_st, f)
+            for t in ("count", "mu_flat", "nu_flat"):
+                getattr(b, t).copy_(getattr(a, t))
+        for f in ("pool_a", "pool_b"):
+            for a, b in zip(getattr(src_st, f), getattr(dst_st, f)):
+                b.copy_(a)
+        dst_st.epoch.copy_(src_st.epoch)
+
+
+def g_grad_sign_flips(engs, sts, a, b) -> tuple:
+    """The G loss's gradients of two ``CycleGAN`` engines (on two devices,
+    in the same state) on one batch: how many elements differ in sign,
+    of how many."""
+    import torch
+
+    grads = []
+    for e, st in zip(engs, sts):
+        params = [*st.g_a2b.values(), *st.g_b2a.values()]
+        loss = e._g_losses(a.to(e.device), b.to(e.device))["loss_G"]
+        grads.append([g.cpu() for g in torch.autograd.grad(loss, params)])
+    flips = sum(int(((x > 0) != (y > 0)).sum()) for x, y in zip(*grads))
+    return flips, sum(g.numel() for g in grads[0])
+
+
+def train_path(dev, counters) -> None:
+    """Phases 23-26: the CycleGAN train step, card against CPU, at full
+    width counted and timed, and through the training CLI."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cistar_tpu_torch.apps import cyclegan_train
+    from cistar_tpu_torch.core import checkpoint as ckpt
+    from cistar_tpu_torch.core.convert import generator_from_jax
+    from cistar_tpu_torch.engines.cyclegan import CycleGAN
+
+    cfg = dict(gen_type="bilinear_content", in_features=TRAIN["features"],
+               n_residual_blocks=TRAIN["blocks"], seed=0)
+
+    # 23. the card's steps against the CPU's, each from the CPU's state
+    n, size = TRAIN_CHECK["batch"], TRAIN_CHECK["size"]
+    gen = torch.Generator().manual_seed(11)
+    frames = [(torch.rand(n, size, size, 1, generator=gen) * 2 - 1,
+               torch.rand(n, size, size, 1, generator=gen) * 2 - 1)
+              for _ in range(TRAIN_CHECK["steps"])]
+    probe = frames[0][0]
+    with fp32_exact():
+        engs = [CycleGAN(**cfg, image_size=size, batch_size=n,
+                         pool_size=TRAIN_CHECK["pool"],
+                         compute_dtype=torch.float32, device=d)
+                for d in ("cpu", dev)]
+        sts = [e.init_state(0) for e in engs]
+        flips, n_el = g_grad_sign_flips(engs, sts, *frames[0])
+        print(f"[train check] step 0's G gradients: {flips} of {n_el} "
+              "elements differ in sign, card vs CPU", flush=True)
+        o_cpus = []
+        for i, (a, b) in enumerate(frames):
+            copy_train_state(engs[0], sts[0], engs[1], sts[1])
+            with torch.no_grad():
+                before = engs[0].G_a2b(probe)
+            outs = []
+            for k, e in enumerate(engs):
+                sts[k], m = e.train_step(sts[k], a.to(e.device),
+                                         b.to(e.device))
+                with torch.no_grad():
+                    outs.append((e.G_a2b(probe.to(e.device)).cpu(),
+                                 {k2: float(v) for k2, v in m.items()}))
+            (o_cpu, m_cpu), (o_card, m_card) = outs
+            o_cpus.append(o_cpu)
+            rel = max(abs(m_card[k] - v) / abs(v) for k, v in m_cpu.items()
+                      if v)
+            err = (o_card - o_cpu).abs().max().item()
+            moved = (o_cpu - before).abs().max().item()
+            print(f"[train check] step {i}, bilinear_content "
+                  f"{TRAIN['features']} features {TRAIN['blocks']} blocks, "
+                  f"{size}², batch {n}, fp32: metrics card vs CPU max rel "
+                  f"{rel!r} (tol {TRAIN_RTOL}); G_A2B after the step, "
+                  f"max-abs {err!r} (tol {TRAIN_ABS}), moved by the step "
+                  f"{moved!r}; CPU {m_cpu}", flush=True)
+            check(m_card.keys() == m_cpu.keys(), "the same train metrics")
+            check(rel <= TRAIN_RTOL, f"step {i}: train metrics, card within "
+                  "rtol of the CPU")
+            check(err <= TRAIN_ABS, f"step {i}: G_A2B after the step, card "
+                  "vs CPU")
+            check(m_card["skipped"] == 0.0, "no check step skipped")
+        check(int(sts[1].pool_a.size) == n * TRAIN_CHECK["steps"]
+              <= TRAIN_CHECK["pool"],
+              "the check stays in the pools' fill phase")
+        # for the record: the card's steps free-running, from its own state
+        eng = CycleGAN(**cfg, image_size=size, batch_size=n,
+                       pool_size=TRAIN_CHECK["pool"],
+                       compute_dtype=torch.float32, device=dev)
+        st, free = eng.init_state(0), []
+        for (a, b), o_cpu in zip(frames, o_cpus):
+            st, _ = eng.train_step(st, a.to(dev), b.to(dev))
+            with torch.no_grad():
+                free.append((eng.G_a2b(probe.to(dev)).cpu() - o_cpu)
+                            .abs().max().item())
+    print(f"[train check] free-running, G_A2B after each step vs the CPU's,"
+          f" max-abs: {free} (not checked)", flush=True)
+
+    # 24. full width, counted: no kernel on the train step
+    n, size = TRAIN["batch"], TRAIN["size"]
+    radar, lidar = synthetic_pairs(2 * n, size)
+    batches = [(torch.from_numpy(radar[i:i + n]).to(dev),
+                torch.from_numpy(lidar[i:i + n]).to(dev))
+               for i in (0, n)]
+    eng = CycleGAN(**cfg, image_size=size, batch_size=n,
+                   pool_size=TRAIN["pool"], device=dev)
+    st = eng.init_state(0)
+
+    def flat(params):
+        return torch.cat([p.detach().reshape(-1) for p in params.values()])
+
+    g0, d0 = flat(st.g_a2b), flat(st.d_a)
+    metrics = []
+
+    def step(i):
+        nonlocal st
+        st, m = eng.train_step(st, *batches[i % 2])
+        metrics.append(m)
+
+    for m in counters:
+        m.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_WARMUP):
+        step(i)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for i in range(TRAIN_STEPS):
+        step(i)
+    e1.record()
+    e1.synchronize()
+    ms = e0.elapsed_time(e1) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for m in counters for k, v in m.launches.items()}
+    print(f"[train path] launches {launches}", flush=True)
+    check(not any(launches.values()), "the train step launches no kernel")
+    host = [{k: float(v) for k, v in m.items()} for m in metrics]
+    print(f"[times] train step bilinear_content batch {n} {size}² bf16: "
+          f"{ms!r} ms a step, {n / ms * 1e3!r} img/s; the {TRAIN_WARMUP} "
+          f"warm-up steps {first_s!r} s; peak memory {peak} B "
+          f"({peak / 2**30!r} GiB); last step {host[-1]}", flush=True)
+    check(all(m["skipped"] == 0.0 for m in host), "no full-width step skipped")
+    check(all(np.isfinite(v) for m in host for v in m.values()),
+          "finite train losses")
+    check(not torch.equal(flat(st.g_a2b), g0), "G's params moved")
+    check(not torch.equal(flat(st.d_a), d0), "D_A's params moved")
+    check(int(st.opt_g.count) == TRAIN_WARMUP + TRAIN_STEPS, "G took every step")
+
+    # 25. no host sync in a step; where its time goes
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("[train path] one step under set_sync_debug_mode('error'): no "
+          "host sync", flush=True)
+    marks = [("start", torch.cuda.Event(enable_timing=True), 0.0)]
+
+    def mark(label):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((label, ev, time.perf_counter()))
+
+    torch.cuda.synchronize()
+    marks[0] = ("start", marks[0][1], time.perf_counter())
+    marks[0][1].record()
+    st, _ = eng.train_step(st, *batches[0], mark=mark)
+    torch.cuda.synchronize()
+    for unit, span in (
+            ("device", lambda a, b: a[1].elapsed_time(b[1])),
+            ("host", lambda a, b: (b[2] - a[2]) * 1e3)):
+        parts = {b[0]: span(a, b) for a, b in zip(marks, marks[1:])}
+        print(f"[breakdown] train step batch {n}, {unit} ms (CUDA events "
+              "between the phases' ends; host: their enqueue): "
+              + "; ".join(f"{k} {t!r}" for k, t in parts.items())
+              + f"; sum {sum(parts.values())!r}", flush=True)
+    wall, busy, top = profile_top(lambda: step(1))
+    print(f"[profile] train step batch {n}: wall {wall!r} ms, device busy "
+          f"{busy!r} ms; top device time (ms): "
+          + "; ".join(f"{k[:48]} {t!r}" for t, k in top), flush=True)
+
+    # 26. the training CLI: one epoch, then --resume
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out = os.path.join(tmp, "data"), os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        synthetic_tool().main(["--out", data, "--n", str(CLI_PAIRS),
+                               "--size", str(size)])
+        args = ["--dataroot", data, "--size", str(size), "--batchSize",
+                str(n), "--n_epochs", "1", "--output_dir", out,
+                "--log_every", "1", "--device", dev.type]
+        t1 = time.perf_counter()
+        cyclegan_train.main(args)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        run = out + "_bilinear_content"
+        for net in ("netG_A2B", "netG_B2A", "netD_A", "netD_B"):
+            for name in (f"0_{net}.npz", f"{net}.npz"):
+                check(os.path.exists(os.path.join(run, name)),
+                      f"the CLI wrote {name}")
+        # --resume at the end epoch: the nets load, no step runs
+        st = cyclegan_train.main(args + ["--resume", "--epoch", "1"])
+        saved = generator_from_jax(ckpt.load_pytree(
+            os.path.join(run, "netG_A2B.npz")))
+        check(all(torch.equal(st.g_a2b[k].cpu(), v) for k, v in saved.items()),
+              "--resume loads the saved G_A2B")
+        print(f"[train cli] {CLI_PAIRS} pairs {size}² ({t1 - t0:.1f} s to "
+              f"write), one epoch of {CLI_PAIRS // 2 // n} steps at batch {n} "
+              f"in {t2 - t1:.1f} s, checkpoints written, --resume loaded",
+              flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2421,6 +2719,8 @@ def main() -> int:
     rows += p2phd_path("UNet", images, counters)
     rows += fused_path(dev, images, counters)
     rows += bn_local_path(images, counters)
+    with torch.enable_grad():
+        train_path(dev, counters)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

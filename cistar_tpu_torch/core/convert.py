@@ -1,6 +1,6 @@
-"""JAX param tree (numpy arrays) → the port's ``state_dict``.
+"""JAX param tree (numpy arrays) ↔ the port's ``state_dict``.
 
-The inverse of the JAX package's import path
+The ``*_from_jax`` functions are the inverse of the JAX package's import path
 (``cistar_tpu/core/torch_import.py:44-56`` and
 ``core/convert_models.py::convert_cyclegan_resnet_generator``), kept as the
 port's own copy so the port imports nothing of ``cistar_tpu``:
@@ -12,6 +12,12 @@ port's own copy so the port imports nothing of ``cistar_tpu``:
                            ``beta`` → ``bias``; the ``batch_stats`` tree's
                            ``mean`` / ``var`` → ``running_mean`` /
                            ``running_var``
+
+The ``*_to_jax`` functions map a conv-only ``state_dict`` back onto the JAX
+param tree, with the same key paths: OIHW → HWIO, ``(in, out, kh, kw)`` →
+HWIO with no flip. A round trip is the identity. The checkpoint writer
+(``core/checkpoint.py``) saves through them, so the JAX package loads what
+the port writes.
 """
 
 from __future__ import annotations
@@ -31,6 +37,11 @@ def conv_w_from_hwio(w: np.ndarray) -> np.ndarray:
 def conv_transpose_w_from_hwio(w: np.ndarray) -> np.ndarray:
     """HWIO with I=in, O=out → PyTorch ConvTranspose2d ``(in, out, kh, kw)``."""
     return np.ascontiguousarray(np.transpose(w, (2, 3, 0, 1)))
+
+
+def conv_w_to_hwio(w: np.ndarray) -> np.ndarray:
+    """OIHW → HWIO."""
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
 
 
 def _torch_key(path: Tuple[str, ...]) -> str:
@@ -166,3 +177,70 @@ def unet_generator_hd_from_jax(params: Mapping[str, Any]
     for :class:`~cistar_tpu_torch.models.pix2pixhd.UNetGeneratorHD`."""
     return generator_from_jax(params, lambda path: path[-1].endswith("_convt"),
                               _unet_key)
+
+
+def patch_discriminator_from_jax(params: Mapping[str, Any]
+                                 ) -> Dict[str, torch.Tensor]:
+    """``PatchDiscriminator`` params (``conv0`` … ``conv4``, each ``{"w",
+    "b"}``) → a ``state_dict`` for :class:`~cistar_tpu_torch.models.
+    cyclegan.PatchDiscriminator`."""
+    return generator_from_jax(params)
+
+
+def _jax_path(module: str) -> Tuple[str, ...]:
+    """Inverse of :func:`_torch_key`: ``down.i`` / ``res.i`` / ``up.i``
+    become ``down_i`` / ``res_i`` / ``up_i``."""
+    parts, out = module.split("."), []
+    i = 0
+    while i < len(parts):
+        p = parts[i]
+        if p in ("down", "res", "up") and i + 1 < len(parts) \
+                and parts[i + 1].isdigit():
+            out.append(f"{p}_{parts[i + 1]}")
+            i += 2
+        else:
+            out.append(p)
+            i += 1
+    return tuple(out)
+
+
+def generator_to_jax(sd: Mapping[str, torch.Tensor],
+                     transposed: Callable[[Tuple[str, ...]], bool]
+                     = lambda path: False) -> Dict[str, Any]:
+    """A conv-only ``state_dict`` (``<module>.weight`` / ``<module>.bias``)
+    → the JAX param tree of the same network, numpy fp32 leaves: the
+    inverse of :func:`generator_from_jax` (no BatchNorm). ``transposed(path)``
+    says which nodes are transpose convs, as there."""
+    tree: Dict[str, Any] = {}
+    for name, t in sd.items():
+        module, _, leaf = name.rpartition(".")
+        path = _jax_path(module)
+        a = t.detach().cpu().float().numpy()
+        if leaf == "weight":
+            a = conv_transpose_w_from_hwio(a) if transposed(path) \
+                else conv_w_to_hwio(a)
+            leaf = "w"
+        elif leaf == "bias":
+            a, leaf = np.array(a), "b"
+        else:
+            raise ValueError(f"{name}: not a conv parameter")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = a
+    return tree
+
+
+def resnet_generator_to_jax(sd: Mapping[str, torch.Tensor]
+                            ) -> Dict[str, Any]:
+    """Inverse of :func:`resnet_generator_from_jax`: the ``up_i`` transpose
+    convs' ``(in, out, kh, kw)`` weights go back to HWIO unflipped (the same
+    axis swap, its own inverse)."""
+    return generator_to_jax(
+        sd, lambda path: len(path) == 1 and path[0].startswith("up_"))
+
+
+def patch_discriminator_to_jax(sd: Mapping[str, torch.Tensor]
+                               ) -> Dict[str, Any]:
+    """Inverse of :func:`patch_discriminator_from_jax`."""
+    return generator_to_jax(sd)

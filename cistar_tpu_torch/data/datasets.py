@@ -1,0 +1,146 @@
+"""The CycleGAN dataset and the batching loader (counterpart of
+``cistar_tpu/data/datasets.py::CycleGANImageDataset`` and ``Loader``).
+
+:class:`CycleGANImageDataset` ↔ ``CycleGAN/datasets.py:10-63``: paired
+``{root}/radar/*.png`` + ``{root}/lidar/*.png`` dirs; train = first 50%,
+test = last 10%; unaligned random B sampling; shared random rotation ±45°
+in train; Grayscale → ToTensor → Normalize(0.5, 0.5). It yields NHWC
+float32 numpy arrays. :class:`Loader` batches in order, as the JAX CLI
+runs it (``shuffle=False``), with a background prefetch thread; the caller
+moves each batch to the device (the training CLI copies it from pinned
+memory without blocking). The native C++ PNG loader of the JAX package,
+and with it the loader's ``get_batch`` path, is not ported yet (ROADMAP
+queue 1, item 7).
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import queue
+import threading
+from typing import Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+
+from cistar_tpu_torch.data import transforms as T
+
+
+def _list_pngs(d: str) -> List[str]:
+    return sorted(glob.glob(os.path.join(d, "*.png")))
+
+
+class CycleGANImageDataset:
+    """Unpaired radar/lidar dataset with the reference's exact split policy."""
+
+    def __init__(self, root: str, size: Optional[int] = None, unaligned: bool = False,
+                 mode: str = "train", seed: int = 0):
+        self.files_a = _list_pngs(os.path.join(root, "radar"))
+        self.files_b = _list_pngs(os.path.join(root, "lidar"))
+        split = int(len(self.files_a) * 0.5)
+        test = int(len(self.files_a) * 0.9)
+        if mode == "train":
+            self.files_a = self.files_a[:split]
+            self.files_b = self.files_b[:split]
+        else:
+            self.files_a = self.files_a[test:]
+            self.files_b = self.files_b[test:]
+        self.unaligned = unaligned
+        self.mode = mode
+        self.size = size
+        self.rng = np.random.RandomState(seed)
+        # Decoded-image memo: rotate/normalize always allocate fresh
+        # arrays, so sharing is safe.
+        self._cache: Dict[str, np.ndarray] = {}
+        self._cache_bytes = 0
+        self._cache_budget = 1 << 30  # 1 GiB across both streams
+
+    def __len__(self) -> int:
+        return max(len(self.files_a), len(self.files_b))
+
+    def _load(self, path: str) -> np.ndarray:
+        hit = self._cache.get(path)
+        if hit is None:
+            hit = self._load_uncached(path)
+            if self._cache_bytes + hit.nbytes <= self._cache_budget:
+                self._cache[path] = hit
+                self._cache_bytes += hit.nbytes
+        return hit
+
+    def _load_uncached(self, path: str) -> np.ndarray:
+        img = T.load_image(path, mode="L")
+        if self.size is not None and img.size != (self.size, self.size):
+            img = img.resize((self.size, self.size))
+        return T.pil_to_array(img)  # HWC [0,1]
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        item_a = self._load(self.files_a[index % len(self.files_a)])
+        name_a = os.path.basename(self.files_a[index % len(self.files_a)])
+        if self.unaligned:
+            j = self.rng.randint(0, len(self.files_b))
+        else:
+            j = index % len(self.files_b)
+        item_b = self._load(self.files_b[j])
+        if self.mode == "train":
+            angle = self.rng.randint(-45, 46)  # shared rotation, both frames
+            item_a = T.rotate_image(item_a, angle)
+            item_b = T.rotate_image(item_b, angle)
+        item_a = T.normalize(item_a)
+        item_b = T.normalize(item_b)
+        return {"A": item_a.astype(np.float32), "B": item_b.astype(np.float32),
+                "name": name_a}
+
+
+class Loader:
+    """Batching iterator with background prefetch.
+
+    The replacement for torch ``DataLoader(num_workers=N)``
+    (``CycleGAN/train.py:160-161``): a host thread assembles NHWC batches
+    ahead of the step, so the step never waits on PNG decode. The last
+    batch may be short.
+    """
+
+    def __init__(self, dataset, batch_size: int, prefetch: int = 2):
+        self.ds = dataset
+        self.bs = batch_size
+        self.prefetch = prefetch
+
+    def __len__(self) -> int:
+        return (len(self.ds) + self.bs - 1) // self.bs
+
+    def _collate(self, items: Sequence[Dict]) -> Dict[str, np.ndarray]:
+        out: Dict[str, np.ndarray] = {}
+        for key in items[0]:
+            vals = [it[key] for it in items]
+            if isinstance(vals[0], str):
+                out[key] = vals  # type: ignore[assignment]
+            else:
+                out[key] = np.stack(vals, axis=0)
+        return out
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        n = len(self.ds)
+        batches = [range(i, min(i + self.bs, n)) for i in range(0, n, self.bs)]
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = object()
+
+        def worker():
+            # An exception in __getitem__/decode must reach the consumer —
+            # swallowing it would silently truncate the epoch.
+            try:
+                for b in batches:
+                    q.put(self._collate([self.ds[i] for i in b]))
+            except BaseException as exc:  # noqa: BLE001 — re-raised in consumer
+                q.put(("error", exc))
+            finally:
+                q.put(stop)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is stop:
+                break
+            if isinstance(item, tuple) and len(item) == 2 and item[0] == "error":
+                raise item[1]
+            yield item

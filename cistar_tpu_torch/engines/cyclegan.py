@@ -1,27 +1,47 @@
-"""CycleGAN inference engine (counterpart of the inference half of
-``cistar_tpu/engines/cyclegan.py::CycleGAN``).
+"""CycleGAN engines (counterpart of ``cistar_tpu/engines/cyclegan.py``).
 
-Holds the two generators, G_A2B and G_B2A, and serves
-:meth:`CycleGANInference.infer_step` (the plain forward in the compute
-dtype) and :meth:`CycleGANInference.infer_step_int8` (the family's int8
-engine), each returning fake_B, fake_A and recover_B, as
-``CycleGAN/test.py:141-145`` does. The ResNet ('p2p*') and
-``MultiscaleBilinear`` ('bilinear*', the default) generators are ported;
-training comes with a later slice.
+:class:`CycleGANInference` holds the two generators, G_A2B and G_B2A, and
+serves :meth:`~CycleGANInference.infer_step` (the plain forward in the
+compute dtype) and :meth:`~CycleGANInference.infer_step_int8` (the
+family's int8 engine), each returning fake_B, fake_A and recover_B, as
+``CycleGAN/test.py:141-145`` does. :class:`CycleGAN` adds the two
+discriminators and the train step of the reference loop
+(``CycleGAN/train.py:171-272``): per batch, a skip of sparse radar frames
+(< 300 points), a generator step (identity + GAN×10 + cycle×2 losses over
+both directions), then two discriminator steps each gated on ``loss_D >
+0.1``, with 50-image replay pools feeding D, Adam(lr 2e-4, β=(0.5, 0.999))
+×3 and per-epoch linear LR decay (``LambdaLR``, ``CycleGAN/utils.py:116-124``).
+The ResNet ('p2p*') and ``MultiscaleBilinear`` ('bilinear*', the default)
+generators are ported.
+
+The train step runs the plain ops under autograd; no CUDA kernel of the
+port is on it (they are forward-only). The skip and the D gates are masked
+updates on device bools, as in the JAX step, so a step reads nothing back
+to the host.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Mapping, Tuple, Union
+from typing import (Any, Callable, Dict, List, Mapping, NamedTuple,
+                    Optional, Tuple, Union)
 
 import torch
 
 from cistar_tpu_torch.core.convert import (generator_from_jax,
-                                           resnet_generator_from_jax)
+                                           generator_to_jax,
+                                           patch_discriminator_from_jax,
+                                           patch_discriminator_to_jax,
+                                           resnet_generator_from_jax,
+                                           resnet_generator_to_jax)
+from cistar_tpu_torch.core.optim import AdamState, adam_step
 from cistar_tpu_torch.device import DeviceLike, resolve_device
+from cistar_tpu_torch.losses.gan import count_points, l1_loss, lsgan_loss
 from cistar_tpu_torch.models import fast_infer as fi
-from cistar_tpu_torch.models.cyclegan import build_generator
+from cistar_tpu_torch.models.cyclegan import (PatchDiscriminator,
+                                              build_generator)
 from cistar_tpu_torch.ops.quant_int8 import QBlock, quantize_resnet_trunk
+from cistar_tpu_torch.utils.image_pool import (PoolState, init_pool,
+                                               push_and_pop)
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 QGen = Union[List[QBlock], fi.QTrunk]
@@ -100,3 +120,234 @@ class CycleGANInference:
         fake_a = gen(self.G_b2a, q_b2a, real_b)
         recover_b = gen(self.G_a2b, q_a2b, (fake_a - 0.5) / 0.5)
         return fake_b, fake_a, recover_b
+
+
+# family prefix → the port's generator state_dict → JAX params
+_TO_JAX: Dict[str, Callable] = {"p2p": resnet_generator_to_jax,
+                                "bilinear": generator_to_jax}
+
+Params = Dict[str, torch.Tensor]
+
+
+def lambda_lr_factor(epoch: torch.Tensor, n_epochs: int, start_epoch: int,
+                     decay_epoch: int) -> torch.Tensor:
+    """``LambdaLR.step`` (``CycleGAN/utils.py:116-124``): linear decay to 0
+    from ``decay_epoch`` to ``n_epochs``, on ``epoch``'s device."""
+    if n_epochs <= decay_epoch:      # no decay phase (avoid 0/0)
+        return torch.ones((), dtype=torch.float32, device=epoch.device)
+    e = epoch.float()
+    # floor at 0 so stepping past n_epochs can never flip the lr negative
+    return torch.clamp(
+        1.0 - torch.clamp(e + start_epoch - decay_epoch, min=0.0)
+        / (n_epochs - decay_epoch), min=0.0)
+
+
+class CycleGANState(NamedTuple):
+    """The four nets' params (the modules' own ``Parameter`` tensors, by
+    name), the three Adam states, both pools, the pools' device generator
+    and the epoch (int32 device scalar, drives the LR schedule)."""
+    g_a2b: Params
+    g_b2a: Params
+    d_a: Params
+    d_b: Params
+    opt_g: AdamState
+    opt_d_a: AdamState
+    opt_d_b: AdamState
+    pool_a: PoolState
+    pool_b: PoolState
+    pool_gen: torch.Generator
+    epoch: torch.Tensor
+
+
+class CycleGAN(CycleGANInference):
+    """The CycleGAN trainer: G_A2B, G_B2A, D_A, D_B, three Adam states and
+    two replay pools. :meth:`train_step` is the JAX engine's step, op for
+    op, in eager PyTorch; :meth:`infer_step` serves the current params.
+
+    The step updates the state's tensors in place and returns the state
+    (the JAX step donates its state). Weights come from ``seed`` through
+    :meth:`init_state`, the same on every device."""
+
+    def __init__(self, gen_type: str = "bilinear_content", input_nc: int = 1,
+                 output_nc: int = 1, in_features: int = 16,
+                 n_residual_blocks: int = 6, lr: float = 2e-4,
+                 n_epochs: int = 10, start_epoch: int = 0,
+                 decay_epoch: int = 9, pool_size: int = 50,
+                 image_size: int = 512, batch_size: int = 4,
+                 cycle_criterion: Optional[Callable] = None,
+                 gan_weight: float = 10.0, cycle_weight: float = 2.0,
+                 identity_weight: float = 1.0, min_points: float = 300.0,
+                 d_loss_floor: float = 0.1,
+                 compute_dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                 device: DeviceLike = None):
+        super().__init__(gen_type, input_nc, output_nc, in_features,
+                         n_residual_blocks, compute_dtype, seed, device)
+        self.gen_type = gen_type
+        self.input_nc, self.output_nc = input_nc, output_nc
+        self.in_features = in_features
+        self.n_residual_blocks = n_residual_blocks
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            self.D_a = PatchDiscriminator(input_nc).to(self.device)
+            self.D_b = PatchDiscriminator(output_nc).to(self.device)
+        self.lr, self.n_epochs = lr, n_epochs
+        self.start_epoch, self.decay_epoch = start_epoch, decay_epoch
+        self.pool_size, self.image_size = pool_size, image_size
+        self.batch_size = batch_size
+        self.criterion = cycle_criterion or l1_loss
+        self.gan_w, self.cycle_w = gan_weight, cycle_weight
+        self.id_w = identity_weight
+        self.min_points, self.d_floor = min_points, d_loss_floor
+        self._to_jax = next(v for k, v in _TO_JAX.items()
+                            if gen_type.startswith(k))
+
+    def _nets(self) -> Tuple[torch.nn.Module, ...]:
+        return self.G_a2b, self.G_b2a, self.D_a, self.D_b
+
+    # -- state ---------------------------------------------------------------
+    def init_state(self, seed: int = 0, image_size: Optional[int] = None
+                   ) -> CycleGANState:
+        """Fresh weights from ``seed`` (drawn on the CPU, so the same on
+        every device), zero Adam states, empty pools."""
+        size = image_size or self.image_size
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            fresh = (build_generator(self.gen_type, self.input_nc,
+                                     self.output_nc, self.in_features,
+                                     self.n_residual_blocks),
+                     build_generator(self.gen_type, self.output_nc,
+                                     self.input_nc, self.in_features,
+                                     self.n_residual_blocks),
+                     PatchDiscriminator(self.input_nc),
+                     PatchDiscriminator(self.output_nc))
+        for net, f in zip(self._nets(), fresh):
+            net.load_state_dict(f.state_dict())
+        g_a2b, g_b2a, d_a, d_b = (dict(n.named_parameters())
+                                  for n in self._nets())
+        dev = self.device
+        return CycleGANState(
+            g_a2b=g_a2b, g_b2a=g_b2a, d_a=d_a, d_b=d_b,
+            opt_g=AdamState([*g_a2b.values(), *g_b2a.values()]),
+            opt_d_a=AdamState(list(d_a.values())),
+            opt_d_b=AdamState(list(d_b.values())),
+            pool_a=init_pool(self.pool_size, (size, size, self.input_nc), dev),
+            pool_b=init_pool(self.pool_size, (size, size, self.output_nc),
+                             dev),
+            pool_gen=torch.Generator(device=dev).manual_seed(seed),
+            epoch=torch.full((), self.start_epoch, dtype=torch.int32,
+                             device=dev))
+
+    def load_jax_params(self, g_a2b: Mapping[str, Any],
+                        g_b2a: Mapping[str, Any], d_a: Mapping[str, Any],
+                        d_b: Mapping[str, Any]) -> None:
+        """Load the JAX engine's four param trees (numpy leaves) into the
+        nets, in place: a state from :meth:`init_state` sees them."""
+        super().load_jax_params(g_a2b, g_b2a)
+        for net, params in ((self.D_a, d_a), (self.D_b, d_b)):
+            net.load_state_dict(patch_discriminator_from_jax(params))
+
+    def jax_params(self) -> Dict[str, Dict[str, Any]]:
+        """The four nets as JAX param trees (numpy fp32 leaves), keyed as
+        the JAX ``CycleGANState`` fields."""
+        return {"g_a2b": self._to_jax(self.G_a2b.state_dict()),
+                "g_b2a": self._to_jax(self.G_b2a.state_dict()),
+                "d_a": patch_discriminator_to_jax(self.D_a.state_dict()),
+                "d_b": patch_discriminator_to_jax(self.D_b.state_dict())}
+
+    def next_epoch(self, state: CycleGANState) -> CycleGANState:
+        return state._replace(epoch=state.epoch + 1)
+
+    # -- the step ------------------------------------------------------------
+    def _disc(self, net: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
+        return net(x.to(self.cdt)).float()
+
+    def _g_losses(self, real_a: torch.Tensor, real_b: torch.Tensor
+                  ) -> Dict[str, torch.Tensor]:
+        """The generator objective with the current D (JAX ``g_loss_fn``).
+        The identity and translation passes through one generator are one
+        call on the concatenated batch (instance norm is per image)."""
+        bs = real_a.shape[0]
+        ab = self._gen(self.G_a2b, torch.cat([real_b, real_a]))
+        same_b, fake_b = ab[:bs], ab[bs:]
+        loss_id_b = self.criterion(same_b, real_b) * self.id_w
+        ba = self._gen(self.G_b2a, torch.cat([real_a, real_b]))
+        same_a, fake_a = ba[:bs], ba[bs:]
+        loss_id_a = self.criterion(same_a, real_a) * self.id_w
+
+        loss_gan_a2b = lsgan_loss(self._disc(self.D_b, fake_b), True) \
+            * self.gan_w
+        loss_gan_b2a = lsgan_loss(self._disc(self.D_a, fake_a), True) \
+            * self.gan_w
+
+        rec_a = self._gen(self.G_b2a, fake_b)
+        loss_cyc_aba = self.criterion(rec_a, real_a) * self.cycle_w
+        rec_b = self._gen(self.G_a2b, fake_a)
+        loss_cyc_bab = self.criterion(rec_b, real_b) * self.cycle_w
+
+        total = (loss_id_a + loss_id_b + loss_gan_a2b + loss_gan_b2a
+                 + loss_cyc_aba + loss_cyc_bab)
+        return {"fake_a": fake_a, "fake_b": fake_b, "loss_G": total,
+                "loss_G_identity": loss_id_a + loss_id_b,
+                "loss_G_GAN": loss_gan_a2b + loss_gan_b2a,
+                "loss_G_cycle": loss_cyc_aba + loss_cyc_bab}
+
+    def _d_step(self, net: torch.nn.Module, params: Params, opt: AdamState,
+                real: torch.Tensor, fake_hist: torch.Tensor,
+                lr: torch.Tensor, do_step: torch.Tensor) -> torch.Tensor:
+        """One discriminator step on ``cat([real, fake_hist])``, gated on
+        ``loss_D > d_loss_floor`` (the pre-update loss) and the skip."""
+        preds = self._disc(net, torch.cat([real, fake_hist]))
+        n = real.shape[0]
+        loss_d = (lsgan_loss(preds[:n], True)
+                  + lsgan_loss(preds[n:], False)) * 0.5
+        plist = list(params.values())
+        grads = torch.autograd.grad(loss_d, plist)
+        adam_step(plist, grads, opt, lr, (loss_d > self.d_floor) & do_step)
+        return loss_d.detach()
+
+    @torch.enable_grad()
+    def train_step(self, state: CycleGANState, real_a: torch.Tensor,
+                   real_b: torch.Tensor,
+                   mark: Optional[Callable[[str], None]] = None
+                   ) -> Tuple[CycleGANState, Dict[str, torch.Tensor]]:
+        """One step on an NHWC batch in [-1, 1]; metrics are device
+        scalars. ``mark(label)``, when given, is called at the end of each
+        phase (``g_forward``, ``g_backward``, ``g_adam``, ``pools``,
+        ``d_a``, ``d_b``), for a per-phase timing."""
+        mark = mark or (lambda label: None)
+        real_a = real_a.to(self.device, torch.float32)
+        real_b = real_b.to(self.device, torch.float32)
+        do_step = count_points(real_a) >= self.min_points
+        lr_now = self.lr * lambda_lr_factor(
+            state.epoch, self.n_epochs, self.start_epoch, self.decay_epoch)
+
+        # ---- generator update: grads for G only; D's params are not
+        # inputs of the grad, so they get none (and no .grad is left) ----
+        aux = self._g_losses(real_a, real_b)
+        mark("g_forward")
+        g_params = [*state.g_a2b.values(), *state.g_b2a.values()]
+        g_grads = torch.autograd.grad(aux["loss_G"], g_params)
+        mark("g_backward")
+        adam_step(g_params, g_grads, state.opt_g, lr_now, do_step)
+        mark("g_adam")
+
+        # ---- replay pools (updated only on active steps) ------------------
+        pool_a, fake_a_hist = push_and_pop(
+            state.pool_a, aux.pop("fake_a").detach(), state.pool_gen, do_step)
+        pool_b, fake_b_hist = push_and_pop(
+            state.pool_b, aux.pop("fake_b").detach(), state.pool_gen, do_step)
+        mark("pools")
+
+        # ---- discriminator updates (gated on the loss floor) --------------
+        loss_d_a = self._d_step(self.D_a, state.d_a, state.opt_d_a, real_a,
+                                fake_a_hist, lr_now, do_step)
+        mark("d_a")
+        loss_d_b = self._d_step(self.D_b, state.d_b, state.opt_d_b, real_b,
+                                fake_b_hist, lr_now, do_step)
+        mark("d_b")
+
+        metrics = {k: v.detach() for k, v in aux.items()}
+        metrics.update({"loss_D_A": loss_d_a, "loss_D_B": loss_d_b,
+                        "loss_D": loss_d_a + loss_d_b,
+                        "skipped": 1.0 - do_step.float()})
+        return state._replace(pool_a=pool_a, pool_b=pool_b), metrics

@@ -1,6 +1,7 @@
-"""CycleGAN generators (counterpart of ``cistar_tpu/models/cyclegan.py``):
-``ResnetGenerator`` ('p2p*') and ``MultiscaleBilinearGenerator``
-('bilinear*', the reference CLI's default ``bilinear_content``).
+"""CycleGAN models (counterpart of ``cistar_tpu/models/cyclegan.py``): the
+generators ``ResnetGenerator`` ('p2p*') and ``MultiscaleBilinearGenerator``
+('bilinear*', the reference CLI's default ``bilinear_content``), and the
+``PatchDiscriminator``.
 
 Submodule names follow the JAX param tree: ``init_conv``, ``down.i`` for
 ``down_i``, ``res.i.…`` for ``res_i/…``, ``up.i`` for ``up_i``,
@@ -124,6 +125,28 @@ class MultiscaleBilinearGenerator(_SkipDecoderBase):
 
     def decoder_block(self, cin: int, features: int) -> nn.Module:
         return _BilinearUpBlock(cin, features)
+
+
+class PatchDiscriminator(nn.Module):
+    """PatchGAN + global-average-pool head (``PatchDiscriminator``,
+    ``CycleGAN/models.py:69-97``): 4×4 convs, padding 1, 64 (stride 2) →
+    128 (stride 2) + IN → 256 (stride 2) + IN → 512 (stride 1) + IN, each
+    followed by LeakyReLU(0.2), then a one-channel 4×4 conv and the global
+    average pool to one score per image, shape (N,). NHWC in."""
+
+    def __init__(self, input_nc: int = 1):
+        super().__init__()
+        self.conv0 = Conv2d(input_nc, 64, 4, stride=2, padding=1)
+        self.conv1 = Conv2d(64, 128, 4, stride=2, padding=1)
+        self.conv2 = Conv2d(128, 256, 4, stride=2, padding=1)
+        self.conv3 = Conv2d(256, 512, 4, stride=1, padding=1)
+        self.conv4 = Conv2d(512, 1, 4, stride=1, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = tnn.leaky_relu(self.conv0(x), 0.2)
+        for conv in (self.conv1, self.conv2, self.conv3):
+            h = tnn.leaky_relu(tnn.instance_norm(conv(h)), 0.2)
+        return tnn.global_avg_pool(self.conv4(h)).reshape(x.shape[0])
 
 
 def build_generator(gen_type: str, input_nc: int = 1, output_nc: int = 1,

@@ -201,6 +201,12 @@ def avg_pool2d(x: torch.Tensor, kernel: int, stride: Optional[int] = None,
     return out.to(x.dtype)
 
 
+def global_avg_pool(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """Global spatial mean in fp32, cast back to the input dtype: the
+    PatchGAN pooled head (``ops/nn.py::global_avg_pool``)."""
+    return x.float().mean(dim=(1, 2), keepdim=keepdim).to(x.dtype)
+
+
 def upsample_bilinear(x: torch.Tensor, scale_factor: int = 2) -> torch.Tensor:
     """Bilinear upsample, half-pixel centres (``align_corners=False``,
     ``nn.Upsample``'s default; ``ops/nn.py::upsample_bilinear``)."""

@@ -81,7 +81,7 @@ def test_k5_takes_the_wgmma_conv_at_every_rate(n, rate):
 # 32 channels fill neither stage) keeps conv_s8_kernel, (0, 0).
 @pytest.mark.parametrize("n", [4, 32])
 @pytest.mark.parametrize("cin,cout", [(64, 128), (32, 64)])
-def test_k6_shapes_keep_the_mma_sync_conv(n, cin, cout):
+def test_k6_shapes_take_their_conv_variant(n, cin, cout):
     want = (ka.BN, 64) if cin == 64 else (0, 0)
     assert ka.conv_variant(n, 64, 64, cin, cout) == want
 
