@@ -221,6 +221,43 @@ kernels are forward-only), in ``torch.enable_grad()``:
     latest ``.npz`` of the four nets written, and a ``--resume`` run that
     loads them.
 
+The other CycleGAN generators (slice 12) at the JAX CLIs' defaults
+(``cistar_tpu/apps/cyclegan_train.py:19-48``, ``cyclegan_test.py:18-30``):
+16 features, 6 residual blocks, 512², bf16; random weights from seed 0.
+``atrous_content`` with the dense decoder (``MultiscaleDenseDecoder``, the
+JAX suite's ``atrousdense512_int8``), ``atrous_content`` without it
+(``MultiscaleGenerator``, four dilated transpose-conv branches a stage)
+and ``unet_content`` (``UnetGenerator``). Their int8 engines run the trunk
+(B, 64, 64, 128) through K1 and, in 'atrous', encoder stage 2 through K6:
+
+27. K1 on the dense 'atrous' path's own trunk activation at (4, 64, 64,
+    128) and at the timed (32, 64, 64, 128): the int32 accumulators of
+    ``conv3x3_reflect_s8`` equal the plain version bit for bit,
+    ``cistar_resblock_conv_variant`` is 128 as its Python mirror says, K1
+    is within ``K1_*`` of plain; one block's distance to the JAX package's
+    res-trunk budget (0.35) vs its fp32 module is printed;
+28. each family at batch 4, counted: a generator call of the int8 engine
+    launches 6 K1 and, in 'atrous', 1 K6, and no other kernel; fidelity as
+    in phase 4, against the same engine with the plain K1 / K6. Then the
+    non-dense 'atrous' engine under ``_HEAD_KERNEL = "tap_matmul"``: 6 K1
+    + 1 K6 + 1 K9, and K9 on its head input (4, 512, 512, 16) within
+    ``K9_*`` of plain;
+29. three requests per family served through ``CycleGANInference``
+    (``infer_step`` and ``infer_step_int8``), counted: 3 generator calls
+    each;
+30. times with CUDA events at batch 32: img/s of each family's bf16 and
+    int8 engine, one profile each, each engine's time by segment (stem,
+    the three encoder stages, the trunk, the decoder, the head), and K1
+    per launch at batch 4 and 32 beside its bound, its TOPS, its plain
+    version and phase 6's GEMM yardstick at this shape;
+31. one ``CycleGAN.train_step`` at 512², batch 4, bf16 (after a warm-up
+    step) of ``unet_content``, of ``unet_content`` with the VGG16 content
+    loss (the training CLI's ``--content_loss``) and of the non-dense
+    ``atrous_content``: every launch counter still 0, finite losses,
+    ``skipped`` 0, ms a step; then ``apps/cyclegan_test.py`` on the first
+    two runs' checkpoints and 4 synthetic pairs at 512², both engines: the
+    recovered PNG and its 5-panel strip written.
+
 The fp32 reference forwards run with TF32 off, the rest under PyTorch's
 defaults. The line before the last is the card's name and power limit; the
 kernels' JSON line comes before it; the last line is
@@ -955,7 +992,6 @@ def bilinear_path(dev, images, counters) -> list:
     from cistar_tpu_torch.kernels import int8_atrous as ka
     from cistar_tpu_torch.models import fast_infer as fi
     from cistar_tpu_torch.models.cyclegan import seeded_generator
-    from cistar_tpu_torch.ops import nn as tnn
     from cistar_tpu_torch.ops import quant_int8 as qi
 
     int8_engine = fi.bilinear_generator_int8_trunk_apply
@@ -965,16 +1001,7 @@ def bilinear_path(dev, images, counters) -> list:
     size, n = BIL["size"], BIL["batch"]
 
     def encode(x, stage_int8):
-        """Stem and encoder as the int8 engine runs them, with
-        ``stage_int8`` for the stages its routing rule sends to int8:
-        (stage inputs, stage outputs)."""
-        h = tnn.relu(tnn.instance_norm(gen.init_conv(x)))
-        ins, outs = [], []
-        for stage, q in zip(gen.down, qt["enc"]):
-            ins.append(h)
-            h = stage_int8(h, q) if fi.stage_kernel_fits(h, q) else stage(h)
-            outs.append(h)
-        return ins, outs
+        return family_encode(gen, qt, x, stage_int8)
 
     def plain_engine(x):
         """The int8 engine with the plain versions of K5 / K6."""
@@ -2398,6 +2425,358 @@ TRAIN_RTOL, TRAIN_ABS = 1e-3, 1e-3
 TRAIN_WARMUP, TRAIN_STEPS, CLI_PAIRS = 2, 10, 16
 
 
+# The other CycleGAN generators at the JAX CLIs' defaults; the checked
+# batch and the JAX suite's atrousdense512_int8 batch
+# (benchmarks/run_suite.py:540-541, bench_cyclegan_family_infer)
+FAM = dict(features=16, blocks=6, size=512, batch=4, bench_batch=32)
+# label, gen_type, dense_decoder
+FAMILIES = (("atrous dense", "atrous_content", True),
+            ("atrous", "atrous_content", False),
+            ("unet", "unet_content", True))
+# The JAX package's res-trunk budget, max-abs of one int8 block (K1's
+# bf16 carrier) vs its fp32 module (benchmarks/kernel_matrix_r5.json,
+# trunk_bf16io): printed, as the 0.1 above.
+TRUNK_BUDGET = 0.35
+FAM_TRAIN_STEPS = 3
+
+
+def family(dev, gen_type: str, dense: bool, seed: int = 0):
+    """One of the other CycleGAN generators at ``FAM``'s width, its
+    quantized trunk and its int8 engine ``fn(gen, q, x)``."""
+    from cistar_tpu_torch.models import fast_infer as fi
+    from cistar_tpu_torch.models.cyclegan import seeded_generator
+
+    gen = seeded_generator(gen_type, FAM["blocks"], FAM["features"],
+                           seed=seed, device=dev, dense_decoder=dense)
+    if gen_type.startswith("unet"):
+        return gen, fi.quantize_unet_trunk(gen), \
+            fi.unet_generator_int8_trunk_apply
+    return gen, fi.quantize_multiscale_trunk(gen), \
+        fi.multiscale_generator_int8_trunk_apply
+
+
+def family_encode(gen, qt, x, stage_int8):
+    """Stem and encoder of a CycleGAN skip-decoder generator as its int8
+    engine runs them, with ``stage_int8`` for the stages its rule sends to
+    K6 (none in 'unet'): (stage inputs, stage outputs)."""
+    from cistar_tpu_torch.models import fast_infer as fi
+    from cistar_tpu_torch.ops import nn as tnn
+
+    qenc = qt.get("enc") if isinstance(qt, dict) else None
+    h = tnn.relu(tnn.instance_norm(gen.init_conv(x)))
+    ins, outs = [], []
+    for i, stage in enumerate(gen.down):
+        ins.append(h)
+        h = stage_int8(h, qenc[i]) if qenc is not None \
+            and fi.stage_kernel_fits(h, qenc[i]) else stage(h)
+        outs.append(h)
+    return ins, outs
+
+
+def family_plain_engine(gen, qt, x):
+    """A family's int8 engine with the plain versions of K1 / K6."""
+    from cistar_tpu_torch.models import fast_infer as fi
+    from cistar_tpu_torch.ops import quant_int8 as qi
+
+    _, skips = family_encode(gen, qt, x, lambda h, q: (
+        qi.multi_atrous_stage_int8_plain(h[:, ::2, ::2], q, RATES2)))
+    h = skips[-1]
+    for q in (qt["res"] if isinstance(qt, dict) else qt):
+        h = qi.resblock_int8_bf16io_plain(h, q)
+    return fi.convt_decode(gen, h, skips)
+
+
+def k1_trunk_check(gen, h, q) -> float:
+    """Phase 27 at one batch: K1's conv bit for bit and at BN 128, K1
+    within ``K1_*`` of plain, one block vs its fp32 module; K1's max-abs
+    error against plain."""
+    import torch
+
+    from cistar_tpu_torch.kernels import int8_resblock as kr
+    from cistar_tpu_torch.ops import quant_int8 as qi
+
+    hq, _ = qi.quantize_act(h)
+    shape = tuple(hq.shape)
+    check(torch.equal(kr.conv3x3_reflect_s8(hq, q["w1k"]),
+                      qi.conv3x3_reflect_s8_plain(hq, q["w1q"])),
+          f"conv3x3_reflect_s8 {shape} bit-exact")
+    v_card, v_py = kr.conv_variant_card(*shape), kr.conv_variant(*shape)
+    print(f"[kernels] conv3x3_reflect_s8 {shape}: int32 accumulators "
+          f"bit-exact vs plain; wgmma BN {v_card} (Python mirror {v_py})",
+          flush=True)
+    check(v_card == v_py == 128, f"the wgmma conv at BN 128 at {shape}")
+    yk = kr.resblock_int8_bf16io(h, q, qi.EPS)
+    yp = qi.resblock_int8_bf16io_plain(h, q)
+    d = (yk.float() - yp.float()).abs()
+    err = d.max().item()
+    over = (d - K1_REL * yp.float().abs()).max().item()
+    with fp32_exact():
+        f = (yk.float() - gen.res[0](h.float())).abs().max().item()
+    print(f"[kernels] K1 resblock_int8_bf16io {shape} bf16: max|kernel-plain|"
+          f" {err!r}, max over one ulp {over!r} (tol {K1_ABS}); vs the fp32 "
+          f"block {f!r}, {TRUNK_BUDGET} budget "
+          f"{'met' if f <= TRUNK_BUDGET else 'missed'}", flush=True)
+    check(over <= K1_ABS, f"K1 {shape} within one bf16 ulp + 0.01 of plain")
+    return err
+
+
+def family_launches(counters, want: dict, label: str) -> None:
+    """Every launch counter against ``want`` (the counters not named: 0)."""
+    launches = {k: v for m in counters for k, v in m.launches.items()}
+    print(f"[{label}] launches {launches}", flush=True)
+    for k, v in launches.items():
+        check(v == want.get(k, 0), f"{label}: {want.get(k, 0)} {k} launches")
+
+
+def family_breakdown(label, gen, qt, int8_fn, x) -> None:
+    """Where the time of each engine of a family goes: CUDA-event ms of
+    each segment of one generator call on the main path's own
+    activations."""
+    import torch
+
+    from cistar_tpu_torch.models import fast_infer as fi
+    from cistar_tpu_torch.ops import nn as tnn
+    from cistar_tpu_torch.ops import quant_int8 as qi
+
+    ins, outs = family_encode(gen, qt, x, qi.multi_atrous_stage_int8)
+    qres = qt["res"] if isinstance(qt, dict) else qt
+    trunk_in = outs[2].contiguous()
+    trunk_out = qi.resblock_chain_int8_bf16io(trunk_in, qres)
+
+    def bf16_trunk():
+        h = trunk_in
+        for m in gen.res:
+            h = m(h)
+        return h
+
+    def bf16_up():
+        h = trunk_out
+        for m, skip in zip(gen.up, reversed(outs)):
+            h = m(torch.cat([h, skip], dim=-1))
+        return h
+
+    up_bf16, up_int8 = bf16_up(), fi.convt_up(gen, trunk_out, outs)
+    stem = (lambda: tnn.relu(tnn.instance_norm(gen.init_conv(x))),) * 2
+    def stage_int8(i):
+        if isinstance(qt, dict) and fi.stage_kernel_fits(ins[i],
+                                                         qt["enc"][i]):
+            return qi.multi_atrous_stage_int8(ins[i], qt["enc"][i])
+        return gen.down[i](ins[i])
+
+    stages = [(lambda i=i: gen.down[i](ins[i]), lambda i=i: stage_int8(i))
+              for i in range(3)]
+    trunk = (bf16_trunk, lambda: qi.resblock_chain_int8_bf16io(trunk_in, qres))
+    up = (bf16_up, lambda: fi.convt_up(gen, trunk_out, outs))
+    head = (lambda: tnn.tanh(gen.out_conv(up_bf16)),
+            lambda: fi.convt_head(gen, up_int8))
+    names = ("stem", "stage 0", "stage 1", "stage 2", "trunk", "decoder",
+             "head")
+    segs = (stem, *stages, trunk, up, head)
+    for e, engine in enumerate(("bf16", "int8")):
+        ms = [cuda_ms(seg[e], 5) for seg in segs]
+        print(f"[breakdown] {label} {engine} batch {x.shape[0]} (ms): "
+              + "; ".join(f"{k} {t!r}" for k, t in zip(names, ms))
+              + f"; sum {sum(ms)!r}", flush=True)
+
+
+def family_path(dev, images, counters) -> None:
+    """Phases 27-30: the other CycleGAN generators' inference."""
+    import torch
+
+    from cistar_tpu_torch.engines.cyclegan import CycleGANInference
+    from cistar_tpu_torch.kernels import int8_resblock as kr
+    from cistar_tpu_torch.models import fast_infer as fi
+    from cistar_tpu_torch.ops import fused
+    from cistar_tpu_torch.ops import quant_int8 as qi
+
+    n, size, nb = FAM["batch"], FAM["size"], FAM["bench_batch"]
+    blocks = FAM["blocks"]
+
+    # 27. K1 on the dense 'atrous' trunk, at the checked and timed batch
+    gen, qt, _ = family(dev, "atrous_content", True)
+    q0 = qt["res"][0]
+    x = images(n, size).bfloat16()
+    xb = images(nb, size).bfloat16()
+    h, hb = (fi.atrous_encode(gen, qt["enc"], v)[-1].contiguous()
+             for v in (x, xb))
+    check(tuple(h.shape) == (n, 64, 64, 128)
+          and tuple(hb.shape) == (nb, 64, 64, 128),
+          f"trunk {tuple(h.shape)}, {tuple(hb.shape)}")
+    k1_trunk_check(gen, h, q0)
+    k1_trunk_check(gen, hb, q0)
+
+    # 28. each family at batch 4, counted
+    xf = images(n, size)
+    for label, gen_type, dense in FAMILIES:
+        gen, qt, int8_fn = family(dev, gen_type, dense)
+        for m in counters:
+            m.reset_launches()
+        y_bf16 = gen(xf.bfloat16()).float()
+        y_int8 = int8_fn(gen, qt, xf.bfloat16()).float()
+        torch.cuda.synchronize()
+        family_launches(counters, {"resblock_int8_bf16io": blocks,
+                                   "multi_atrous_stage_int8":
+                                   int(gen_type.startswith("atrous"))},
+                        f"{label} path")
+        with fp32_exact():
+            y32 = gen(xf)
+        dk = (y_int8 - y32).abs()
+        dp = (family_plain_engine(gen, qt, xf.bfloat16()).float()
+              - y32).abs()
+        (mk, ak), (mp, ap) = ((d.max().item(), d.mean().item())
+                              for d in (dk, dp))
+        print(f"[{label} path] int8 engine vs fp32: max {mk!r} mean {ak!r}; "
+              f"with plain K1 / K6 max {mp!r} mean {ap!r}", flush=True)
+        check(ak <= KERNEL_MEAN_RATIO * ap and mk <= mp + KERNEL_MAX_EXCESS,
+              f"{label} path: kernels add little to the plain error")
+        for name, y in (("bf16", y_bf16), ("int8", y_int8)):
+            check(tuple(y.shape) == (n, size, size, 1)
+                  and bool(torch.isfinite(y).all()),
+                  f"{label} {name} output shape/finite")
+            d = (y - y32).abs()
+            print(f"[{label} path] {name} vs fp32: max {d.max().item()!r} "
+                  f"mean {d.mean().item()!r}", flush=True)
+        if dense:
+            continue
+        # the non-dense decoder's head under the K9 switch
+        saved = fi._HEAD_KERNEL
+        fi._HEAD_KERNEL = "tap_matmul"
+        try:
+            for m in counters:
+                m.reset_launches()
+            y_k9 = int8_fn(gen, qt, xf.bfloat16()).float()
+            torch.cuda.synchronize()
+            family_launches(counters, {"resblock_int8_bf16io": blocks,
+                                       "multi_atrous_stage_int8": 1,
+                                       "head_cout1": 1},
+                            f"{label} path, K9 head")
+        finally:
+            fi._HEAD_KERNEL = saved
+        _, skips = family_encode(gen, qt, xf.bfloat16(),
+                                 qi.multi_atrous_stage_int8)
+        u = fi.convt_up(gen, qi.resblock_chain_int8_bf16io(skips[-1],
+                                                           qt["res"]), skips)
+        check(tuple(u.shape) == (n, size, size, FAM["features"]),
+              f"K9's input {tuple(u.shape)}")
+        wh, bh = gen.out_conv.weight, gen.out_conv.bias
+        yk = fused.conv2d_reflect_cout1_loop(u, wh, bh, "tanh")
+        yp = fused.conv2d_reflect_cout1_plain(u, wh, bh, "tanh")
+        d = (yk.float() - yp.float()).abs()
+        over = (d - K9_REL * yp.float().abs()).max().item()
+        dh = (y_k9 - y_int8).abs().max().item()
+        print(f"[kernels] K9 {tuple(u.shape)} {u.dtype}, tanh: max|kernel-"
+              f"plain| {d.max().item()!r}, max over one ulp {over!r} (tol "
+              f"{K9_ABS}); the engine with K9 vs the default head, max "
+              f"{dh!r}", flush=True)
+        check(over <= K9_ABS, "K9 within tolerance of plain")
+        check(bool(torch.isfinite(y_k9).all()), "K9 engine output finite")
+
+    # 29. three requests per family, counted: 3 generator calls each
+    for label, gen_type, dense in FAMILIES:
+        for m in counters:
+            m.reset_launches()
+        serve(CycleGANInference(gen_type, in_features=FAM["features"],
+                                n_residual_blocks=blocks, seed=1,
+                                dense_decoder=dense),
+              images, n, size, label)
+        torch.cuda.synchronize()
+        family_launches(counters, {
+            "resblock_int8_bf16io": 9 * blocks,
+            "multi_atrous_stage_int8": 9 * int(gen_type.startswith("atrous"))},
+            f"serve {label}")
+
+    # 30. times at batch 32
+    for label, gen_type, dense in FAMILIES:
+        gen, qt, int8_fn = family(dev, gen_type, dense)
+        for name, fn in (("bf16", lambda: gen(xb)),
+                         ("int8", lambda: int8_fn(gen, qt, xb))):
+            print_times(f"{label} generator {name}", nb, fn)
+        family_breakdown(label, gen, qt, int8_fn, xb)
+    for v in (h, hb):
+        vq, _ = qi.quantize_act(v)
+        ms = cuda_ms(lambda: kr.resblock_int8_bf16io(v, q0, qi.EPS), 20)
+        plain_ms = cuda_ms(lambda: qi.resblock_int8_bf16io_plain(v, q0), 5)
+        print_block_times("resblock_int8_bf16io", tuple(v.shape), ms, 2,
+                          int_mm_ms(vq, q0["w1k"]), plain_ms)
+
+
+def family_train_path(dev, counters) -> None:
+    """Phase 31: train steps of the other generators at 512², then the
+    test CLI on their checkpoints."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cistar_tpu_torch.apps import cyclegan_test
+    from cistar_tpu_torch.core import checkpoint as ckpt
+    from cistar_tpu_torch.engines.cyclegan import CycleGAN
+    from cistar_tpu_torch.losses.perceptual import make_content_criterion
+
+    n, size = TRAIN["batch"], TRAIN["size"]
+    radar, lidar = synthetic_pairs(n, size)
+    a, b = torch.from_numpy(radar).to(dev), torch.from_numpy(lidar).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        synthetic_tool().main(["--out", data, "--n", "4", "--size",
+                               str(size)])
+        runs = []
+        for label, gen_type, dense, content in (
+                ("unet", "unet_content", True, False),
+                ("unet, content loss", "unet_content", True, True),
+                ("atrous", "atrous_content", False, False)):
+            eng = CycleGAN(gen_type, in_features=FAM["features"],
+                           n_residual_blocks=FAM["blocks"], image_size=size,
+                           batch_size=n, pool_size=TRAIN["pool"],
+                           dense_decoder=dense, device=dev,
+                           cycle_criterion=make_content_criterion()
+                           if content else None)
+            st = eng.init_state(0)
+            for c in counters:
+                c.reset_launches()
+            st, _ = eng.train_step(st, a, b)          # warm-up
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(FAM_TRAIN_STEPS):
+                st, m = eng.train_step(st, a, b)
+            e1.record()
+            e1.synchronize()
+            ms = e0.elapsed_time(e1) / FAM_TRAIN_STEPS
+            launches = {k: v for c in counters for k, v in c.launches.items()}
+            check(not any(launches.values()),
+                  f"train step {label}: no kernel launched")
+            host = {k: float(v) for k, v in m.items()}
+            print(f"[times] train step {label} batch {n} {size}² bf16: {ms!r}"
+                  f" ms a step, {n / ms * 1e3!r} img/s; last step {host}",
+                  flush=True)
+            check(host["skipped"] == 0.0, f"train step {label}: not skipped")
+            check(all(np.isfinite(v) for v in host.values()),
+                  f"train step {label}: finite losses")
+            if not content:
+                model_dir = os.path.join(tmp, label)
+                os.makedirs(model_dir)
+                ckpt.save_cyclegan_state(model_dir, eng)
+                runs.append((label, gen_type, dense, model_dir))
+            del eng, st
+        # the test CLI on the checkpoints: the test split is pair 3 of 4
+        for label, gen_type, dense, model_dir in runs:
+            for engine in ("default", "int8"):
+                t0 = time.perf_counter()
+                out = cyclegan_test.main(
+                    ["--dataroot", data, "--model_dir", model_dir, "--size",
+                     str(size), "--gen_type", gen_type, "--dense_decoder",
+                     str(dense), "--engine", engine])
+                torch.cuda.synchronize()
+                names = sorted(os.listdir(out))
+                check(names == ["00003.png", "panel_00003.png"],
+                      f"the test CLI wrote {names}")
+                print(f"[test cli] {label} {engine}: {names} in "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
+                for f in names:
+                    os.remove(os.path.join(out, f))
+
+
 def synthetic_tool():
     """``tools/make_synthetic_r2l.py``, loaded from its file."""
     import importlib.util
@@ -2721,6 +3100,9 @@ def main() -> int:
     rows += bn_local_path(images, counters)
     with torch.enable_grad():
         train_path(dev, counters)
+    family_path(dev, images, counters)
+    with torch.enable_grad():
+        family_train_path(dev, counters)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -8,10 +8,12 @@ Same flags and defaults as the JAX CLI (``CycleGAN/train.py:24-42``), except:
   * ``--platform`` becomes ``--device``: ``""`` (the default) runs on CUDA
     and raises without a GPU; ``cpu`` runs the plain ops on the CPU;
   * ``--compile_timeout`` and the XLA executable cache are left out: they
-    guard and cache XLA compiles, and the eager PyTorch step has none;
-  * ``--content_loss`` (the VGG16 content loss) raises
-    ``NotImplementedError`` until ROADMAP queue 1, item 7 ports it;
-    ``atrous*`` and ``unet*`` generators raise in ``build_generator``.
+    guard and cache XLA compiles, and the eager PyTorch step has none.
+
+``--content_loss`` takes the VGG16 content loss
+(``losses/perceptual.py``) for the cycle and identity terms in place of
+L1; ``--dense_decoder False`` picks ``MultiscaleGenerator`` for an
+``atrous*`` ``--gen_type``.
 
 The loop is the JAX CLI's: per batch one :meth:`CycleGAN.train_step`
 (sparse-frame skip, D-loss gates and replay pools inside it), metrics read
@@ -69,29 +71,35 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def make_engine(args):
+    """The :class:`~cistar_tpu_torch.engines.cyclegan.CycleGAN` the flags
+    describe, with the content criterion under ``--content_loss``."""
+    from cistar_tpu_torch.engines.cyclegan import CycleGAN
+    from cistar_tpu_torch.losses.perceptual import make_content_criterion
+
+    return CycleGAN(
+        gen_type=args.gen_type, input_nc=args.input_nc,
+        output_nc=args.output_nc, in_features=16, lr=args.lr,
+        n_epochs=args.n_epochs, start_epoch=args.epoch,
+        decay_epoch=args.decay_epoch, image_size=args.size,
+        batch_size=args.batchSize, dense_decoder=args.dense_decoder,
+        cycle_criterion=make_content_criterion() if args.content_loss
+        else None, min_points=args.min_points,
+        compute_dtype=torch.bfloat16 if args.dtype == "bf16" else torch.float32,
+        device=args.device or None)
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.content_loss:
-        raise NotImplementedError(
-            "--content_loss (the VGG16 content loss, losses/perceptual.py) is "
-            "not ported yet: ROADMAP queue 1, item 7")
 
     from cistar_tpu_torch.core import checkpoint as ckpt
     from cistar_tpu_torch.data.datasets import CycleGANImageDataset, Loader
-    from cistar_tpu_torch.engines.cyclegan import CycleGAN
     from cistar_tpu_torch.utils.metrics import MetricsLogger
 
     output_dir = args.output_dir + "_" + args.gen_type
     os.makedirs(output_dir, exist_ok=True)
 
-    engine = CycleGAN(
-        gen_type=args.gen_type, input_nc=args.input_nc,
-        output_nc=args.output_nc, in_features=16, lr=args.lr,
-        n_epochs=args.n_epochs, start_epoch=args.epoch,
-        decay_epoch=args.decay_epoch, image_size=args.size,
-        batch_size=args.batchSize, min_points=args.min_points,
-        compute_dtype=torch.bfloat16 if args.dtype == "bf16" else torch.float32,
-        device=args.device or None)
+    engine = make_engine(args)
     state = engine.init_state(0, image_size=args.size)
     if args.resume:
         state = ckpt.load_cyclegan_state(output_dir, engine, state)

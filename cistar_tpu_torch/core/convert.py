@@ -90,19 +90,28 @@ def _unet_key(path: Tuple[str, ...]) -> str:
     return ".".join(parts)
 
 
+def _named_convt(path: Tuple[str, ...]) -> bool:
+    """The transpose convs of every generator but ``ResnetGenerator``: the
+    nodes whose name ends in ``convt`` (``up_i/convt``,
+    ``up_i/b{j}_convt``, ``trunk/up_i/convt``, ``up_i_convt``, …)."""
+    return path[-1].endswith("convt")
+
+
 def generator_from_jax(params: Mapping[str, Any],
                        transposed: Callable[[Tuple[str, ...]], bool]
-                       = lambda path: False,
+                       = _named_convt,
                        key: Callable[[Tuple[str, ...]], str] = _torch_key,
                        batch_stats: Optional[Mapping[str, Any]] = None
                        ) -> Dict[str, torch.Tensor]:
     """A generator's JAX params → ``state_dict`` of its port counterpart
     (:mod:`cistar_tpu_torch.models`). ``transposed(path)`` says which nodes
-    are transpose convs, ``key(path)`` names each node's module. A
-    ``MultiscaleBilinearGenerator`` (``init_conv``, ``down_i/b{j}_conv``,
-    ``res_i/atrous/b{j}_conv``, ``res_i/conv``, ``up_i/conv``,
-    ``out_conv``) has none, and the default names. A BatchNorm node takes
-    its running statistics from ``batch_stats`` at the same path."""
+    are transpose convs (by default those named ``*convt``), ``key(path)``
+    names each node's module. The CycleGAN skip-decoder generators take the
+    defaults: ``init_conv``, ``down_i/conv`` or ``down_i/b{j}_conv``,
+    ``res_i/conv{1,2}`` or ``res_i/atrous/b{j}_conv`` + ``res_i/conv``,
+    ``up_i/convt``, ``up_i/b{j}_convt`` or ``up_i/conv``, ``out_conv``. A
+    BatchNorm node takes its running statistics from ``batch_stats`` at the
+    same path."""
     sd: Dict[str, torch.Tensor] = {}
     for path, node in _nodes(params):
         key_ = key(path)
@@ -143,7 +152,7 @@ def global_generator_from_jax(params: Mapping[str, Any]
     ``trunk/down_i/conv``, ``trunk/res_i/conv{1,2}``, ``trunk/up_i/convt``
     (transpose), ``head/conv``) → a ``state_dict`` for :class:`~
     cistar_tpu_torch.models.pix2pixhd.GlobalGenerator`."""
-    return generator_from_jax(params, lambda path: path[-1] == "convt")
+    return generator_from_jax(params)
 
 
 def local_enhancer_from_jax(params: Mapping[str, Any]
@@ -153,7 +162,7 @@ def local_enhancer_from_jax(params: Mapping[str, Any]
     ``enh{n}_res_{i}/conv{1,2}``, ``enh{n}_up/convt`` (transpose),
     ``head/conv``) → a ``state_dict`` for :class:`~cistar_tpu_torch.models.
     pix2pixhd.LocalEnhancer`."""
-    return generator_from_jax(params, lambda path: path[-1] == "convt")
+    return generator_from_jax(params)
 
 
 def multiscale_global_generator_from_jax(params: Mapping[str, Any],
@@ -165,8 +174,7 @@ def multiscale_global_generator_from_jax(params: Mapping[str, Any],
     ``up_i/{convt,norm}`` (transpose), ``head/conv``) and its
     ``batch_stats`` tree → a ``state_dict`` for :class:`~cistar_tpu_torch.
     models.pix2pixhd.MultiscaleGlobalGenerator`."""
-    return generator_from_jax(params, lambda path: path[-1] == "convt",
-                              batch_stats=batch_stats)
+    return generator_from_jax(params, batch_stats=batch_stats)
 
 
 def unet_generator_hd_from_jax(params: Mapping[str, Any]
@@ -175,8 +183,7 @@ def unet_generator_hd_from_jax(params: Mapping[str, Any]
     ``down_i_conv``, ``msrb_i/b{00,01,10,11}_conv``, ``msrb_i/out_conv``,
     ``up_i_convt`` (transpose), ``output_layer/conv``) → a ``state_dict``
     for :class:`~cistar_tpu_torch.models.pix2pixhd.UNetGeneratorHD`."""
-    return generator_from_jax(params, lambda path: path[-1].endswith("_convt"),
-                              _unet_key)
+    return generator_from_jax(params, key=_unet_key)
 
 
 def patch_discriminator_from_jax(params: Mapping[str, Any]
@@ -206,7 +213,7 @@ def _jax_path(module: str) -> Tuple[str, ...]:
 
 def generator_to_jax(sd: Mapping[str, torch.Tensor],
                      transposed: Callable[[Tuple[str, ...]], bool]
-                     = lambda path: False) -> Dict[str, Any]:
+                     = _named_convt) -> Dict[str, Any]:
     """A conv-only ``state_dict`` (``<module>.weight`` / ``<module>.bias``)
     → the JAX param tree of the same network, numpy fp32 leaves: the
     inverse of :func:`generator_from_jax` (no BatchNorm). ``transposed(path)``

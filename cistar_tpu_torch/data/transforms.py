@@ -7,7 +7,8 @@ HWC float arrays out:
   * :func:`normalize` / :func:`denormalize` — CycleGAN's
     Normalize(0.5, 0.5) (``CycleGAN/datasets.py:24-57``);
   * :func:`rotate_image` — the shared random rotation of the paired
-    datasets (``CycleGAN/datasets.py:50-54``).
+    datasets (``CycleGAN/datasets.py:50-54``);
+  * :func:`array_to_pil` — the way back, for the written images.
 """
 
 from __future__ import annotations
@@ -29,6 +30,15 @@ def pil_to_array(img: "Image.Image") -> np.ndarray:
     if arr.ndim == 2:
         arr = arr[:, :, None]
     return arr
+
+
+def array_to_pil(arr: np.ndarray) -> "Image.Image":
+    """float HWC in [0,1] → PIL (uint8). Single-channel arrays become mode L."""
+    arr = np.clip(np.asarray(arr, dtype=np.float32), 0.0, 1.0)
+    arr = (arr * 255.0 + 0.5).astype(np.uint8)
+    if arr.ndim == 3 and arr.shape[2] == 1:
+        arr = arr[:, :, 0]
+    return Image.fromarray(arr)
 
 
 def normalize(arr: np.ndarray, mean: float = 0.5, std: float = 0.5) -> np.ndarray:

@@ -11,8 +11,10 @@ discriminators and the train step of the reference loop
 both directions), then two discriminator steps each gated on ``loss_D >
 0.1``, with 50-image replay pools feeding D, Adam(lr 2e-4, β=(0.5, 0.999))
 ×3 and per-epoch linear LR decay (``LambdaLR``, ``CycleGAN/utils.py:116-124``).
-The ResNet ('p2p*') and ``MultiscaleBilinear`` ('bilinear*', the default)
-generators are ported.
+All four generator families are ported: ResNet ('p2p*'),
+``MultiscaleBilinear`` ('bilinear*', the default), ``Multiscale`` /
+``MultiscaleDenseDecoder`` ('atrous*', by ``dense_decoder``) and ``Unet``
+('unet*').
 
 The train step runs the plain ops under autograd; no CUDA kernel of the
 port is on it (they are forward-only). The skip and the D gates are masked
@@ -46,12 +48,17 @@ from cistar_tpu_torch.utils.image_pool import (PoolState, init_pool,
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 QGen = Union[List[QBlock], fi.QTrunk]
 
-# family prefix → (JAX params → state_dict, quantizer, int8 forward)
+# family prefix → (JAX params → state_dict, quantizer, int8 forward), as
+# the JAX engine dispatches them (quantize_generators, _int8_fwd)
 _FAMILIES: Dict[str, Tuple[Callable, Callable, Callable]] = {
     "p2p": (resnet_generator_from_jax, quantize_resnet_trunk,
             fi.resnet_generator_int8_trunk_apply),
     "bilinear": (generator_from_jax, fi.quantize_bilinear_trunk,
                  fi.bilinear_generator_int8_trunk_apply),
+    "atrous": (generator_from_jax, fi.quantize_multiscale_trunk,
+               fi.multiscale_generator_int8_trunk_apply),
+    "unet": (generator_from_jax, fi.quantize_unet_trunk,
+             fi.unet_generator_int8_trunk_apply),
 }
 
 
@@ -60,26 +67,33 @@ class CycleGANInference:
 
     Weights are random from ``seed`` (the same on every device) until
     :meth:`load_jax_params` replaces them. Inputs are NHWC; outputs are
-    fp32 NHWC, as in the JAX engine.
+    fp32 NHWC, as in the JAX engine. ``dense_decoder`` picks the 'atrous*'
+    decoder, as ``build_generator`` does; the other families ignore it.
     """
 
     def __init__(self, gen_type: str = "bilinear_content", input_nc: int = 1,
                  output_nc: int = 1, in_features: int = 16,
                  n_residual_blocks: int = 6,
                  compute_dtype: torch.dtype = torch.bfloat16, seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, dense_decoder: bool = True):
+        self.dense_decoder = dense_decoder
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            self.G_a2b = build_generator(gen_type, input_nc, output_nc,
-                                         in_features, n_residual_blocks)
-            self.G_b2a = build_generator(gen_type, output_nc, input_nc,
-                                         in_features, n_residual_blocks)
+            self.G_a2b = self._build(gen_type, input_nc, output_nc,
+                                     in_features, n_residual_blocks)
+            self.G_b2a = self._build(gen_type, output_nc, input_nc,
+                                     in_features, n_residual_blocks)
         self.device = resolve_device(device)
         self.cdt = compute_dtype
         self._convert, self._quantize, self._int8_fwd = next(
             v for k, v in _FAMILIES.items() if gen_type.startswith(k))
         self.G_a2b.to(self.device).eval()
         self.G_b2a.to(self.device).eval()
+
+    def _build(self, gen_type: str, input_nc: int, output_nc: int,
+               in_features: int, n_residual_blocks: int) -> torch.nn.Module:
+        return build_generator(gen_type, input_nc, output_nc, in_features,
+                               n_residual_blocks, self.dense_decoder)
 
     def load_jax_params(self, g_a2b: Mapping[str, Any],
                         g_b2a: Mapping[str, Any]) -> None:
@@ -102,7 +116,8 @@ class CycleGANInference:
     @torch.inference_mode()
     def quantize_generators(self) -> Tuple[QGen, QGen]:
         """Static int8 quantization of both generators, by family: the
-        ResNet trunk's residual blocks; the bilinear generator's atrous
+        ResNet and 'unet' trunks' residual blocks; the bilinear generator's
+        atrous residual blocks and encoder stages; the 'atrous' generators'
         residual blocks and encoder stages."""
         return self._quantize(self.G_a2b), self._quantize(self.G_b2a)
 
@@ -124,7 +139,9 @@ class CycleGANInference:
 
 # family prefix → the port's generator state_dict → JAX params
 _TO_JAX: Dict[str, Callable] = {"p2p": resnet_generator_to_jax,
-                                "bilinear": generator_to_jax}
+                                "bilinear": generator_to_jax,
+                                "atrous": generator_to_jax,
+                                "unet": generator_to_jax}
 
 Params = Dict[str, torch.Tensor]
 
@@ -179,9 +196,10 @@ class CycleGAN(CycleGANInference):
                  identity_weight: float = 1.0, min_points: float = 300.0,
                  d_loss_floor: float = 0.1,
                  compute_dtype: torch.dtype = torch.bfloat16, seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, dense_decoder: bool = True):
         super().__init__(gen_type, input_nc, output_nc, in_features,
-                         n_residual_blocks, compute_dtype, seed, device)
+                         n_residual_blocks, compute_dtype, seed, device,
+                         dense_decoder)
         self.gen_type = gen_type
         self.input_nc, self.output_nc = input_nc, output_nc
         self.in_features = in_features
@@ -212,12 +230,12 @@ class CycleGAN(CycleGANInference):
         size = image_size or self.image_size
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            fresh = (build_generator(self.gen_type, self.input_nc,
-                                     self.output_nc, self.in_features,
-                                     self.n_residual_blocks),
-                     build_generator(self.gen_type, self.output_nc,
-                                     self.input_nc, self.in_features,
-                                     self.n_residual_blocks),
+            fresh = (self._build(self.gen_type, self.input_nc,
+                                 self.output_nc, self.in_features,
+                                 self.n_residual_blocks),
+                     self._build(self.gen_type, self.output_nc,
+                                 self.input_nc, self.in_features,
+                                 self.n_residual_blocks),
                      PatchDiscriminator(self.input_nc),
                      PatchDiscriminator(self.output_nc))
         for net, f in zip(self._nets(), fresh):

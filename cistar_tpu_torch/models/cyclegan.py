@@ -1,11 +1,15 @@
 """CycleGAN models (counterpart of ``cistar_tpu/models/cyclegan.py``): the
-generators ``ResnetGenerator`` ('p2p*') and ``MultiscaleBilinearGenerator``
-('bilinear*', the reference CLI's default ``bilinear_content``), and the
-``PatchDiscriminator``.
+five generators — ``ResnetGenerator`` ('p2p*'), ``UnetGenerator``
+('unet*'), ``MultiscaleGenerator`` and ``MultiscaleDenseDecoderGenerator``
+('atrous*' without and with ``dense_decoder``) and
+``MultiscaleBilinearGenerator`` ('bilinear*', the reference CLI's default
+``bilinear_content``) — and the ``PatchDiscriminator``.
 
 Submodule names follow the JAX param tree: ``init_conv``, ``down.i`` for
-``down_i``, ``res.i.…`` for ``res_i/…``, ``up.i`` for ``up_i``,
-``out_conv``; ``core/convert.py`` maps one onto the other.
+``down_i`` (``down.i.conv``, ``down.i.b{j}_conv``), ``res.i.…`` for
+``res_i/…``, ``up.i`` for ``up_i`` (``up.i.convt``, ``up.i.b{j}_convt``,
+``up.i.conv``), ``out_conv``; ``core/convert.py`` maps one onto the
+other.
 """
 
 from __future__ import annotations
@@ -16,8 +20,10 @@ from torch import nn
 from cistar_tpu_torch.device import DeviceLike, resolve_device
 from cistar_tpu_torch.ops import nn as tnn
 from cistar_tpu_torch.ops.blocks import (Conv2d, ConvTranspose2d,
-                                         MultiAtrousConv, ReflectConv2d,
-                                         ResidualBlock, ResidualBlockAtrous)
+                                         MultiAtrousConv,
+                                         MultiAtrousTransposeConv,
+                                         ReflectConv2d, ResidualBlock,
+                                         ResidualBlockAtrous)
 
 
 class ResnetGenerator(nn.Module):
@@ -99,6 +105,62 @@ class _SkipDecoderBase(nn.Module):
         return tnn.tanh(self.out_conv(h))
 
 
+class _DownBlock(nn.Module):
+    """Stride-2 conv3×3 (zero pad 1) → IN → ReLU (``_DownBlock``)."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        self.conv = Conv2d(cin, features, 3, stride=2, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return tnn.relu(tnn.instance_norm(self.conv(x)))
+
+
+class _UpBlock(nn.Module):
+    """Stride-2 transpose conv3×3 (padding 1, output padding 1) → IN → ReLU
+    (``_UpBlock``)."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        self.convt = ConvTranspose2d(cin, features, 3, stride=2, padding=1,
+                                     output_padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return tnn.relu(tnn.instance_norm(self.convt(x)))
+
+
+class UnetGenerator(_SkipDecoderBase):
+    """``UnetGenerator`` ('unet*'): strided-conv encoder, ``ResidualBlock``
+    trunk, transpose-conv decoder."""
+
+    def encoder_block(self, cin: int, features: int) -> nn.Module:
+        return _DownBlock(cin, features)
+
+    def decoder_block(self, cin: int, features: int) -> nn.Module:
+        return _UpBlock(cin, features)
+
+
+class MultiscaleGenerator(_SkipDecoderBase):
+    """``MultiscaleGenerator`` ('atrous*', ``dense_decoder=False``): stride-2
+    ``MultiAtrousConv`` encoder, ``ResidualBlock`` trunk,
+    ``MultiAtrousTransposeConv`` decoder."""
+
+    def encoder_block(self, cin: int, features: int) -> nn.Module:
+        return MultiAtrousConv(cin, features, stride=2)
+
+    def decoder_block(self, cin: int, features: int) -> nn.Module:
+        return MultiAtrousTransposeConv(cin, features, stride=2)
+
+
+class MultiscaleDenseDecoderGenerator(MultiscaleGenerator):
+    """``MultiscaleDenseDecoderGenerator`` ('atrous*', the CLI's default
+    ``dense_decoder=True``): the atrous encoder with the plain
+    transpose-conv decoder of ``UnetGenerator``."""
+
+    def decoder_block(self, cin: int, features: int) -> nn.Module:
+        return _UpBlock(cin, features)
+
+
 class _BilinearUpBlock(nn.Module):
     """2× bilinear upsample → conv3×3 (zero pad 1) → IN → ReLU
     (``_BilinearUpBlock``)."""
@@ -150,33 +212,36 @@ class PatchDiscriminator(nn.Module):
 
 
 def build_generator(gen_type: str, input_nc: int = 1, output_nc: int = 1,
-                    in_features: int = 16, n_residual_blocks: int = 6
-                    ) -> nn.Module:
+                    in_features: int = 16, n_residual_blocks: int = 6,
+                    dense_decoder: bool = True) -> nn.Module:
     """The reference CLI's dispatch on the prefix of ``gen_type``
-    (``build_generator``). Parameters are drawn from PyTorch's global
-    generator, on the CPU."""
+    (``build_generator``): p2p* / bilinear* / atrous* (dense decoder or not
+    by ``dense_decoder``) / unet*. Parameters are drawn from PyTorch's
+    global generator, on the CPU."""
     if gen_type.startswith("p2p"):
         return ResnetGenerator(input_nc, output_nc, n_residual_blocks,
                                in_features)
     if gen_type.startswith("bilinear"):
-        return MultiscaleBilinearGenerator(input_nc, output_nc,
-                                           n_residual_blocks, in_features)
-    if gen_type.startswith(("atrous", "unet")):
-        raise NotImplementedError(
-            f"gen_type={gen_type!r} is not ported yet: the atrous* and unet* "
-            "generators come with a later slice (ROADMAP queue 1, item 7); "
-            "'p2p*' and 'bilinear*' run here")
-    raise ValueError(f"unknown gen_type {gen_type!r}")
+        cls = MultiscaleBilinearGenerator
+    elif gen_type.startswith("atrous"):
+        cls = MultiscaleDenseDecoderGenerator if dense_decoder \
+            else MultiscaleGenerator
+    elif gen_type.startswith("unet"):
+        cls = UnetGenerator
+    else:
+        raise ValueError(f"unknown gen_type {gen_type!r}")
+    return cls(input_nc, output_nc, n_residual_blocks, in_features)
 
 
 def seeded_generator(gen_type: str, n_residual_blocks: int, in_features: int,
                      input_nc: int = 1, output_nc: int = 1, seed: int = 0,
-                     device: DeviceLike = None) -> nn.Module:
+                     device: DeviceLike = None,
+                     dense_decoder: bool = True) -> nn.Module:
     """A randomly initialised generator from ``seed``, in eval mode on
     ``device`` (``None`` → CUDA). The weights depend on ``seed`` only, not
     on the device."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         g = build_generator(gen_type, input_nc, output_nc, in_features,
-                            n_residual_blocks)
+                            n_residual_blocks, dense_decoder)
     return g.to(resolve_device(device)).eval()

@@ -15,9 +15,19 @@ pix2pixHD generators (counterpart of ``cistar_tpu/models/fast_infer.py``).
     sends to its stage kernel run through K6, the others in the input's
     dtype; the atrous residual blocks run through K5; the decoder's
     upsample + conv is one low-resolution conv per stage.
+  * :func:`multiscale_generator_int8_trunk_apply` (``MultiscaleGenerator``
+    / ``MultiscaleDenseDecoderGenerator``, 'atrous*'): the bilinear
+    engine's encoder (K6 where the rule puts it), the residual trunk
+    through K1, the transpose-conv decoder (dense, or the four dilated
+    branches) in the input's dtype.
+  * :func:`unet_generator_int8_trunk_apply` (``UnetGenerator``, 'unet*'):
+    the strided-conv encoder and the decoder in the input's dtype, the
+    residual trunk through K1.
 
-Both end in :func:`_head_conv_tanh`: by default the head conv with the
-last stage's IN+ReLU inside it (:mod:`cistar_tpu_torch.ops.head_conv`).
+All end in :func:`_head_conv_tanh`: by default the head conv with the
+last stage's IN+ReLU inside it (:mod:`cistar_tpu_torch.ops.head_conv`),
+or, after the non-dense 'atrous' decoder, whose last stage ends in its
+own ReLU, the head conv alone.
 
   * :func:`global_generator_int8_trunk_apply` (pix2pixHD
     ``GlobalGenerator``): the resnet trunk runs through K1 where the JAX
@@ -50,8 +60,9 @@ attributes and restore them:
     engines call the plain IN, as in JAX.
   * ``CISTAR_HEAD_KERNEL`` (``_HEAD_KERNEL``, one of ``_HEAD_VARIANTS``):
     ``tap_matmul`` / ``loop`` / ``maskedloop`` / ``masked`` run the head of
-    the ResNet and bilinear engines through K9 after a separate stage
-    IN+ReLU; ``shift`` and ``xla`` are the JAX package's plain heads.
+    the CycleGAN engines through K9 (after a separate stage IN+ReLU where
+    the head takes a raw stage output); ``shift`` and ``xla`` are the JAX
+    package's plain heads.
 
 There is no ``expect_kernel`` flag: the kernel path is structural. A CUDA
 tensor always goes through the CUDA kernels (or raises), a CPU tensor
@@ -252,14 +263,13 @@ def quantize_bilinear_trunk(gen) -> QTrunk:
             "enc": [quantize_multi_atrous_stage(s) for s in gen.down]}
 
 
-def bilinear_generator_int8_trunk_apply(gen, qtrunk: Union[QTrunk,
-                                                           Sequence[QBlock]],
-                                        x: torch.Tensor) -> torch.Tensor:
-    """Forward of a port ``MultiscaleBilinearGenerator`` with its atrous
-    trunk in int8 (K5) and its encoder stages in int8 (K6) where the JAX
-    engine's routing rule puts them; the decoder runs in ``x``'s dtype
-    (``bilinear_generator_int8_trunk_apply``). NHWC in and out."""
-    qres, qenc = _q_parts(qtrunk)
+def atrous_encode(gen, qenc: Optional[Sequence[QBlock]], x: torch.Tensor
+                  ) -> List[torch.Tensor]:
+    """Stem and ``MultiAtrousConv`` encoder of a ``MultiscaleBilinear`` /
+    ``Multiscale*`` generator as their int8 engines run it: each stage
+    through K6 where :func:`stage_kernel_fits` (``qenc`` not None), else in
+    ``x``'s dtype. The stage outputs: the skips, the last of which is the
+    trunk's input."""
     h = _in_relu(gen.init_conv(x))
     skips = []
     for i, stage in enumerate(gen.down):
@@ -268,7 +278,20 @@ def bilinear_generator_int8_trunk_apply(gen, qtrunk: Union[QTrunk,
         else:
             h = stage(h)
         skips.append(h)
-    return bilinear_decode(gen, atrous_resblock_chain_int8(h, qres), skips)
+    return skips
+
+
+def bilinear_generator_int8_trunk_apply(gen, qtrunk: Union[QTrunk,
+                                                           Sequence[QBlock]],
+                                        x: torch.Tensor) -> torch.Tensor:
+    """Forward of a port ``MultiscaleBilinearGenerator`` with its atrous
+    trunk in int8 (K5) and its encoder stages in int8 (K6) where the JAX
+    engine's routing rule puts them; the decoder runs in ``x``'s dtype
+    (``bilinear_generator_int8_trunk_apply``). NHWC in and out."""
+    qres, qenc = _q_parts(qtrunk)
+    skips = atrous_encode(gen, qenc, x)
+    return bilinear_decode(gen, atrous_resblock_chain_int8(skips[-1], qres),
+                           skips)
 
 
 def bilinear_decode(gen, h: torch.Tensor, skips: Sequence[torch.Tensor]
@@ -284,6 +307,107 @@ def bilinear_decode(gen, h: torch.Tensor, skips: Sequence[torch.Tensor]
         if i < len(gen.up) - 1:
             h = _in_relu(h)
     return _head_conv_tanh(h, gen.out_conv, raw_in=True)
+
+
+# --------------------------------------------------------------------------- #
+# MultiscaleGenerator / MultiscaleDenseDecoderGenerator ('atrous*') and
+# UnetGenerator ('unet*')
+# --------------------------------------------------------------------------- #
+def quantize_multiscale_trunk(gen) -> QTrunk:
+    """Quantize a port ``MultiscaleGenerator`` /
+    ``MultiscaleDenseDecoderGenerator``: its residual blocks (``res``, K1)
+    and its encoder stages (``enc``, K6) (``quantize_multiscale_trunk``)."""
+    return {"res": [quantize_resblock(b) for b in gen.res],
+            "enc": [quantize_multi_atrous_stage(s) for s in gen.down]}
+
+
+def quantize_unet_trunk(gen) -> List[QBlock]:
+    """Quantize the residual blocks of a port ``UnetGenerator``
+    (``quantize_unet_trunk``): its strided-conv encoder has no stage
+    kernel."""
+    return [quantize_resblock(b) for b in gen.res]
+
+
+def _dense(gen) -> bool:
+    """True for a decoder of ``_UpBlock`` stages (the dense 'atrous'
+    decoder and 'unet'), False for ``MultiAtrousTransposeConv`` stages."""
+    return hasattr(gen.up[0], "convt")
+
+
+def strided_encode(gen, x: torch.Tensor) -> List[torch.Tensor]:
+    """Stem and strided-conv encoder of a ``UnetGenerator``, each stage with
+    its IN+ReLU, in ``x``'s dtype: the skips, the last of which is the
+    trunk's input."""
+    h = _in_relu(gen.init_conv(x))
+    skips = []
+    for m in gen.down:
+        h = m(h)
+        skips.append(h)
+    return skips
+
+
+def convt_up(gen, h: torch.Tensor, skips: Sequence[torch.Tensor]
+             ) -> torch.Tensor:
+    """The transpose-conv decoder of a ``Multiscale*`` or ``UnetGenerator``
+    from the trunk's output ``h`` and the encoder outputs ``skips``, each
+    stage on ``cat([h, skip])``. Dense: ConvT with IN+ReLU on every stage
+    but the last, whose raw output the head normalizes. Not dense: each
+    ``MultiAtrousTransposeConv`` whole (branch IN, concat, ReLU)."""
+    dense = _dense(gen)
+    for i, (up, skip) in enumerate(zip(gen.up, reversed(skips))):
+        h = torch.cat([h, skip], dim=-1)
+        if not dense:
+            h = up(h)
+            continue
+        h = up.convt(h)
+        if i < len(gen.up) - 1:
+            h = _in_relu(h)
+    return h
+
+
+def convt_head(gen, h: torch.Tensor) -> torch.Tensor:
+    """The head on :func:`convt_up`'s output: ``raw_in`` after a dense
+    decoder, not after the ``MultiAtrousTransposeConv`` one."""
+    return _head_conv_tanh(h, gen.out_conv, raw_in=_dense(gen))
+
+
+def convt_decode(gen, h: torch.Tensor, skips: Sequence[torch.Tensor]
+                 ) -> torch.Tensor:
+    """:func:`convt_up` then :func:`convt_head`."""
+    return convt_head(gen, convt_up(gen, h, skips))
+
+
+def multiscale_generator_int8_trunk_apply(gen, qtrunk: Union[
+        QTrunk, Sequence[QBlock]], x: torch.Tensor) -> torch.Tensor:
+    """Forward of a port ``MultiscaleDenseDecoderGenerator`` or
+    ``MultiscaleGenerator`` with its encoder stages in int8 (K6) where the
+    JAX engine's routing rule puts them and its residual trunk in int8
+    (K1); the decoder runs in ``x``'s dtype
+    (``multiscale_generator_int8_trunk_apply``). JAX's ``dense_decoder``
+    argument is the generator's class here (:func:`convt_decode`).
+    ``qtrunk`` comes from :func:`quantize_multiscale_trunk` (a bare list of
+    res blocks keeps the encoder in ``x``'s dtype). NHWC in and out.
+
+    JAX's chain takes its kernel where ``whole_image_resblock_fits``, else
+    its emulation of the same math; K1 runs that math at every shape it
+    takes (C and H·W multiples of 128), so the port calls it at each."""
+    qres, qenc = _q_parts(qtrunk)
+    skips = atrous_encode(gen, qenc, x)
+    return convt_decode(gen, resblock_chain_int8_bf16io(skips[-1], qres),
+                        skips)
+
+
+def unet_generator_int8_trunk_apply(gen, qtrunk: Union[QTrunk,
+                                                       Sequence[QBlock]],
+                                    x: torch.Tensor) -> torch.Tensor:
+    """Forward of a port ``UnetGenerator`` with its residual trunk in int8
+    (K1); the encoder and the decoder run in ``x``'s dtype, and so do the
+    skips (``unet_generator_int8_trunk_apply``). ``qtrunk`` comes from
+    :func:`quantize_unet_trunk`. NHWC in and out."""
+    qres, _ = _q_parts(qtrunk)
+    skips = strided_encode(gen, x)
+    return convt_decode(gen, resblock_chain_int8_bf16io(skips[-1], qres),
+                        skips)
 
 
 # --------------------------------------------------------------------------- #

@@ -50,14 +50,16 @@ class ConvTranspose2d(_ConvBase):
     """``ops/blocks.py::ConvTranspose2d``: weight ``(in, out, kh, kw)``."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 padding: int = 0, output_padding: int = 0):
+                 padding: int = 0, output_padding: int = 0,
+                 dilation: int = 1):
         super().__init__((cin, cout, kernel, kernel), cout)
         self.stride, self.padding = stride, padding
-        self.output_padding = output_padding
+        self.output_padding, self.dilation = output_padding, dilation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return tnn.conv_transpose2d(x, self.weight, self.bias, self.stride,
-                                    self.padding, self.output_padding)
+                                    self.padding, self.output_padding,
+                                    self.dilation)
 
 
 class ResidualBlock(nn.Module):
@@ -96,6 +98,29 @@ class MultiAtrousConv(nn.Module):
             h = tnn.relu(tnn.instance_norm(conv(x)))
             out = h if out is None else out + h
         return out
+
+
+class MultiAtrousTransposeConv(nn.Module):
+    """``ops/blocks.py::MultiAtrousTransposeConv``: parallel 3×3 transpose
+    branches ``b{i}_convt`` of ``features // 4`` outputs each, at dilation =
+    padding = ``rates[i]`` and output padding 1, each → IN, concatenated in
+    branch order, then ReLU."""
+
+    def __init__(self, cin: int, features: int,
+                 rates: Sequence[int] = (2, 4, 6, 8), stride: int = 1):
+        super().__init__()
+        self.rates, self.stride = tuple(rates), stride
+        for i, r in enumerate(self.rates):
+            self.add_module(f"b{i}_convt", ConvTranspose2d(
+                cin, features // 4, 3, stride, padding=r, output_padding=1,
+                dilation=r))
+
+    def branches(self) -> List[ConvTranspose2d]:
+        return [getattr(self, f"b{i}_convt") for i in range(len(self.rates))]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return tnn.relu(torch.cat([tnn.instance_norm(convt(x))
+                                   for convt in self.branches()], dim=-1))
 
 
 class ResidualBlockAtrous(nn.Module):

@@ -93,11 +93,14 @@ def conv2d_reflect_thin(x: torch.Tensor, w: torch.Tensor,
 
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
                      b: Optional[torch.Tensor] = None, stride: int = 1,
-                     padding: int = 0, output_padding: int = 0
-                     ) -> torch.Tensor:
-    """Transposed conv, ``w`` in PyTorch's ``(in, out, kh, kw)`` layout."""
+                     padding: int = 0, output_padding: int = 0,
+                     dilation: int = 1) -> torch.Tensor:
+    """Transposed conv, ``w`` in PyTorch's ``(in, out, kh, kw)`` layout, no
+    flip (``ops/nn.py::conv_transpose2d``). Output size per dim: ``(n-1)·s
+    − 2p + d·(k−1) + op + 1``, the JAX version's input-dilated form."""
     out = F.conv_transpose2d(_nchw(x), w.to(x.dtype), None, stride=stride,
-                             padding=padding, output_padding=output_padding)
+                             padding=padding, output_padding=output_padding,
+                             dilation=dilation)
     return _add_bias(_nhwc(out), b)
 
 
@@ -158,8 +161,9 @@ def tanh(x: torch.Tensor) -> torch.Tensor:
 
 def max_pool2d(x: torch.Tensor, kernel: int, stride: Optional[int] = None,
                padding: int = 0) -> torch.Tensor:
-    """Max pool with −inf padding, forward only (``ops/nn.py::max_pool2d``);
-    a max is exact in any order."""
+    """Max pool with −inf padding (``ops/nn.py::max_pool2d``); a max is
+    exact in any order. Its backward is PyTorch's: on tied maxima it may
+    route the gradient to another element than JAX's first-maximum rule."""
     return _nhwc(F.max_pool2d(_nchw(x), kernel, stride or kernel, padding))
 
 

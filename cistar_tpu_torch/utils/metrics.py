@@ -1,5 +1,6 @@
-"""Loss logging for the trainers (counterpart of ``setup_logger`` and
-``MetricsLogger`` in ``cistar_tpu/utils/metrics.py``): running means,
+"""Loss logging for the trainers and the test CLI's image panels
+(counterpart of ``setup_logger``, ``MetricsLogger`` and
+``save_image_grid`` in ``cistar_tpu/utils/metrics.py``): running means,
 console lines, CSV / JSONL / ``loss_log.npy`` persistence and throughput,
 as the reference's visdom ``Logger`` (``CycleGAN/utils.py:13-91``) and the
 p2pHD ``Visualizer`` (``p2pHD/util/visualizer.py:14-152``) keep them.
@@ -150,3 +151,28 @@ class MetricsLogger:
         self.sums, self.counts, self.batch = {}, {}, 0
         self.epoch += 1
         return means
+
+
+def save_image_grid(images: Dict[str, np.ndarray], out_path: str,
+                    sep_width: int = 5) -> None:
+    """Horizontal panel stitch (parity: ``CycleGAN/test.py:20-47``) — images
+    are HWC float arrays in [-1, 1] or [0, 1]."""
+    from cistar_tpu_torch.data.transforms import array_to_pil, denormalize
+
+    panels = []
+    for arr in images.values():
+        arr = np.asarray(arr, np.float32)
+        if arr.ndim == 4:
+            arr = arr[0]
+        if arr.min() < -0.01:
+            arr = denormalize(arr)
+        panels.append(np.clip(arr, 0, 1))
+    h, c = panels[0].shape[0], panels[0].shape[2]
+    sep = np.ones((h, sep_width, c), np.float32)
+    strips = []
+    for i, p in enumerate(panels):
+        strips.append(p)
+        if i != len(panels) - 1:
+            strips.append(sep)
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    array_to_pil(np.concatenate(strips, axis=1)).save(out_path)

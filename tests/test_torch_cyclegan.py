@@ -15,6 +15,8 @@ from cistar_tpu.models.fast_infer import \
     resnet_generator_int8_trunk_apply as jax_int8_apply
 from cistar_tpu.ops.quant_pallas import quantize_resnet_trunk as jax_quantize
 from cistar_tpu_torch.engines.cyclegan import CycleGANInference
+from cistar_tpu_torch.models.cyclegan import (MultiscaleDenseDecoderGenerator,
+                                              UnetGenerator)
 from cistar_tpu_torch.models.fast_infer import \
     resnet_generator_int8_trunk_apply
 from cistar_tpu_torch.ops.quant_int8 import quantize_resnet_trunk
@@ -113,8 +115,13 @@ def test_quantize_generators_match_jax(setup):
 
 @pytest.mark.parametrize("gen_type", ["atrous_dense", "atrous", "unet"])
 def test_other_generators_not_ported(gen_type):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        CycleGANInference(gen_type, device="cpu")
+    # These generators are ported now: the engine builds the class of the
+    # JAX prefix rule (dense decoder by default), where it raised before
+    eng = CycleGANInference(gen_type, in_features=4, n_residual_blocks=1,
+                            device="cpu")
+    want = UnetGenerator if gen_type == "unet" \
+        else MultiscaleDenseDecoderGenerator
+    assert type(eng.G_a2b) is want and type(eng.G_b2a) is want
 
 
 def test_int8_carrier_checked(setup):
