@@ -258,6 +258,39 @@ and ``unet_content`` (``UnetGenerator``). Their int8 engines run the trunk
     two runs' checkpoints and 4 synthetic pairs at 512², both engines: the
     recovered PNG and its 5-panel strip written.
 
+The Gatys IST path (slice 13): VGG-19 to relu5_1, the Gram style loss and
+torch-semantics L-BFGS at the JAX CLI's defaults (512², 300 iterations,
+history 100 in fp32, bf16 VGG with fp32 loss and L-BFGS), the
+coarse-to-fine pass at 1024² (500 iterations) and batched sweeps; VGG
+weights ``init_vgg_params(seed=0)``, frames from
+``tools/make_synthetic_r2l.py``. It launches no port kernel:
+
+32. checks at 64²: max-pool ties (windows drawn from {0, 1, 2}) route the
+    gradient on the card as on the CPU (bf16 and fp32, channels_last); the
+    VGG-19 features on the card against the CPU's, fp32 with TF32 off and
+    bf16 (``GATYS_FEAT_*``); ``optimize`` in fp32 on the card against the
+    CPU, from the same weights and frames, at 1 iteration within the
+    reference's gate (``GATYS_RTOL`` / ``GATYS_ATOL``), and 3 iterations
+    each from the CPU's state within the same gate (free-running, the two
+    can take other branches at the second: printed); ``optimize_batch`` at
+    F = 3 against three F = 1 calls on the card, at 1 iteration within the
+    reference's gate;
+33. at 512², batch 1: ms an iteration (CUDA events over the 300) of the
+    bf16, fp32 and bf16-history engines, and of 100 HR iterations at
+    1024²; 300 bf16 iterations again under
+    ``torch.cuda.set_sync_debug_mode("error")`` (the loop reads nothing on
+    the host); every launch counter 0; the final loss finite and below the
+    first; a ``[breakdown]`` of one iteration (direction, forward + loss,
+    backward, history update; device and host ms), a ``[profile]`` (device
+    busy against wall, top kernels, none of them the port's); s a frame of
+    ``transfer_style`` and its peak memory;
+34. ``transfer_style_batch`` at F = 4, 512²: frames/s against phase 33's
+    per-frame rate;
+35. ``python -m cistar_tpu_torch.apps.ist_main`` on 4 synthetic 512²
+    radar frames with a lidar style frame, ``--polar --hr HRDATA.IMG_SIZE
+    1024`` at the default 300 + 500 iterations: 4 PNGs of 1024², each the
+    inverse-polar warp of its HR result, and s/frame in its log.
+
 The fp32 reference forwards run with TF32 off, the rest under PyTorch's
 defaults. The line before the last is the card's name and power limit; the
 kernels' JSON line comes before it; the last line is
@@ -270,6 +303,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2440,6 +2474,24 @@ TRUNK_BUDGET = 0.35
 FAM_TRAIN_STEPS = 3
 
 
+# The Gatys IST path (slice 13) at the JAX CLI's defaults
+# (cistar_tpu/core/config.py::get_ist_cfg_defaults, apps/ist_main.py): 512²,
+# 300 iterations, history 100; the HR pass at 1024² (500 iterations in
+# the CLI, 100 timed alone); the batched sweep at F = 4. Checks at 64²,
+# batch 3.
+GATYS = dict(size=512, iters=300, hr_size=1024, hr_iters=100, batch=4,
+             check_size=64, check_batch=3, cli_frames=4)
+# VGG-19 features on the card vs the CPU, max-abs over each feature's
+# largest |value|: the CPU tests' gates against JAX (fp32 1e-4, the order
+# of sums; bf16 3e-2, a bf16 rounding landing an ulp away)
+GATYS_FEAT_FP32, GATYS_FEAT_BF16 = 1e-4, 3e-2
+# optimize in fp32, card vs CPU and F = 3 vs F = 1, at 1 iteration, and
+# each of 3 card iterations from the CPU's state (gatys_teacher_forced):
+# the reference's gate (tests/test_vgg_gatys.py:170-171). Measured on an
+# H100 80GB HBM3 at 700 W: the loss 1e-7 to 7.6e-7 apart, the image 3.1e-5
+GATYS_RTOL, GATYS_ATOL = 1e-5, 1e-4
+
+
 def family(dev, gen_type: str, dense: bool, seed: int = 0):
     """One of the other CycleGAN generators at ``FAM``'s width, its
     quantized trunk and its int8 engine ``fn(gen, q, x)``."""
@@ -3028,6 +3080,379 @@ def train_path(dev, counters) -> None:
               flush=True)
 
 
+def gatys_frames(n: int, size: int):
+    """The synthetic tool's radar (content) and lidar (style) frames 0 …
+    n-1 as RGB PIL images, as its PNGs hold them."""
+    import numpy as np
+    from PIL import Image
+
+    tool = synthetic_tool()
+    pairs = [tool.make_pair(i, size) for i in range(n)]
+
+    def pil(a):
+        return Image.fromarray((a * 255).astype(np.uint8)).convert("RGB")
+
+    return [pil(r) for r, _ in pairs], [pil(li) for _, li in pairs]
+
+
+def port_kernel_names() -> set:
+    """The names of the port's CUDA kernels, read from ``csrc``."""
+    import glob
+
+    names = set()
+    for path in glob.glob(os.path.join(ROOT, "cistar_tpu_torch", "csrc",
+                                       "*.cu*")):
+        with open(path) as fh:
+            text = fh.read()
+        for m in re.finditer(r"__global__", text):
+            seg = re.sub(r"__launch_bounds__\([^)]*\)", "",
+                         text[m.end():m.end() + 300])
+            names.add(re.search(r"(\w+)\s*\(", seg).group(1))
+    return names
+
+
+def gatys_checks(dev, params) -> None:
+    """Phase 32: the card against the CPU at 64²."""
+    import numpy as np
+    import torch
+
+    from cistar_tpu_torch.core.config import get_ist_cfg_defaults
+    from cistar_tpu_torch.engines.ist import GatysEngine
+    from cistar_tpu_torch.models import vgg
+    from cistar_tpu_torch.ops import nn as tnn
+
+    gen = torch.Generator().manual_seed(32)
+    x = torch.randint(0, 3, (2, 64, 64, 64), generator=gen).float()
+    g = torch.randn(2, 32, 32, 64, generator=gen)
+    win = x.reshape(2, 32, 2, 32, 2, 64)
+    tied = ((win == win.amax(dim=(2, 4), keepdim=True)).sum(dim=(2, 4)) > 1)
+    for dt in (torch.float32, torch.bfloat16):
+        grads = []
+        for d in ("cpu", dev):
+            xt = x.to(d, dt).requires_grad_(True)
+            with torch.enable_grad():
+                (gx,) = torch.autograd.grad(tnn.max_pool2d(xt, 2, 2), xt,
+                                            g.to(d, dt))
+            grads.append(gx.float().cpu())
+        check(torch.equal(grads[0], grads[1]),
+              f"max-pool ties route as on the CPU, {dt}")
+        print(f"[gatys check] max pool (2, 64, 64, 64) {dt}, channels_last, "
+              f"{tied.float().mean().item():.3f} of windows tied: the "
+              "card's gradient equals the CPU's", flush=True)
+
+    n, size = GATYS["check_batch"], GATYS["check_size"]
+    cfg = get_ist_cfg_defaults()
+    cfg.DATA.IMG_SIZE = size
+    contents, styles = gatys_frames(n, size)
+    engs = {d: GatysEngine(cfg, params, device=d,
+                           compute_dtype=torch.float32) for d in ("cpu", dev)}
+    prep = engs["cpu"].transform.preparation
+    c = np.stack([prep(im) for im in contents])          # (3, 1, 64, 64, 3)
+    s = np.stack([prep(im) for im in styles])
+    keys = ["relu1_1", "relu2_1", "relu3_1", "relu4_1", "relu4_2",
+            "relu5_1"]
+    with fp32_exact():
+        for dt, tol in ((torch.float32, GATYS_FEAT_FP32),
+                        (torch.bfloat16, GATYS_FEAT_BF16)):
+            cpu, card = (vgg.extract_features(
+                params, torch.from_numpy(c[:, 0]).to(d), keys,
+                compute_dtype=dt) for d in ("cpu", dev))
+            errs = [((b.float().cpu() - a.float()).abs().max()
+                     / a.float().abs().max()).item()
+                    for a, b in zip(cpu, card)]
+            print(f"[gatys check] VGG-19 features ({n}, {size}, {size}, 3) "
+                  f"{dt}, card vs CPU, max-abs / max|CPU| by layer "
+                  f"{dict(zip(keys, errs))} (tol {tol})", flush=True)
+            check(max(errs) <= tol, f"VGG-19 features {dt}, card vs CPU")
+
+    (ci, li, _), (cd, ld, _) = (engs[d].optimize(c[0], s[0], max_iters=1)
+                                for d in ("cpu", dev))
+    err, rel = (cd.cpu() - ci).abs().max().item(), abs(ld.item() / li.item()
+                                                       - 1)
+    print(f"[gatys check] optimize fp32 {size}², 1 iteration, card vs CPU: "
+          f"image max-abs {err!r}, loss rel {rel!r}", flush=True)
+    check(torch.allclose(cd.cpu(), ci, rtol=GATYS_RTOL, atol=GATYS_ATOL)
+          and rel <= GATYS_RTOL, "optimize at 1 iteration, card vs CPU")
+    gatys_teacher_forced(engs, dev, c[:1], s[:1])
+
+    eng = engs[dev]
+    imgs, losses, _ = eng.optimize_batch(c, s, max_iters=1)
+    errs = []
+    for f in range(n):
+        out, loss, _ = eng.optimize(c[f], s[f], max_iters=1)
+        check(torch.allclose(imgs[f], out, rtol=GATYS_RTOL, atol=GATYS_ATOL)
+              and abs(losses[f].item() - loss.item())
+              <= GATYS_RTOL * loss.item(),
+              f"optimize_batch frame {f} vs optimize, 1 iteration")
+        errs.append((imgs[f] - out).abs().max().item())
+    print(f"[gatys check] optimize_batch F = {n} vs {n} optimize calls on "
+          f"the card, 1 iteration: image max-abs {errs}", flush=True)
+
+
+def gatys_teacher_forced(engs, dev, c, s) -> None:
+    """Phase 32's 3 iterations: each card iteration from the CPU's state.
+
+    Free-running, the two part at the second iteration: the first step is
+    scaled to 1/‖g‖₁ (torch's rule), so the first pair's yᵀs is a
+    difference of nearly equal gradients and can fall on either side of
+    the 1e-10 store threshold; unstored, the second step is −g at lr 1. So
+    each card iteration starts from a copy of the CPU's state (history,
+    caches, ring), as phase 23 starts each card train step from the CPU's;
+    the free-running losses are printed, not checked."""
+    import torch
+
+    from cistar_tpu_torch.ops import lbfgs
+
+    fns = {d: lbfgs.value_and_grad_fn(e.objective(c, s), c.shape)
+           for d, e in engs.items()}
+    with fp32_exact():
+        st = lbfgs.init_state(fns["cpu"], torch.from_numpy(c))
+        rows = []
+        for _ in range(3):
+            card = lbfgs.step(st._replace(**{
+                k: v.to(dev) for k, v in st._asdict().items()
+                if isinstance(v, torch.Tensor)}), fns[dev])
+            st = lbfgs.step(st, fns["cpu"])
+            moved = (st.x - card.x.cpu()).abs().max().item()
+            rel = abs(card.loss.item() / st.loss.item() - 1)
+            close = torch.allclose(card.x.cpu(), st.x, rtol=GATYS_RTOL,
+                                   atol=GATYS_ATOL)
+            rows.append((moved, rel, int(st.count), bool(card.count.cpu()
+                                                         == st.count)))
+            print(f"[gatys check] iteration {st.k} from the CPU's state: "
+                  f"image max-abs {moved!r} of max|x| "
+                  f"{st.x.abs().max().item()!r}, loss rel {rel!r}; pairs "
+                  f"stored CPU {int(st.count)}, "
+                  f"the same on the card: {rows[-1][3]}", flush=True)
+            check(close and rel <= GATYS_RTOL, f"iteration {st.k}: image "
+                  "and loss, card vs CPU from the same state")
+    free = {str(d): e.optimize(c[0], s[0], max_iters=3)[2].tolist()
+            for d, e in engs.items()}
+    print(f"[gatys check] free-running, 3 iterations, losses: {free} "
+          "(not checked)", flush=True)
+
+
+def gatys_timed(dev, params, counters) -> float:
+    """Phase 33: 512², batch 1, timed; returns s a frame of
+    ``transfer_style``."""
+    import numpy as np
+    import torch
+
+    from cistar_tpu_torch.core.config import get_ist_cfg_defaults
+    from cistar_tpu_torch.data.transforms import GatysImageTransform
+    from cistar_tpu_torch.engines.ist import GatysEngine
+
+    cfg = get_ist_cfg_defaults()
+    size, iters = GATYS["size"], GATYS["iters"]
+    check(cfg.DATA.IMG_SIZE == size and cfg.LOSS.MAX_ITER == iters,
+          "the default config")
+    contents, styles = gatys_frames(1, size)
+    eng = GatysEngine(cfg, params, device=dev)
+    c = torch.from_numpy(eng.transform.preparation(contents[0])).to(dev)
+    s = torch.from_numpy(eng.transform.preparation(styles[0])).to(dev)
+    hr = GATYS["hr_size"]
+    hr_t = GatysImageTransform(hr, cfg.DATA.IMAGENET_MEAN)
+    hr_c, hr_s = (torch.from_numpy(hr_t.preparation(im)).to(dev)
+                  for im in (contents[0], styles[0]))
+    for m in counters:
+        m.reset_launches()
+    ms_iter = {}
+    for label, e, x, n in (
+            (f"{size}² bf16", eng, (c, s), iters),
+            (f"{size}² fp32", GatysEngine(cfg, params, device=dev,
+                                          compute_dtype=torch.float32),
+             (c, s), iters),
+            (f"{size}² bf16, bf16 history", GatysEngine(
+                cfg, params, device=dev, history_dtype=torch.bfloat16),
+             (c, s), iters),
+            (f"{hr}² bf16 (the HR pass)", eng, (hr_c, hr_s),
+             GATYS["hr_iters"]),
+            (f"{size}² bf16 under set_sync_debug_mode('error')", eng, (c, s),
+             iters)):
+        e.optimize(*x, max_iters=2)                         # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        if "sync" in label:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, loss, losses = e.optimize(*x, max_iters=n)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        e1.record()
+        e1.synchronize()
+        wall = time.perf_counter() - t0
+        ms_iter[label] = e0.elapsed_time(e1) / n
+        first, last = losses[0].item(), losses[-1].item()
+        print(f"[times] gatys {label}: {ms_iter[label]!r} ms an "
+              f"iteration (CUDA events over {n}, targets and the first "
+              f"evaluation included), {wall!r} s wall; loss {first!r} -> "
+              f"{last!r}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB", flush=True)
+        check(np.isfinite(last) and last < first,
+              f"gatys {label}: the final loss finite and below the first")
+        check(out.shape == x[0].shape, "the image's shape")
+    print(f"[gatys] {iters} iterations under set_sync_debug_mode('error'): "
+          "no host sync", flush=True)
+    launches = {k: v for m in counters for k, v in m.launches.items()}
+    check(not any(launches.values()), "the Gatys path launches no kernel")
+
+    gatys_report(f"{size}² bf16", ms_iter[f"{size}² bf16"],
+                 lambda n, mark=None: eng.optimize(c, s, max_iters=n,
+                                                   mark=mark))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img = eng.transfer_style(contents[0], styles[0])
+    frame_s = time.perf_counter() - t0
+    print(f"[times] gatys transfer_style {size}², {iters} iterations, bf16: "
+          f"{frame_s!r} s a frame ({img.size}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB", flush=True)
+    return frame_s
+
+
+def gatys_report(label: str, ms_iter: float, run) -> None:
+    """Where an iteration of ``run(max_iters, mark=None)`` goes: a
+    ``[breakdown]`` of the last of three by phase (device and host ms), and
+    a ``[profile]`` of 20 (device busy against ``ms_iter``, the unprofiled
+    ms an iteration; launches an iteration; top kernels). Fails if the
+    device ran nothing or ran one of the port's kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev, time.perf_counter()))
+
+    run(3, mark)
+    torch.cuda.synchronize()
+    last = marks[-5:]
+    for unit, span in (
+            ("device", lambda a, b: a[1].elapsed_time(b[1])),
+            ("host", lambda a, b: (b[2] - a[2]) * 1e3)):
+        parts = {b[0]: span(a, b) for a, b in zip(last, last[1:])}
+        print(f"[breakdown] gatys {label}, one iteration, {unit} ms: "
+              + "; ".join(f"{k} {t!r}" for k, t in parts.items())
+              + f"; sum {sum(parts.values())!r}", flush=True)
+
+    n = 20
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(n)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"[profile] gatys {label}, {n} iterations: device busy {busy!r} ms"
+          f" ({busy / n!r} an iteration, {busy / n / ms_iter!r} of the "
+          f"unprofiled {ms_iter!r} ms an iteration; wall under the profiler "
+          f"{wall!r} ms), {sum(r[1] for r in rows) / n!r} kernel launches an"
+          " iteration; top device time (ms, launches): "
+          + "; ".join(f"{k[:64]} {t!r} {c}" for t, c, k in rows[:12]),
+          flush=True)
+    check(busy > 0, "the Gatys iterations ran on the device")
+    names = port_kernel_names()
+    ours = [k for _, _, k in rows for name in names
+            if re.search(rf"\b{name}\b", k)]
+    check(not ours, f"no port kernel in the Gatys profile: {ours}")
+
+
+def gatys_sweep(dev, params, frame_s: float) -> None:
+    """Phase 34: ``transfer_style_batch`` at F = 4, 512²."""
+    import numpy as np
+    import torch
+
+    from cistar_tpu_torch.core.config import get_ist_cfg_defaults
+    from cistar_tpu_torch.engines.ist import GatysEngine
+
+    f = GATYS["batch"]
+    eng = GatysEngine(get_ist_cfg_defaults(), params, device=dev)
+    contents, styles = gatys_frames(f, GATYS["size"])
+    eng.transfer_style_batch(contents, styles[0], max_iters=2)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = eng.transfer_style_batch(contents, styles[0])
+    dt = time.perf_counter() - t0
+    check(len(outs) == f and all(o.size == (GATYS["size"],) * 2
+                                 for o in outs), "F outputs of 512²")
+    check(all(np.asarray(o).std() > 0 for o in outs), "non-constant outputs")
+    print(f"[times] gatys transfer_style_batch F = {f}, {GATYS['size']}², "
+          f"{GATYS['iters']} iterations, bf16: {dt!r} s, {f / dt!r} frames/s "
+          f"against {1 / frame_s!r} frames/s one at a time; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB", flush=True)
+    prep = eng.transform.preparation
+    c = torch.from_numpy(np.stack([prep(im) for im in contents])).to(dev)
+    s = torch.from_numpy(np.stack([prep(styles[0])] * f)).to(dev)
+    gatys_report(f"F = {f} {GATYS['size']}² bf16", dt / GATYS["iters"] * 1e3,
+                 lambda n, mark=None: eng.optimize_batch(c, s, max_iters=n,
+                                                         mark=mark))
+
+
+def gatys_cli() -> None:
+    """Phase 35: the IST CLI on 4 synthetic frames, polar, HR at 1024²."""
+    import tempfile
+
+    from PIL import Image
+
+    n = GATYS["cli_frames"]
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        synthetic_tool().main(["--out", data, "--n", str(n), "--size",
+                               str(GATYS["size"])])
+        cmd = [sys.executable, "-m", "cistar_tpu_torch.apps.ist_main",
+               "--content-dir", os.path.join(data, "radar"),
+               "--style-image", os.path.join(data, "lidar", "00000.png"),
+               "--save-dir", out, "--polar", "--hr",
+               "HRDATA.IMG_SIZE", str(GATYS["hr_size"])]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=900)
+        dt = time.perf_counter() - t0
+        if proc.returncode:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], flush=True)
+        check(proc.returncode == 0, "the IST CLI ran")
+        names = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+        check(names == [f"{i:05d}.png" for i in range(n)],
+              f"the IST CLI wrote {names}")
+        hr = GATYS["hr_size"]
+        for f in names:
+            with Image.open(os.path.join(out, f)) as im:
+                check(im.size == (hr, hr) and im.mode == "RGB",
+                      f"{f}: {im.size} {im.mode}")
+        with open(os.path.join(out, "log.txt")) as fh:
+            lines = [li.strip() for li in fh if "s/frame" in li
+                     or "avg seconds" in li]
+        check(len(lines) == n + 1, "s/frame in the CLI's log")
+        print(f"[gatys cli] {n} frames {GATYS['size']}² --polar --hr "
+              f"HRDATA.IMG_SIZE {hr} (300 + 500 iterations, bf16): {names} "
+              f"of {hr}² in {dt:.1f} s; log: " + " | ".join(
+                  li.split(": ", 1)[-1] for li in lines), flush=True)
+
+
+def gatys_path(dev, counters) -> None:
+    """Phases 32-35: the Gatys IST path."""
+    from cistar_tpu_torch.models import vgg
+
+    params = vgg.init_vgg_params(seed=0)
+    gatys_checks(dev, params)
+    frame_s = gatys_timed(dev, params, counters)
+    gatys_sweep(dev, params, frame_s)
+    gatys_cli()
+
+
 def main() -> int:
     import torch
 
@@ -3103,6 +3528,7 @@ def main() -> int:
     family_path(dev, images, counters)
     with torch.enable_grad():
         family_train_path(dev, counters)
+    gatys_path(dev, counters)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

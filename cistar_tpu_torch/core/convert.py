@@ -194,6 +194,15 @@ def patch_discriminator_from_jax(params: Mapping[str, Any]
     return generator_from_jax(params)
 
 
+def vgg_params_from_jax(params: Mapping[str, Any]
+                        ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """VGG params of the JAX package (``{name: {"w": HWIO, "b"}}``) →
+    the port's VGG params, the same layout as fp32 tensors
+    (:mod:`cistar_tpu_torch.models.vgg`): no transpose."""
+    return {name: {k: _f32(v) for k, v in p.items()}
+            for name, p in params.items()}
+
+
 def _jax_path(module: str) -> Tuple[str, ...]:
     """Inverse of :func:`_torch_key`: ``down.i`` / ``res.i`` / ``up.i``
     become ``down_i`` / ``res_i`` / ``up_i``."""

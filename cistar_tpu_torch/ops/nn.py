@@ -162,8 +162,12 @@ def tanh(x: torch.Tensor) -> torch.Tensor:
 def max_pool2d(x: torch.Tensor, kernel: int, stride: Optional[int] = None,
                padding: int = 0) -> torch.Tensor:
     """Max pool with −inf padding (``ops/nn.py::max_pool2d``); a max is
-    exact in any order. Its backward is PyTorch's: on tied maxima it may
-    route the gradient to another element than JAX's first-maximum rule."""
+    exact in any order. Its backward is PyTorch's, which routes a tied
+    window's gradient to its first maximum in row-major order, the rule of
+    JAX's ``_max_pool_2x2_bwd`` (the forward keeps an index only on a
+    strictly greater value): held to JAX with tied windows on the CPU in
+    NCHW and channels_last, fp32 and bf16 (``tests/test_torch_gatys.py``),
+    and on the card to the CPU (``chip_smoke.py``, phase 32)."""
     return _nhwc(F.max_pool2d(_nchw(x), kernel, stride or kernel, padding))
 
 
