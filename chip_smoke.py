@@ -291,6 +291,52 @@ weights ``init_vgg_params(seed=0)``, frames from
     1024`` at the default 300 + 500 iterations: 4 PNGs of 1024², each the
     inverse-polar warp of its HR result, and s/frame in its log.
 
+The pix2pixHD training path (slice 14), ``Pix2PixHD`` at the shipped
+recipe ``checkpoints/r2l_MSRB_7/opt.txt``: ``UNet``, ngf 64, 3 MSRB blocks,
+num_D 2, n_layers_D 3, ndf 64, instance norm, LSGAN with GAN feature
+matching, no VGG loss, lr 1e-4, beta1 0.5, pool 0, 512², batch 1, bf16
+compute with fp32 params (the JAX CLI's default); weights from seed 0,
+frames from ``tools/make_synthetic_r2l.py``. The train step runs the plain
+ops under autograd (no port kernel); the test CLI's int8 engine runs K8:
+
+36. the card's ``Pix2PixHD.train_step`` against the CPU's at 64², batch 2,
+    fp32 with TF32 off, each card step from the CPU's state before it:
+    ``UNet`` with 8 features, 1 MSRB block, ndf 8, 3 steps; then one step
+    of ``multiscale`` (training-mode BatchNorm) and one of ``global`` with
+    netE (``instance_feat``, instance maps), with the VGG19 loss and
+    without; the CPU replays the card's activation patterns (ReLU and
+    LeakyReLU sides, max pool picks: ``same_kinks``), and those it would
+    have taken otherwise lie within ``TRAIN_ABS`` of their kink; every
+    metric, each net's backward from the same state and inputs, and the
+    Adam first moment of G, D and netE (the gradient, which Adam does not
+    amplify: each net's max-abs error over its largest value), within
+    ``TRAIN_RTOL``; G's output in the step, ``multiscale``'s running
+    statistics and G's output after the step, as stepped and with the
+    CPU's values at the weights whose Adam update took the other sign,
+    within ``TRAIN_ABS``;
+37. the full-width step, counted: 2 warm-up and 30 timed steps (CUDA
+    events around each) with every launch counter 0 before and after; ms a
+    step (the mean; each step's min, median and max), img/s and
+    ``torch.cuda.max_memory_allocated``; finite losses,
+    ``G_GAN_Feat`` > 0, G's and D's params moved. Then the same for the
+    CLI's ``global`` default (ngf 64, 4 downsamplings, 9 blocks) with the
+    VGG19 loss;
+38. for each of the two, one step under ``torch.cuda.set_sync_debug_mode
+    ("error")``, a ``[breakdown]`` of one step by phase (G forward + loss,
+    G backward, G Adam, D forward + backward, D Adam; device and host ms)
+    and a ``[profile]`` top 8;
+39. ``apps/p2phd_train.py`` with ``--load_opt checkpoints/r2l_MSRB_7/
+    opt.txt`` on 16 synthetic pairs at 512², ``--niter 1 --niter_decay 0``
+    in a temporary ``--checkpoints_dir``: the latest G and D ``.npz`` and
+    ``iter.txt`` written; a ``--continue_train`` run resumes at epoch 2 from
+    them;
+40. ``apps/p2phd_test.py`` on that checkpoint and 4 test pairs at
+    ``--data_type 32`` (no kernel launched) and ``8`` (12 K8 a generator
+    call and no other kernel, counted): the PNGs and the gallery written;
+    the int8 engine on those 4 frames as far from the fp32 forward as the
+    same engine with the plain K8 (phase 12's rule); K8 per launch at batch
+    1, the CLI's batch, beside its bound and its plain version.
+
 The fp32 reference forwards run with TF32 off, the rest under PyTorch's
 defaults. The line before the last is the card's name and power limit; the
 kernels' JSON line comes before it; the last line is
@@ -2492,6 +2538,49 @@ GATYS_FEAT_FP32, GATYS_FEAT_BF16 = 1e-4, 3e-2
 GATYS_RTOL, GATYS_ATOL = 1e-5, 1e-4
 
 
+# The pix2pixHD train step (slice 14) at the shipped recipe
+# (checkpoints/r2l_MSRB_7/opt.txt; batch 1, 512²) and at the JAX CLI's
+# 'global' default with the VGG19 loss (apps/p2phd_options.py: ngf 64, 4
+# downsamplings, 9 blocks); both bf16, the JAX CLI's default. The card is
+# held to the CPU at 64², batch 2, fp32 with TF32 off, with TRAIN_RTOL /
+# TRAIN_ABS, each card step from the CPU's state (phase 23's reasons).
+P2P_TRAIN = {"UNet": dict(ngf=64, n_blocks_global=3),
+             "global": dict(ngf=64, n_downsample_global=4,
+                            n_blocks_global=9)}
+P2P_TRAIN_COMMON = dict(ndf=64, num_d=2, n_layers_d=3, lr=1e-4, beta1=0.5,
+                        niter=50, niter_decay=50, pool_size=0,
+                        image_size=512)
+P2P_TRAIN_BATCH = 1
+# timed steps of each configuration, each between CUDA events of its own
+P2P_TRAIN_STEPS = 30
+P2P_CHECK = dict(size=64, batch=2)
+P2P_CHECK_CFG = {
+    "UNet": dict(ngf=8, n_blocks_global=1),
+    "multiscale": dict(ngf=8, n_blocks_global=1),
+    "global": dict(ngf=8, n_downsample_global=3, n_blocks_global=2,
+                   no_instance=False, instance_feat=True)}
+# (label, family, steps, VGG19 loss): global runs with and without it
+P2P_CHECK_RUNS = (("UNet", "UNet", 3, False),
+                  ("multiscale", "multiscale", 1, False),
+                  ("global", "global", 1, True),
+                  ("global, no VGG19", "global", 1, False))
+# Phase 36 holds each net's backward from the CPU's state and inputs, and
+# the step as stepped, with the card's activation patterns replayed on the
+# CPU. Each device alone puts the few inputs that lie within their
+# rounding of a kink on its own side, and cuDNN's default forward is not
+# bitwise repeatable, so the side changes from run to run: at these widths
+# one ReLU on the other side moves G's gradient by 1e-2 of its largest,
+# and max pool picks in VGG19 move G's first moment by 4e-3
+# (tools/p2p_check_repeat.py --no-replay counts the runs that fail so).
+# Adam's first step moves a weight by ±lr on its gradient's sign whatever
+# the gradient's size, so where a gradient lies within the two devices'
+# rounding of 0 (global's stem weights on the edge map, 1 at 99.9% of the
+# pixels of per-pixel random ids) the card and the CPU move it 2·lr apart;
+# G's output after the step is held as stepped and, tighter in practice,
+# with the CPU's values at those weights.
+P2P_CLI_PAIRS, P2P_TEST_PAIRS = 16, 4
+
+
 def family(dev, gen_type: str, dense: bool, seed: int = 0):
     """One of the other CycleGAN generators at ``FAM``'s width, its
     quantized trunk and its int8 engine ``fn(gen, q, x)``."""
@@ -3453,6 +3542,549 @@ def gatys_path(dev, counters) -> None:
     gatys_cli()
 
 
+def copy_p2p_state(src, src_st, dst, dst_st) -> None:
+    """Copy one ``Pix2PixHD``'s nets (BatchNorm statistics included), Adam
+    states and epoch into another's (on another device), in place."""
+    import torch
+
+    with torch.no_grad():
+        for a, b in ((src.G, dst.G), (src.D, dst.D), (src.E, dst.E)):
+            if a is not None:
+                b.load_state_dict(a.state_dict())
+        for f in ("opt_g", "opt_d", "opt_e"):
+            a, b = getattr(src_st, f), getattr(dst_st, f)
+            if a is not None:
+                for t in ("count", "mu_flat", "nu_flat"):
+                    getattr(b, t).copy_(getattr(a, t))
+        dst_st.epoch.copy_(src_st.epoch)
+
+
+def p2p_served(eng, label, inst, image):
+    """G's output on a batch after a step: through netE's features when it
+    trains one, else ``infer_step`` (eval mode: BatchNorm's running
+    statistics)."""
+    if eng.gen_features:
+        return eng.infer_encoded(label, inst, image).cpu()
+    return eng.infer_step(label, inst).cpu()
+
+
+@contextlib.contextmanager
+def same_kinks(masks: list, flips: list = None):
+    """Phase 36's activation patterns. With ``flips`` None (the card),
+    record in call order into ``masks`` the side of its kink that each
+    ReLU and LeakyReLU of the port's models (``ops/nn.py``) takes, and the
+    element that each max pool window picks; else (the CPU) replay them,
+    and append to ``flips`` the count of those that differ from the CPU's
+    own and the largest distance from the kink among them (an activation's
+    |input|, a window's gap to its own max). Where an input lies within
+    the two devices' rounding of a kink they may take opposite sides, and
+    one such activation moves a gradient at 64² by up to 1e-2 of its
+    largest; replayed, the two backwards differ by rounding alone."""
+    import torch
+    import torch.nn.functional as F
+
+    from cistar_tpu_torch.ops import nn as tnn
+
+    relu, leaky, pool = tnn.relu, tnn.leaky_relu, tnn.max_pool2d
+    replay = iter(masks)
+
+    def side(own, x):
+        if flips is None:
+            masks.append(own.cpu())
+            return None
+        m = next(replay).to(x.device)
+        off = m != own
+        flips.append((int(off.sum()),
+                      float(x.detach()[off].abs().max()) if off.any()
+                      else 0.0))
+        return m
+
+    def relu_(x):
+        m = side(x.detach() > 0, x)
+        return relu(x) if m is None else x * m
+
+    def leaky_(x, negative_slope=0.2):
+        m = side(x.detach() >= 0, x)
+        return (leaky(x, negative_slope) if m is None
+                else torch.where(m, x, x * negative_slope))
+
+    def pool_(x, kernel, stride=None, padding=0):
+        xc = x.permute(0, 3, 1, 2)
+        top, own = F.max_pool2d(xc.detach(), kernel, stride or kernel,
+                                padding, return_indices=True)
+        if flips is None:
+            masks.append(own.cpu())
+            return pool(x, kernel, stride, padding)
+        m = next(replay).to(x.device)
+        out = xc.flatten(2).gather(2, m.flatten(2)).view_as(top)
+        off = m != own
+        flips.append((int(off.sum()),
+                      float((top - out.detach())[off].max()) if off.any()
+                      else 0.0))
+        return out.permute(0, 2, 3, 1)
+
+    tnn.relu, tnn.leaky_relu, tnn.max_pool2d = relu_, leaky_, pool_
+    try:
+        yield
+    finally:
+        tnn.relu, tnn.leaky_relu, tnn.max_pool2d = relu, leaky, pool
+
+
+def p2p_backward_check(engs, label, inst, image, gen) -> tuple:
+    """G's, netE's and D's backward on the card against the CPU's, from the
+    same state and inputs and with the card's activation patterns
+    (:func:`same_kinks`), each net's max-abs error over its largest
+    gradient: G and netE through G's output in train mode, against a fixed
+    cotangent; D through the D step's loss on the CPU's fake. G's
+    BatchNorm statistics are put back after its forward. Also returns the
+    activations replayed on the other side (count, largest distance from
+    the kink)."""
+    import torch
+
+    from cistar_tpu_torch.losses.gan import gan_loss
+
+    cot = torch.randn(*label.shape[:3], engs[0].output_nc, generator=gen)
+    cpu, card = engs
+
+    def d_grad(e, fake):
+        il = e.encode_input(label.to(e.device),
+                            None if inst is None else inst.to(e.device))
+        x = torch.cat([torch.cat([il, fake.to(e.device)], -1),
+                       torch.cat([il, image.to(e.device)], -1)])
+        both = e._d(x)
+        nb = label.shape[0]
+        loss_d = (gan_loss([[t[:nb] for t in sc] for sc in both], False,
+                           e.use_lsgan)
+                  + gan_loss([[t[nb:] for t in sc] for sc in both], True,
+                             e.use_lsgan)) * 0.5
+        return flat(torch.autograd.grad(loss_d, list(e.D.parameters())))
+
+    def flat(gs):
+        return torch.cat([g.reshape(-1).cpu() for g in gs])
+
+    def g_grads(e):
+        dev_ = e.device
+        lab, img = label.to(dev_), image.to(dev_)
+        ins = None if inst is None else inst.to(dev_)
+        il = e.encode_input(lab, ins)
+        saved = {k: v.clone() for k, v in e.G.named_buffers()}
+        e.G.train()
+        try:
+            fake = e.G(e._g_input(il, lab, ins, img, None).to(e.cdt))
+        finally:
+            e.G.eval()
+        with torch.no_grad():
+            for k, v in e.G.named_buffers():
+                v.copy_(saved[k])
+        nets = [("G", e.G)] + ([("E", e.E)] if e.gen_features else [])
+        gs = torch.autograd.grad(
+            fake.float(), [p for _, net in nets for p in net.parameters()],
+            cot.to(dev_))
+        out, o = {}, 0
+        for name, net in nets:
+            k = sum(1 for _ in net.parameters())
+            out[name] = flat(gs[o:o + k])
+            o += k
+        return out, fake.detach().float().cpu()
+
+    masks_g, masks_d, flips = [], [], []
+    with torch.enable_grad():
+        with same_kinks(masks_g):
+            g_card, _ = g_grads(card)
+        with same_kinks(masks_g, flips):
+            g_cpu, fake = g_grads(cpu)
+        with same_kinks(masks_d):
+            g_card["D"] = d_grad(card, fake)
+        with same_kinks(masks_d, flips):
+            g_cpu["D"] = d_grad(cpu, fake)
+    return ({k: ((g_card[k] - v).abs().max() / v.abs().max()).item()
+             for k, v in g_cpu.items()},
+            (sum(n for n, _ in flips), max(x for _, x in flips)))
+
+
+def p2p_train_check(dev) -> None:
+    """Phase 36: the card's train step against the CPU's, each card step
+    from the CPU's state."""
+    import torch
+
+    from cistar_tpu_torch.engines.p2phd import Pix2PixHD
+    from cistar_tpu_torch.losses.perceptual import make_vgg_loss
+
+    n, size = P2P_CHECK["batch"], P2P_CHECK["size"]
+    for label_, family_, steps, vgg in P2P_CHECK_RUNS:
+        gen = torch.Generator().manual_seed(14)   # the same frames in each
+        cfg = dict(P2P_CHECK_CFG[family_], ndf=8, num_d=2, n_layers_d=3,
+                   image_size=size, compute_dtype=torch.float32, seed=0)
+        with fp32_exact():
+            engs = [Pix2PixHD(family_, device=d, vgg_criterion=(
+                        make_vgg_loss(compute_dtype=torch.float32)
+                        if vgg else None), **cfg)
+                    for d in ("cpu", dev)]
+            sts = [e.init_state(0) for e in engs]
+            for i in range(steps):
+                label = torch.rand(n, size, size, 1, generator=gen) * 2 - 1
+                image = torch.rand(n, size, size, 1, generator=gen) * 2 - 1
+                inst = (torch.randint(0, 6, (n, size, size, 1),
+                                      generator=gen).float()
+                        if engs[0].gen_features else None)
+                copy_p2p_state(engs[0], sts[0], engs[1], sts[1])
+                bwd, bwd_kinks = p2p_backward_check(
+                    engs, label, inst, image, gen)
+                before = p2p_served(engs[0], label, inst, image)
+                # the card's step first: the CPU's replays its activation
+                # patterns
+                outs, masks, kinks = [None, None], [], []
+                for k in (1, 0):
+                    e = engs[k]
+                    args = [t if t is None else t.to(e.device)
+                            for t in (label, inst, image)]
+                    with same_kinks(masks, kinks if k == 0 else None):
+                        sts[k], m, fake = e.train_step(sts[k], *args)
+                    outs[k] = (p2p_served(e, *args),
+                               {k2: float(v) for k2, v in m.items()},
+                               {k2: v.cpu() for k2, v in
+                                (sts[k].g_stats or {}).items()},
+                               fake.cpu())
+                step_kinks = (sum(n for n, _ in kinks),
+                              max(x for _, x in kinks))
+                (o_cpu, m_cpu, s_cpu, f_cpu), (o_card, m_card, s_card,
+                                               f_card) = outs
+                rel = max(abs(m_card[k] - v) / abs(v)
+                          for k, v in m_cpu.items() if v)
+                f_err = (f_card - f_cpu).abs().max().item()
+                mu_rel = {}
+                for net in ("opt_g", "opt_d", "opt_e"):
+                    a, b = getattr(sts[0], net), getattr(sts[1], net)
+                    if a is not None:
+                        mu_rel[net[-1].upper()] = (
+                            (b.mu_flat.cpu() - a.mu_flat).abs().max()
+                            / a.mu_flat.abs().max()).item()
+                err = (o_card - o_cpu).abs().max().item()
+                s_err = max(((s_card[k] - v).abs().max().item()
+                             for k, v in s_cpu.items()), default=0.0)
+                moved = (o_cpu - before).abs().max().item()
+                # the weights whose Adam update took the other sign on the
+                # card get the CPU's values
+                flips = 0
+                with torch.no_grad():
+                    for a, b in ((engs[0].G, engs[1].G),
+                                 (engs[0].E, engs[1].E)):
+                        if a is None:
+                            continue
+                        for p, q in zip(a.parameters(), b.parameters()):
+                            off = (q.cpu() - p).abs() > engs[0].lr / 2
+                            flips += int(off.sum())
+                            q.copy_(torch.where(off.to(q.device),
+                                                p.to(q.device), q))
+                err_fixed = (p2p_served(engs[1], *[
+                    t if t is None else t.to(dev)
+                    for t in (label, inst, image)]) - o_cpu).abs().max() \
+                    .item()
+                print(f"[p2phd train check] {label_} step {i}, {size}², "
+                      f"batch {n}, fp32: metrics card vs CPU max rel "
+                      f"{rel!r} (tol {TRAIN_RTOL}); backward from the "
+                      f"same state and inputs (max-abs over the net's "
+                      f"largest gradient) {bwd} (tol {TRAIN_RTOL}), with "
+                      f"the card's activation patterns, {bwd_kinks[0]} "
+                      f"of them on the other side at CPU inputs up to "
+                      f"{bwd_kinks[1]!r} (tol {TRAIN_ABS}); the step with "
+                      f"the card's "
+                      f"activation patterns, {step_kinks[0]} on the other "
+                      f"side at CPU inputs up to {step_kinks[1]!r}: Adam "
+                      f"first moments {mu_rel} (tol {TRAIN_RTOL}); "
+                      f"G's output in the step max-abs "
+                      f"{f_err!r}; after the step {err!r}, with the CPU's "
+                      f"values at the {flips} weights whose update took "
+                      f"the other sign {err_fixed!r} (tol {TRAIN_ABS}), "
+                      f"moved by the step {moved!r}; BatchNorm running "
+                      f"statistics max-abs {s_err!r}; CPU {m_cpu}",
+                      flush=True)
+                check(m_card.keys() == m_cpu.keys(), "the same train metrics")
+                check(rel <= TRAIN_RTOL, f"{label_} step {i}: train "
+                      "metrics, card within rtol of the CPU")
+                for net, r in bwd.items():
+                    check(r <= TRAIN_RTOL, f"{label_} step {i}: {net}'s "
+                          "backward, card vs CPU")
+                for what, (_, x) in (("backward", bwd_kinks),
+                                     ("step", step_kinks)):
+                    check(x <= TRAIN_ABS, f"{label_} step {i}: the {what}'s "
+                          "activations on the other side lie within "
+                          "rounding of their kink")
+                for net, r in mu_rel.items():
+                    check(r <= TRAIN_RTOL, f"{label_} step {i}: {net}'s "
+                          "Adam first moment, card vs CPU")
+                check(f_err <= TRAIN_ABS, f"{label_} step {i}: G's output "
+                      "in the step, card vs CPU")
+                check(err_fixed <= TRAIN_ABS, f"{label_} step {i}: G's "
+                      "output after the step, card vs CPU")
+                check(err <= TRAIN_ABS, f"{label_} step {i}: G's output "
+                      "after the step, as stepped")
+                check(s_err <= TRAIN_ABS, f"{label_} step {i}: running "
+                      "statistics, card vs CPU")
+                check(m_cpu["G_GAN_Feat"] > 0, "feature matching on")
+                check((m_cpu["G_VGG"] > 0) == vgg, "the VGG19 loss on")
+                if family_ == "global":
+                    check(set(mu_rel) == set(bwd) == {"G", "D", "E"},
+                          "netE trains")
+            if family_ == "multiscale":
+                check(len(s_cpu) > 0, "multiscale has running statistics")
+
+
+def p2p_timed(dev, counters, family_: str):
+    """Phase 37 for one configuration: the engine, its state and a
+    step function, after the timed steps."""
+    import numpy as np
+    import torch
+
+    from cistar_tpu_torch.engines.p2phd import Pix2PixHD
+    from cistar_tpu_torch.losses.perceptual import make_vgg_loss
+
+    n, size = P2P_TRAIN_BATCH, P2P_TRAIN_COMMON["image_size"]
+    radar, lidar = synthetic_pairs(2 * n, size)
+    batches = [(torch.from_numpy(radar[i:i + n]).to(dev),
+                torch.from_numpy(lidar[i:i + n]).to(dev)) for i in (0, n)]
+    eng = Pix2PixHD(family_, device=dev, seed=0, vgg_criterion=(
+        make_vgg_loss() if family_ == "global" else None),
+        **P2P_TRAIN[family_], **P2P_TRAIN_COMMON)
+    st = eng.init_state(0)
+
+    def flat(params):
+        return torch.cat([p.detach().reshape(-1) for p in params.values()])
+
+    g0, d0 = flat(st.g), flat(st.d)
+    metrics = []
+
+    def step(i, mark=None):
+        nonlocal st
+        lab, img = batches[i % 2]
+        st, m, _ = eng.train_step(st, lab, None, img, mark=mark)
+        metrics.append(m)
+
+    for m in counters:
+        m.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_WARMUP):
+        step(i)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    evs = [torch.cuda.Event(enable_timing=True)
+           for _ in range(P2P_TRAIN_STEPS + 1)]
+    evs[0].record()
+    for i in range(P2P_TRAIN_STEPS):
+        step(i)
+        evs[i + 1].record()
+    evs[-1].synchronize()
+    ms = evs[0].elapsed_time(evs[-1]) / P2P_TRAIN_STEPS
+    each = sorted(a.elapsed_time(b) for a, b in zip(evs, evs[1:]))
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for m in counters for k, v in m.launches.items()}
+    label = (f"p2phd train step {family_} ngf 64"
+             + (" + VGG19 loss" if family_ == "global" else " (r2l_MSRB_7)"))
+    print(f"[p2phd train path] {family_}: launches {launches}", flush=True)
+    check(not any(launches.values()), f"the {family_} train step launches "
+          "no kernel")
+    host = [{k: float(v) for k, v in m.items()} for m in metrics]
+    print(f"[times] {label} batch {n} {size}² bf16: {ms!r} ms a step "
+          f"(the mean of {P2P_TRAIN_STEPS}; each step min {each[0]!r}, "
+          f"median {each[len(each) // 2]!r}, max {each[-1]!r}), "
+          f"{n / ms * 1e3!r} img/s; the {TRAIN_WARMUP} warm-up steps "
+          f"{first_s!r} s; peak memory {peak} B ({peak / 2**30!r} GiB); "
+          f"last step {host[-1]}", flush=True)
+    check(all(np.isfinite(v) for m in host for v in m.values()),
+          "finite train losses")
+    check(all(m["G_GAN_Feat"] > 0 for m in host), "G_GAN_Feat > 0")
+    if family_ == "global":
+        check(all(m["G_VGG"] > 0 for m in host), "G_VGG > 0")
+    check(not torch.equal(flat(st.g), g0), "G's params moved")
+    check(not torch.equal(flat(st.d), d0), "D's params moved")
+    check(int(st.opt_g.count) == TRAIN_WARMUP + P2P_TRAIN_STEPS,
+          "G took every step")
+    return step
+
+
+def p2p_breakdown(step, label: str) -> None:
+    """Phase 38 for one configuration: no host sync in a step; where its
+    time goes."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"[p2phd train path] one {label} step under "
+          "set_sync_debug_mode('error'): no host sync", flush=True)
+    marks = [("start", torch.cuda.Event(enable_timing=True), 0.0)]
+
+    def mark(label):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((label, ev, time.perf_counter()))
+
+    torch.cuda.synchronize()
+    marks[0] = ("start", marks[0][1], time.perf_counter())
+    marks[0][1].record()
+    step(1, mark)
+    torch.cuda.synchronize()
+    for unit, span in (
+            ("device", lambda a, b: a[1].elapsed_time(b[1])),
+            ("host", lambda a, b: (b[2] - a[2]) * 1e3)):
+        parts = {b[0]: span(a, b) for a, b in zip(marks, marks[1:])}
+        print(f"[breakdown] p2phd train step {label} batch "
+              f"{P2P_TRAIN_BATCH}, {unit} ms (CUDA events between the "
+              "phases' ends; host: their enqueue): "
+              + "; ".join(f"{k} {t!r}" for k, t in parts.items())
+              + f"; sum {sum(parts.values())!r}", flush=True)
+    wall, busy, top = profile_top(lambda: step(0))
+    print(f"[profile] p2phd train step {label} batch {P2P_TRAIN_BATCH}: "
+          f"wall {wall!r} ms, device busy {busy!r} ms; top device time (ms): "
+          + "; ".join(f"{k[:60]} {t!r}" for t, k in top), flush=True)
+
+
+def p2p_cli(dev, counters) -> None:
+    """Phases 39-40: the training CLI at the shipped recipe, a resume, and
+    the test CLI on its checkpoint at --data_type 32 and 8."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cistar_tpu_torch.apps import p2phd_test, p2phd_train
+    from cistar_tpu_torch.apps.p2phd_options import TestOptions
+    from cistar_tpu_torch.core import checkpoint as ckpt
+    from cistar_tpu_torch.core.convert import unet_generator_hd_from_jax
+    from cistar_tpu_torch.data.datasets import Radar2LidarDataset
+    from cistar_tpu_torch.kernels import int8_msrb as km
+    from cistar_tpu_torch.models import fast_infer as fi
+    from cistar_tpu_torch.ops import quant_int8 as qi
+
+    opt_txt = os.path.join(ROOT, "checkpoints", "r2l_MSRB_7", "opt.txt")
+    size = P2P_TRAIN_COMMON["image_size"]
+    with tempfile.TemporaryDirectory() as tmp:
+        data, ck = os.path.join(tmp, "data"), os.path.join(tmp, "ck")
+        synthetic_tool().main(["--out", data, "--n", str(P2P_CLI_PAIRS),
+                               "--size", str(size)])
+        base = ["--load_opt", opt_txt, "--dataroot", data,
+                "--checkpoints_dir", ck, "--device", dev.type]
+        args = base + ["--niter", "1", "--niter_decay", "0",
+                       "--print_freq", "4"]
+        # 39. one epoch of the shipped recipe, then --continue_train
+        t0 = time.perf_counter()
+        p2phd_train.main(args)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run = os.path.join(ck, "r2l_MSRB_7")
+        for name in ("latest_net_G.npz", "latest_net_D.npz", "iter.txt"):
+            check(os.path.exists(os.path.join(run, name)),
+                  f"the CLI wrote {name}")
+        check(ckpt.load_iter(run) == (2, 0), "iter.txt says epoch 2")
+        saved = ckpt.load_pytree(os.path.join(run, "latest_net_G.npz"))
+        # at the last epoch: the nets load, no step runs
+        st = p2phd_train.main(args + ["--continue_train"])
+        want = unet_generator_hd_from_jax(saved)
+        check(all(torch.equal(st.g[k].cpu(), v) for k, v in want.items()),
+              "--continue_train loads the saved G")
+        n_train = int(P2P_CLI_PAIRS * 0.7)
+        print(f"[p2phd train cli] {P2P_CLI_PAIRS} pairs {size}², one epoch "
+              f"of {n_train} steps at batch 1 in {t1 - t0:.1f} s (set-up "
+              "included); latest G, D, iter.txt written; --continue_train "
+              "resumed at epoch 2 from them", flush=True)
+
+        # 40. the test CLI on that checkpoint, fp32 and int8
+        test_args = base + ["--results_dir", os.path.join(tmp, "res"),
+                            "--phase", "test", "--how_many",
+                            str(P2P_TEST_PAIRS)]
+        for data_type in (32, 8):
+            for m in counters:
+                m.reset_launches()
+            t0 = time.perf_counter()
+            web = p2phd_test.main(test_args + ["--data_type", str(data_type)])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {k: v for m in counters
+                        for k, v in m.launches.items()}
+            # 4 K8 an MSRB block, 3 blocks: 12 a generator call
+            want = ({"msrb_branch_int8": 4 * P2P_TRAIN["UNet"][
+                "n_blocks_global"] * P2P_TEST_PAIRS} if data_type == 8 else {})
+            print(f"[p2phd test cli] --data_type {data_type}: launches "
+                  f"{launches}; {P2P_TEST_PAIRS} frames in {dt:.1f} s",
+                  flush=True)
+            check(all(launches[k] == want.get(k, 0) for k in launches),
+                  f"--data_type {data_type} launches {want} and no other "
+                  "kernel")
+            pngs = os.listdir(os.path.join(web, "images"))
+            check(len(pngs) == 3 * P2P_TEST_PAIRS,
+                  f"the test CLI wrote {3 * P2P_TEST_PAIRS} PNGs")
+            check(open(os.path.join(web, "index.html")).read().count("<img")
+                  == 3 * P2P_TEST_PAIRS, "the gallery lists them")
+        # the int8 engine on those frames, held as phase 12 holds it
+        opt = TestOptions().parse(test_args + ["--data_type", "8"],
+                                  save=False)
+        eng = p2phd_test.load_engine(opt)
+        gen, qb = eng.G, eng.quantize_generator()
+        ds = Radar2LidarDataset(data, size=size, mode="test")
+        x = torch.from_numpy(np.stack([ds[i]["label"] for i in
+                                       range(P2P_TEST_PAIRS)])).to(dev)
+        xb = x.bfloat16()
+        y8 = eng.infer_step_int8(qb, x)
+        skips = fi.unet_encode(gen, xb)
+        h = skips[-1]
+        for q in qb:
+            h = qi.msrb_block_int8_plain(h, q, K8_TILE)
+        yp = fi.unet_decode(gen, h, skips).float()
+        with fp32_exact():
+            y32 = gen(x)
+        dk, dp = (y8 - y32).abs(), (yp - y32).abs()
+        (mk, ak), (mp, ap) = ((d.max().item(), d.mean().item())
+                              for d in (dk, dp))
+        print(f"[p2phd test cli] int8 engine on the checkpoint vs fp32, "
+              f"{P2P_TEST_PAIRS} test frames: max {mk!r} mean {ak!r}; with "
+              f"the plain K8 max {mp!r} mean {ap!r}", flush=True)
+        check(ak <= KERNEL_MEAN_RATIO * ap and mk <= mp + KERNEL_MAX_EXCESS,
+              "the CLI's int8 engine: K8 adds little to the plain error")
+
+        # K8 at batch 1, the CLI's batch, on the checkpoint's activations
+        h1 = fi.unet_encode(gen, xb[:1])[-1].contiguous()
+        xq, xs = qi.quantize_act(h1)
+        q0 = qb[0]
+        cat, sc, _ = k8_vs_plain(xq, xs, q0)
+        tot = dict.fromkeys(("ms", "plain", "bound"), 0.0)
+        for st_, xin, xsc in (("a", xq, xs), ("b", cat, sc)):
+            qo = st_ == "a"
+            sb = q0["sb1" if qo else "sb2"]
+            odt = None if qo else torch.bfloat16
+            for row, kk in ((0, 3), (1, 5)):
+                wk, wq = q0[f"w{kk}{st_}k"], q0[f"w{kk}{st_}"]
+                ms = cuda_ms(lambda: km.msrb_branch_int8(
+                    xin, xsc, wk, sb, row, kk, K8_TILE, qo, odt), 20)
+                plain_ms = cuda_ms(lambda: qi.msrb_branch_plain(
+                    xin, xsc, wq, sb, row, kk, K8_TILE, qo, odt), 5)
+                bnd, by = k8_bound_ms(*xin.shape, wk.shape[0], kk, qo)
+                for k, v in (("ms", ms), ("plain", plain_ms),
+                             ("bound", bnd)):
+                    tot[k] += v
+                print(f"[times] msrb_branch_int8 stage {st_} {kk}x{kk} "
+                      f"{tuple(xin.shape)}: {ms!r} ms, bound {bnd!r} ms "
+                      f"({by}), plain {plain_ms!r} ms", flush=True)
+        print(f"[times] msrb_branch_int8 at batch 1 (the test CLI's), per "
+              f"launch (the mean of one block's four): {tot['ms'] / 4!r} ms, "
+              f"bound {tot['bound'] / 4!r} ms, plain {tot['plain'] / 4!r} "
+              "ms", flush=True)
+
+
+def p2phd_train_path(dev, counters) -> None:
+    """Phases 36-40: the pix2pixHD train step, card against CPU, at full
+    width counted and timed, and the two CLIs."""
+    p2p_train_check(dev)
+    p2p_breakdown(p2p_timed(dev, counters, "UNet"), "r2l_MSRB_7")
+    p2p_breakdown(p2p_timed(dev, counters, "global"), "global + VGG19")
+    p2p_cli(dev, counters)
+
+
 def main() -> int:
     import torch
 
@@ -3529,6 +4161,7 @@ def main() -> int:
     with torch.enable_grad():
         family_train_path(dev, counters)
     gatys_path(dev, counters)
+    p2phd_train_path(dev, counters)   # train_step enables grad itself
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,0 +1,134 @@
+"""pix2pixHD inference CLI (counterpart of ``cistar_tpu/apps/p2phd_test.py``,
+parity with ``p2pHD/test.py``).
+
+    python -m cistar_tpu_torch.apps.p2phd_test --load_opt OPT --dataroot DIR
+
+Loads G (and its BatchNorm statistics, ``G_stats``) of
+``<checkpoints_dir>/<name>`` at ``--which_epoch``, runs the test split at
+batch 1 (the r2l split of ``Radar2LidarDataset``, or ``AlignedDataset``
+without ``--r2l``) and writes an HTML gallery of input / synthesized /
+real images (``test.py:82-89``) under
+``<results_dir>/<name>/<phase>_<which_epoch>``. ``--data_type 32`` (fp32)
+and ``16`` (bf16) run :meth:`Pix2PixHDInference.infer_step`; ``8`` runs the
+family's int8 engine (:meth:`Pix2PixHDInference.quantize_generator`, then
+:meth:`Pix2PixHDInference.infer_step_int8`), which launches the port's
+CUDA kernels on the card.
+
+``--export_onnx``, ``--engine`` / ``--onnx`` (an exported program and its
+profile) and ``--spatial_shard`` raise: ROADMAP queue 1, item 11.
+``--compile_timeout`` does nothing.
+"""
+
+from __future__ import annotations
+
+import os
+
+
+def load_engine(opt):
+    """The :class:`~cistar_tpu_torch.engines.p2phd.Pix2PixHDInference` the
+    options describe, with G (and G_stats) of ``<checkpoints_dir>/<name>``
+    at ``--which_epoch``, loaded tolerantly."""
+    import torch
+
+    from cistar_tpu_torch.core import checkpoint as ckpt
+    from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
+
+    engine = Pix2PixHDInference(
+        opt.netG, ngf=opt.ngf, n_downsample_global=opt.n_downsample_global,
+        n_blocks_global=opt.n_blocks_global,
+        n_local_enhancers=opt.n_local_enhancers,
+        n_blocks_local=opt.n_blocks_local, input_nc=opt.input_nc,
+        output_nc=opt.output_nc, label_nc=opt.label_nc, r2l=opt.r2l,
+        no_instance=opt.no_instance, norm=opt.norm,
+        # data_type 8 = int8 trunk engine (non-quantized layers run bf16)
+        compute_dtype=torch.bfloat16
+        if (opt.fp16 or opt.data_type in (8, 16)) else torch.float32,
+        device=opt.device or None)
+    save_dir = os.path.join(opt.checkpoints_dir, opt.name)
+    trees = engine.jax_params()
+    g = ckpt.load_network(save_dir, "G", opt.which_epoch, trees["G"])
+    g_stats = None
+    if trees["G_stats"] is not None:
+        g_stats = ckpt.load_network(save_dir, "G_stats", opt.which_epoch,
+                                    trees["G_stats"])
+    engine.load_jax_params(g, g_stats)
+    return engine
+
+
+def main(argv=None):
+    from cistar_tpu_torch.apps.p2phd_options import TestOptions
+
+    opt = TestOptions().parse(argv, save=False)
+    opt.nThreads = 1
+    opt.batchSize = 1
+    opt.serial_batches = True
+    opt.no_flip = True
+    for flag in ("export_onnx", "engine", "onnx", "spatial_shard"):
+        if getattr(opt, flag):
+            raise NotImplementedError(
+                f"--{flag} (exported programs, their profile, sharding) is "
+                "not ported yet: ROADMAP queue 1, item 11")
+
+    import numpy as np
+    from PIL import Image
+
+    from cistar_tpu_torch.apps.cyclegan_train import to_device
+    from cistar_tpu_torch.data.datasets import Loader, Radar2LidarDataset
+    from cistar_tpu_torch.data.transforms import array_to_pil, denormalize
+    from cistar_tpu_torch.utils.label_viz import tensor2label
+    from cistar_tpu_torch.utils.metrics import HTMLGallery
+
+    size = opt.r2l_res if opt.r2l else opt.fineSize
+    engine = load_engine(opt)
+    qblocks = None
+    if opt.data_type == 8:
+        qblocks = engine.quantize_generator()
+        print(f"int8 engine: quantized {len(qblocks)} trunk blocks "
+              f"(netG={opt.netG})")
+
+    web_dir = os.path.join(opt.results_dir, opt.name,
+                           f"{opt.phase}_{opt.which_epoch}")
+    gallery = HTMLGallery(web_dir, f"Experiment = {opt.name}, "
+                          f"Phase = {opt.phase}, Epoch = {opt.which_epoch}")
+    if opt.r2l:
+        dataset = Radar2LidarDataset(opt.dataroot, size=size, mode="test")
+    else:
+        from cistar_tpu_torch.data.aligned import AlignedDataset
+
+        dataset = AlignedDataset(opt)
+    for i, batch in enumerate(Loader(dataset, 1)):
+        if i >= opt.how_many:
+            break
+        label = to_device(batch["label"], engine.device)
+        inst = (to_device(batch["inst"], engine.device)
+                if batch["inst"].ndim == 4 else None)
+        fake = (engine.infer_step_int8(qblocks, label, inst)
+                if qblocks is not None else engine.infer_step(label, inst))
+        fake = fake.cpu().numpy()
+        name = os.path.splitext(os.path.basename(batch["path"][0]))[0]
+        ims, txts = [], []
+        tiles = [("input_label", batch["label"][0]),
+                 ("synthesized_image", fake[0])]
+        if batch["image"].ndim == 4:  # real image present
+            tiles.append(("real_image", batch["image"][0]))
+        for tag, arr in tiles:
+            fn = f"{name}_{tag}.png"
+            if tag == "input_label" and opt.label_nc > 0:
+                # semantic mode: the label map colorized, as the reference
+                # gallery does (util/util.py:27-35 tensor2label)
+                img = Image.fromarray(tensor2label(np.asarray(arr),
+                                                   opt.label_nc))
+            else:
+                img = array_to_pil(np.clip(denormalize(np.asarray(arr)), 0, 1))
+            img.save(os.path.join(gallery.img_dir, fn))
+            ims.append(fn)
+            txts.append(tag)
+        gallery.add_header(f"process image... {name}")
+        gallery.add_images(ims, txts, ims, width=opt.display_winsize)
+        print(f"process image... {batch['path'][0]}")
+    gallery.save()
+    return web_dir
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,163 @@
+"""pix2pixHD training CLI (counterpart of ``cistar_tpu/apps/p2phd_train.py``,
+parity with ``p2pHD/train.py``).
+
+    python -m cistar_tpu_torch.apps.p2phd_train --load_opt \
+        checkpoints/r2l_MSRB_7/opt.txt --dataroot DIR [flags]
+
+The flags are ``apps/p2phd_options.py``'s. The loop is the JAX CLI's:
+``--continue_train`` resumes at the epoch of ``iter.txt`` from the latest
+networks (``--load_pretrain DIR`` loads them from another run), ``--debug``
+shrinks the run to one epoch of 10 pairs, ``--max_dataset_size`` cuts the
+split; per batch one :meth:`Pix2PixHD.train_step` (bf16 compute unless
+``--compute fp32``), the metrics read on the host only every
+``--print_freq`` steps; the latest networks (G, D and G's BatchNorm
+statistics ``G_stats``) and ``iter.txt`` every ``--save_latest_freq``
+images and at each epoch's end, the per-epoch ones every
+``--save_epoch_freq`` epochs, as ``.npz`` files that the JAX package loads
+as well. Batches go to the device from pinned memory without blocking.
+
+``--uda`` (the UDA trainers) raises: ROADMAP queue 1, item 10.
+``--spatial_shard`` raises: ROADMAP queue 1, item 11. The JAX CLI's XLA
+executable cache and compile watchdog have no counterpart: the eager step
+compiles nothing.
+"""
+
+from __future__ import annotations
+
+import os
+
+
+def save_networks(save_dir: str, engine, epoch_label) -> None:
+    """G, D and (with BatchNorm) G_stats as ``{epoch_label}_net_*.npz``."""
+    from cistar_tpu_torch.core import checkpoint as ckpt
+
+    trees = engine.jax_params()
+    for label in ("G", "D", "G_stats"):
+        if trees[label] is not None:
+            ckpt.save_network(save_dir, label, epoch_label, trees[label])
+
+
+def load_networks(pre: str, which_epoch, engine) -> None:
+    """G, D and G_stats of ``pre`` into ``engine``, tolerantly
+    (``load_network``); without a G_stats file, BatchNorm statistics
+    re-warm from their init (a warning says so)."""
+    from cistar_tpu_torch.core import checkpoint as ckpt
+
+    trees = engine.jax_params()
+    g = ckpt.load_network(pre, "G", which_epoch, trees["G"])
+    d = ckpt.load_network(pre, "D", which_epoch, trees["D"])
+    g_stats = trees["G_stats"]
+    if g_stats is not None:
+        stats_path = os.path.join(pre, f"{which_epoch}_net_G_stats.npz")
+        if os.path.exists(stats_path):
+            g_stats = ckpt.load_network(pre, "G_stats", which_epoch, g_stats)
+        else:
+            print(f"warning: {stats_path} not found; BatchNorm running "
+                  "stats re-warm from init", flush=True)
+    engine.load_jax_params(g, g_stats, d)
+
+
+def make_engine(opt, size: int):
+    """The :class:`~cistar_tpu_torch.engines.p2phd.Pix2PixHD` the options
+    describe."""
+    import torch
+
+    from cistar_tpu_torch.engines.p2phd import Pix2PixHD
+    from cistar_tpu_torch.losses.perceptual import make_vgg_loss
+
+    fp32 = opt.compute == "fp32" and not (opt.fp16 or opt.data_type == 16)
+    return Pix2PixHD(
+        net_g=opt.netG, input_nc=opt.input_nc, output_nc=opt.output_nc,
+        label_nc=opt.label_nc, ngf=opt.ngf, ndf=opt.ndf,
+        n_downsample_global=opt.n_downsample_global,
+        n_blocks_global=opt.n_blocks_global,
+        n_local_enhancers=opt.n_local_enhancers,
+        n_blocks_local=opt.n_blocks_local,
+        n_layers_d=opt.n_layers_D, num_d=opt.num_D, norm=opt.norm,
+        no_instance=opt.no_instance, r2l=opt.r2l,
+        use_lsgan=not opt.no_lsgan, lambda_feat=opt.lambda_feat,
+        use_ganfeat_loss=not opt.no_ganFeat_loss,
+        vgg_criterion=None if opt.no_vgg_loss else make_vgg_loss(),
+        lr=opt.lr, beta1=opt.beta1, niter=opt.niter,
+        niter_decay=opt.niter_decay, niter_fix_global=opt.niter_fix_global,
+        pool_size=opt.pool_size, image_size=size,
+        compute_dtype=torch.float32 if fp32 else torch.bfloat16,
+        instance_feat=opt.instance_feat, label_feat=opt.label_feat,
+        load_features=opt.load_features, feat_num=opt.feat_num, nef=opt.nef,
+        n_downsample_e=opt.n_downsample_E, device=opt.device or None)
+
+
+def main(argv=None):
+    from cistar_tpu_torch.apps.p2phd_options import TrainOptions
+
+    opt = TrainOptions().parse(argv)
+    if opt.uda:
+        raise NotImplementedError(
+            "--uda (the UDA trainers) is not ported yet: ROADMAP queue 1, "
+            "item 10")
+    if opt.spatial_shard:
+        raise NotImplementedError(
+            "--spatial_shard (the generator sharded over devices) is not "
+            "ported yet: ROADMAP queue 1, item 11")
+
+    import torch
+
+    from cistar_tpu_torch.apps.cyclegan_train import to_device
+    from cistar_tpu_torch.core import checkpoint as ckpt
+    from cistar_tpu_torch.data.datasets import Loader, Radar2LidarDataset
+    from cistar_tpu_torch.utils.metrics import MetricsLogger
+
+    save_dir = os.path.join(opt.checkpoints_dir, opt.name)
+    os.makedirs(save_dir, exist_ok=True)
+
+    start_epoch, epoch_iter = 1, 0
+    if opt.continue_train:
+        start_epoch, epoch_iter = ckpt.load_iter(save_dir)
+        print(f"Resuming from epoch {start_epoch} at iteration {epoch_iter}")
+
+    if opt.debug:
+        opt.display_freq = opt.print_freq = opt.niter = opt.niter_decay = 1
+        opt.max_dataset_size = 10
+
+    size = opt.r2l_res if opt.r2l else opt.fineSize
+    engine = make_engine(opt, size)
+    state = engine.init_state(0, image_size=size)
+    if opt.continue_train or opt.load_pretrain:
+        pre = opt.load_pretrain or save_dir
+        load_networks(pre, opt.which_epoch, engine)
+        print("loaded networks from", pre)
+
+    dataset = Radar2LidarDataset(opt.dataroot, size=size, mode="train")
+    if opt.max_dataset_size != float("inf"):
+        dataset.radar = dataset.radar[: int(opt.max_dataset_size)]
+        dataset.lidar = dataset.lidar[: int(opt.max_dataset_size)]
+    loader = Loader(dataset, opt.batchSize, shuffle=not opt.serial_batches)
+    logger = MetricsLogger(save_dir, opt.niter + opt.niter_decay, len(loader),
+                           start_epoch=start_epoch,
+                           log_every=max(1, opt.print_freq))
+    print(f"#training images = {len(dataset)}", flush=True)
+
+    total_iter = (start_epoch - 1) * len(dataset) + epoch_iter
+    for epoch in range(start_epoch, opt.niter + opt.niter_decay + 1):
+        state = state._replace(epoch=torch.full(
+            (), epoch - 1, dtype=torch.int32, device=engine.device))
+        for batch in loader:
+            label = to_device(batch["label"], engine.device)
+            image = to_device(batch["image"], engine.device)
+            state, metrics, _ = engine.train_step(state, label, None, image)
+            total_iter += opt.batchSize
+            logger.log(metrics, n_images=label.shape[0])
+            if total_iter % opt.save_latest_freq < opt.batchSize:
+                save_networks(save_dir, engine, "latest")
+                ckpt.save_iter(save_dir, epoch, total_iter)
+        logger.end_epoch()
+        save_networks(save_dir, engine, "latest")
+        ckpt.save_iter(save_dir, epoch + 1, 0)
+        if epoch % opt.save_epoch_freq == 0:
+            save_networks(save_dir, engine, epoch)
+            print(f"saved model at end of epoch {epoch}")
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -13,11 +13,14 @@ port's own copy so the port imports nothing of ``cistar_tpu``:
                            ``mean`` / ``var`` → ``running_mean`` /
                            ``running_var``
 
-The ``*_to_jax`` functions map a conv-only ``state_dict`` back onto the JAX
-param tree, with the same key paths: OIHW → HWIO, ``(in, out, kh, kw)`` →
-HWIO with no flip. A round trip is the identity. The checkpoint writer
-(``core/checkpoint.py``) saves through them, so the JAX package loads what
-the port writes.
+The ``*_to_jax`` functions map a ``state_dict`` back onto the JAX param
+tree, with the same key paths: OIHW → HWIO, ``(in, out, kh, kw)`` → HWIO
+with no flip, a BatchNorm's ``weight`` − 1 → ``gamma`` and ``bias`` →
+``beta``; :func:`batch_stats_to_jax` gives its running statistics as the
+``batch_stats`` tree. A round trip port → JAX → port is the identity (γ − 1
+is exact for γ in [0.5, 2]); JAX → port → JAX rounds each ``gamma`` once,
+where γ − 1 + 1 does. The checkpoint writer (``core/checkpoint.py``) saves
+through them, so the JAX package loads what the port writes.
 """
 
 from __future__ import annotations
@@ -146,23 +149,27 @@ def resnet_generator_from_jax(params: Mapping[str, Any]
         params, lambda path: len(path) == 1 and path[0].startswith("up_"))
 
 
-def global_generator_from_jax(params: Mapping[str, Any]
+def global_generator_from_jax(params: Mapping[str, Any],
+                              batch_stats: Optional[Mapping[str, Any]] = None
                               ) -> Dict[str, torch.Tensor]:
     """pix2pixHD ``GlobalGenerator`` params (``trunk/stem/conv``,
     ``trunk/down_i/conv``, ``trunk/res_i/conv{1,2}``, ``trunk/up_i/convt``
-    (transpose), ``head/conv``) → a ``state_dict`` for :class:`~
-    cistar_tpu_torch.models.pix2pixhd.GlobalGenerator`."""
-    return generator_from_jax(params)
+    (transpose), ``head/conv``; with ``norm="batch"`` each stage's
+    ``norm`` / ``norm{1,2}`` and its ``batch_stats``) → a ``state_dict`` for
+    :class:`~cistar_tpu_torch.models.pix2pixhd.GlobalGenerator`."""
+    return generator_from_jax(params, batch_stats=batch_stats)
 
 
-def local_enhancer_from_jax(params: Mapping[str, Any]
+def local_enhancer_from_jax(params: Mapping[str, Any],
+                            batch_stats: Optional[Mapping[str, Any]] = None
                             ) -> Dict[str, torch.Tensor]:
     """pix2pixHD ``LocalEnhancer`` params (``global/…`` as a
     ``GlobalGeneratorTrunk``, ``enh{n}_stem/conv``, ``enh{n}_down/conv``,
     ``enh{n}_res_{i}/conv{1,2}``, ``enh{n}_up/convt`` (transpose),
-    ``head/conv``) → a ``state_dict`` for :class:`~cistar_tpu_torch.models.
-    pix2pixhd.LocalEnhancer`."""
-    return generator_from_jax(params)
+    ``head/conv``; BatchNorms as in :func:`global_generator_from_jax`) → a
+    ``state_dict`` for :class:`~cistar_tpu_torch.models.pix2pixhd.
+    LocalEnhancer`."""
+    return generator_from_jax(params, batch_stats=batch_stats)
 
 
 def multiscale_global_generator_from_jax(params: Mapping[str, Any],
@@ -177,13 +184,31 @@ def multiscale_global_generator_from_jax(params: Mapping[str, Any],
     return generator_from_jax(params, batch_stats=batch_stats)
 
 
-def unet_generator_hd_from_jax(params: Mapping[str, Any]
+def unet_generator_hd_from_jax(params: Mapping[str, Any],
+                               batch_stats: Optional[Mapping[str, Any]] = None
                                ) -> Dict[str, torch.Tensor]:
     """pix2pixHD ``UNetGeneratorHD`` params (``init_block/conv``,
     ``down_i_conv``, ``msrb_i/b{00,01,10,11}_conv``, ``msrb_i/out_conv``,
     ``up_i_convt`` (transpose), ``output_layer/conv``) → a ``state_dict``
-    for :class:`~cistar_tpu_torch.models.pix2pixhd.UNetGeneratorHD`."""
+    for :class:`~cistar_tpu_torch.models.pix2pixhd.UNetGeneratorHD`. The
+    network has no BatchNorm: ``batch_stats`` (the other families'
+    argument) is not read."""
     return generator_from_jax(params, key=_unet_key)
+
+
+def multiscale_discriminator_from_jax(params: Mapping[str, Any]
+                                      ) -> Dict[str, torch.Tensor]:
+    """pix2pixHD ``MultiscaleDiscriminator`` params
+    (``scale_k/layer{n}_conv``, each ``{"w", "b"}``) → a ``state_dict`` for
+    :class:`~cistar_tpu_torch.models.pix2pixhd.MultiscaleDiscriminator`."""
+    return generator_from_jax(params)
+
+
+def encoder_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """pix2pixHD ``Encoder`` params (``stem/conv``, ``down_i/conv``,
+    ``up_i/convt`` (transpose), ``head/conv``) → a ``state_dict`` for
+    :class:`~cistar_tpu_torch.models.pix2pixhd.Encoder`."""
+    return generator_from_jax(params)
 
 
 def patch_discriminator_from_jax(params: Mapping[str, Any]
@@ -220,31 +245,89 @@ def _jax_path(module: str) -> Tuple[str, ...]:
     return tuple(out)
 
 
+_UNET_MODULE = re.compile(r"^(down|up)_(convt?)\.(\d+)$|^msrb\.(\d+)$")
+
+
+def _unet_path(module: str) -> Tuple[str, ...]:
+    """Inverse of :func:`_unet_key`: ``down_conv.i`` / ``up_convt.i`` /
+    ``msrb.i`` become ``down_i_conv`` / ``up_i_convt`` / ``msrb_i``."""
+    out, parts = [], module.split(".")
+    i = 0
+    while i < len(parts):
+        m = _UNET_MODULE.match(".".join(parts[i:i + 2]))
+        if m is None:
+            out.append(parts[i])
+            i += 1
+            continue
+        out.append(f"msrb_{m.group(4)}" if m.group(4) is not None
+                   else f"{m.group(1)}_{m.group(3)}_{m.group(2)}")
+        i += 2
+    return tuple(out)
+
+
+def _is_bn(sd: Mapping[str, torch.Tensor], module: str) -> bool:
+    return f"{module}.running_mean" in sd
+
+
 def generator_to_jax(sd: Mapping[str, torch.Tensor],
                      transposed: Callable[[Tuple[str, ...]], bool]
-                     = _named_convt) -> Dict[str, Any]:
-    """A conv-only ``state_dict`` (``<module>.weight`` / ``<module>.bias``)
-    → the JAX param tree of the same network, numpy fp32 leaves: the
-    inverse of :func:`generator_from_jax` (no BatchNorm). ``transposed(path)``
-    says which nodes are transpose convs, as there."""
+                     = _named_convt,
+                     path: Callable[[str], Tuple[str, ...]] = _jax_path
+                     ) -> Dict[str, Any]:
+    """A ``state_dict`` of convs (``<module>.weight`` / ``<module>.bias``)
+    and BatchNorms (those with a ``running_mean``) → the JAX param tree of
+    the same network, numpy fp32 leaves: the inverse of
+    :func:`generator_from_jax`. ``transposed(path)`` says which nodes are
+    transpose convs, as there; ``path(module)`` gives a module's JAX path.
+    The running statistics go to :func:`batch_stats_to_jax`."""
     tree: Dict[str, Any] = {}
     for name, t in sd.items():
         module, _, leaf = name.rpartition(".")
-        path = _jax_path(module)
+        p = path(module)
         a = t.detach().cpu().float().numpy()
-        if leaf == "weight":
-            a = conv_transpose_w_from_hwio(a) if transposed(path) \
+        if leaf in ("running_mean", "running_var"):
+            continue
+        if _is_bn(sd, module):
+            a, leaf = ((a - np.float32(1.0), "gamma") if leaf == "weight"
+                       else (np.array(a), "beta"))
+        elif leaf == "weight":
+            a = conv_transpose_w_from_hwio(a) if transposed(p) \
                 else conv_w_to_hwio(a)
             leaf = "w"
         elif leaf == "bias":
             a, leaf = np.array(a), "b"
         else:
-            raise ValueError(f"{name}: not a conv parameter")
+            raise ValueError(f"{name}: not a conv or BatchNorm parameter")
         node = tree
-        for p in path:
-            node = node.setdefault(p, {})
+        for q in p:
+            node = node.setdefault(q, {})
         node[leaf] = a
     return tree
+
+
+def batch_stats_to_jax(sd: Mapping[str, torch.Tensor],
+                       path: Callable[[str], Tuple[str, ...]] = _jax_path
+                       ) -> Optional[Dict[str, Any]]:
+    """The running statistics of a ``state_dict``'s BatchNorms as the JAX
+    ``batch_stats`` tree (``mean`` / ``var`` at each norm's path, numpy
+    fp32), or ``None`` when it has no BatchNorm."""
+    tree: Dict[str, Any] = {}
+    for name, t in sd.items():
+        module, _, leaf = name.rpartition(".")
+        if leaf not in ("running_mean", "running_var"):
+            continue
+        node = tree
+        for q in path(module):
+            node = node.setdefault(q, {})
+        node["mean" if leaf == "running_mean" else "var"] = \
+            t.detach().cpu().float().numpy()
+    return tree or None
+
+
+def unet_generator_hd_to_jax(sd: Mapping[str, torch.Tensor]
+                             ) -> Dict[str, Any]:
+    """Inverse of :func:`unet_generator_hd_from_jax`."""
+    return generator_to_jax(sd, path=_unet_path)
 
 
 def resnet_generator_to_jax(sd: Mapping[str, torch.Tensor]

@@ -1,16 +1,23 @@
-"""The CycleGAN dataset and the batching loader (counterpart of
-``cistar_tpu/data/datasets.py::CycleGANImageDataset`` and ``Loader``).
+"""The trainers' datasets and the batching loader (counterpart of
+``cistar_tpu/data/datasets.py::CycleGANImageDataset``,
+``Radar2LidarDataset`` and ``Loader``). They yield NHWC float32 numpy
+arrays.
 
-:class:`CycleGANImageDataset` ↔ ``CycleGAN/datasets.py:10-63``: paired
-``{root}/radar/*.png`` + ``{root}/lidar/*.png`` dirs; train = first 50%,
-test = last 10%; unaligned random B sampling; shared random rotation ±45°
-in train; Grayscale → ToTensor → Normalize(0.5, 0.5). It yields NHWC
-float32 numpy arrays. :class:`Loader` batches in order, as the JAX CLI
-runs it (``shuffle=False``), with a background prefetch thread; the caller
-moves each batch to the device (the training CLI copies it from pinned
-memory without blocking). The native C++ PNG loader of the JAX package,
-and with it the loader's ``get_batch`` path, is not ported yet (ROADMAP
-queue 1, item 7).
+  * :class:`CycleGANImageDataset` ↔ ``CycleGAN/datasets.py:10-63``: paired
+    ``{root}/radar/*.png`` + ``{root}/lidar/*.png`` dirs; train = first
+    50%, test = last 10%; unaligned random B sampling; shared random
+    rotation ±45° in train; Grayscale → ToTensor → Normalize(0.5, 0.5).
+  * :class:`Radar2LidarDataset` ↔ ``p2pHD/data/aligned_dataset.py`` (r2l
+    branch): paired radar / lidar PNG or NPY, resized to ``size``², a
+    shared random rotation 0–360° in train, Normalize(0.5, 0.5), a 70/30
+    train / test split.
+
+:class:`Loader` batches, in order or shuffled anew each epoch, with
+a background prefetch thread; the caller moves each batch to the device
+(the training CLIs copy it from pinned memory without blocking). The
+native C++ PNG loader of the JAX package, and with it the loader's
+``get_batch`` path, ``UDADataset``, ``NativeCycleGANDataset`` and
+``make_cyclegan_dataset`` are not ported yet (ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -91,22 +98,101 @@ class CycleGANImageDataset:
                 "name": name_a}
 
 
-class Loader:
-    """Batching iterator with background prefetch.
+class Radar2LidarDataset:
+    """p2pHD ``Radar2LidarDataset``: paired radar (label) → lidar (image).
 
-    The replacement for torch ``DataLoader(num_workers=N)``
-    (``CycleGAN/train.py:160-161``): a host thread assembles NHWC batches
-    ahead of the step, so the step never waits on PNG decode. The last
-    batch may be short.
+    PNG or NPY inputs, resized to ``size``²; a shared random rotation
+    0–360° in train, drawn from ``RandomState(0)``; Normalize(0.5, 0.5);
+    70/30 train/test split (``p2pHD/data/aligned_dataset.py`` r2l path).
+    Decoded frames are kept, up to 1 GiB, so later epochs only augment.
     """
 
-    def __init__(self, dataset, batch_size: int, prefetch: int = 2):
+    def __init__(self, root: str, size: int = 512, mode: str = "train"):
+        self.radar = _list_pngs(os.path.join(root, "radar")) or sorted(
+            glob.glob(os.path.join(root, "radar", "*.npy")))
+        self.lidar = _list_pngs(os.path.join(root, "lidar")) or sorted(
+            glob.glob(os.path.join(root, "lidar", "*.npy")))
+        split = int(len(self.radar) * 0.7)
+        if mode == "train":
+            self.radar, self.lidar = self.radar[:split], self.lidar[:split]
+        else:
+            self.radar, self.lidar = self.radar[split:], self.lidar[split:]
+        self.size, self.mode = size, mode
+        self.rng = np.random.RandomState(0)
+        self._cache: Dict[str, np.ndarray] = {}
+        self._cache_bytes = 0
+        self._cache_budget = 1 << 30  # 1 GiB across both streams
+
+    def __len__(self) -> int:
+        return len(self.radar)
+
+    def _load(self, path: str) -> np.ndarray:
+        hit = self._cache.get(path)
+        if hit is None:
+            hit = self._load_uncached(path)
+            if self._cache_bytes + hit.nbytes <= self._cache_budget:
+                self._cache[path] = hit
+                self._cache_bytes += hit.nbytes
+        return hit
+
+    def _load_uncached(self, path: str) -> np.ndarray:
+        if path.endswith(".npy"):
+            arr = np.load(path).astype(np.float32)
+            if arr.ndim == 2:
+                arr = arr[:, :, None]
+            if arr.max() > 1.5:
+                arr = arr / 255.0
+        else:
+            arr = T.pil_to_array(T.load_image(path, mode="L"))
+        if arr.shape[0] != self.size or arr.shape[1] != self.size:
+            img = T.array_to_pil(arr)
+            arr = T.pil_to_array(img.resize((self.size, self.size)))
+        return arr
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        radar = self._load(self.radar[index])
+        lidar = self._load(self.lidar[index])
+        if self.mode == "train":
+            angle = self.rng.randint(0, 360)
+            radar = T.rotate_image(radar, angle)
+            lidar = T.rotate_image(lidar, angle)
+        return {
+            "label": T.normalize(radar).astype(np.float32),
+            "image": T.normalize(lidar).astype(np.float32),
+            "inst": np.zeros((1,), np.float32),
+            "feat": np.zeros((1,), np.float32),
+            "path": self.radar[index],
+        }
+
+
+class Loader:
+    """Batching iterator with deterministic shuffling and background
+    prefetch.
+
+    The replacement for torch ``DataLoader(num_workers=N)``
+    (``CycleGAN/train.py:160-161``,
+    ``p2pHD/data/custom_dataset_data_loader.py``): a host thread assembles
+    NHWC batches ahead of the step, so the step never waits on PNG decode.
+    With ``shuffle`` each epoch (each iteration over the loader) takes the
+    order of ``RandomState(epoch)``, as the JAX loader's at its default
+    seed. The last batch may be short.
+    """
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 prefetch: int = 2):
         self.ds = dataset
         self.bs = batch_size
+        self.shuffle, self.epoch = shuffle, 0
         self.prefetch = prefetch
 
     def __len__(self) -> int:
         return (len(self.ds) + self.bs - 1) // self.bs
+
+    def _indices(self) -> np.ndarray:
+        idx = np.arange(len(self.ds))
+        if self.shuffle:
+            np.random.RandomState(self.epoch).shuffle(idx)
+        return idx
 
     def _collate(self, items: Sequence[Dict]) -> Dict[str, np.ndarray]:
         out: Dict[str, np.ndarray] = {}
@@ -119,8 +205,8 @@ class Loader:
         return out
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        n = len(self.ds)
-        batches = [range(i, min(i + self.bs, n)) for i in range(0, n, self.bs)]
+        idx = self._indices()
+        batches = [idx[i:i + self.bs] for i in range(0, len(idx), self.bs)]
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = object()
 
@@ -129,7 +215,7 @@ class Loader:
             # swallowing it would silently truncate the epoch.
             try:
                 for b in batches:
-                    q.put(self._collate([self.ds[i] for i in b]))
+                    q.put(self._collate([self.ds[int(i)] for i in b]))
             except BaseException as exc:  # noqa: BLE001 — re-raised in consumer
                 q.put(("error", exc))
             finally:
@@ -144,3 +230,4 @@ class Loader:
             if isinstance(item, tuple) and len(item) == 2 and item[0] == "error":
                 raise item[1]
             yield item
+        self.epoch += 1

@@ -18,12 +18,20 @@ one onto the other:
     / ``beta`` and ``batch_stats`` ``mean`` / ``var``;
   * UNetGeneratorHD: ``init_block.conv``, ``down_conv.i``, ``msrb.i.…``,
     ``up_convt.i``, ``output_layer.conv`` for ``init_block/conv``,
-    ``down_i_conv``, ``msrb_i/…``, ``up_i_convt``, ``output_layer/conv``.
+    ``down_i_conv``, ``msrb_i/…``, ``up_i_convt``, ``output_layer/conv``;
+  * MultiscaleDiscriminator: ``scale_k.layer{n}_conv`` for
+    ``scale_k/layer{n}_conv``;
+  * Encoder: ``stem.conv``, ``down.i.conv``, ``up.i.convt``, ``head.conv``
+    for ``stem/conv``, ``down_i/conv``, ….
 
-Reflect padding only. Instance norm, and BatchNorm in its inference form
-(``MultiscaleGlobalGenerator`` always runs it, a quirk of the reference's
-``define_G``); BatchNorm for the other generators, the other paddings and
-generators come with later slices (ROADMAP queue 1, item 9).
+Reflect padding only. Instance norm, and BatchNorm (``"batch"``) in
+``global`` and ``local`` and in ``MultiscaleGlobalGenerator``, which always
+runs it (a quirk of the reference's ``define_G``); in train mode a
+BatchNorm normalizes with the batch's statistics and updates its running
+ones. The discriminator and the encoder take instance norm only: the JAX
+engine refuses a BatchNorm discriminator, and the norm option sets both.
+The other paddings and ``AutoEncoder`` come with a later slice (ROADMAP
+queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -38,42 +46,58 @@ from cistar_tpu_torch.ops.blocks import (MSRB, Conv2d, ConvTranspose2d,
 _LATER = "(ROADMAP queue 1, item 9)"
 
 
-def _instance_only(norm: str, padding_type: str = "reflect") -> None:
-    if norm != "instance" or padding_type != "reflect":
+def _reflect_only(padding_type: str) -> None:
+    if padding_type != "reflect":
         raise NotImplementedError(
-            f"norm={norm!r}, padding_type={padding_type!r} is not ported "
-            f"yet: instance norm with reflect padding runs here {_LATER}")
+            f"padding_type={padding_type!r} is not ported yet: reflect "
+            f"padding runs here {_LATER}")
+
+
+def _instance_only(norm: str, what: str) -> None:
+    if norm != "instance":
+        raise NotImplementedError(
+            f"the {what} takes instance norm only (norm={norm!r}): the JAX "
+            "engine threads no BatchNorm statistics through it")
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm in its inference form (``NormLayer("batch")`` with running
-    statistics): ``((x − mean) / sqrt(var + 1e-5)) · weight + bias`` in
-    fp32, cast back to the input dtype. ``weight`` is γ (JAX stores γ−1);
-    ``running_mean`` / ``running_var`` start at 0 and 1, as in JAX.
-    Training-mode BatchNorm (batch statistics, the running update) comes
-    with the pix2pixHD train step; until then the layer refuses train
-    mode."""
+    """``NormLayer("batch")``, PyTorch's BatchNorm semantics, NHWC, in
+    fp32, the result cast back to the input dtype. ``weight`` is γ (JAX
+    stores γ−1); ``running_mean`` / ``running_var`` start at 0 and 1, as in
+    JAX. The layer starts in eval mode.
+
+    Eval: ``((x − running_mean) / sqrt(running_var + 1e-5)) · weight +
+    bias``. Train: the same with the batch's statistics over (N, H, W), the
+    mean and the biased variance ``mean((x − μ)²)`` (two passes, as JAX
+    computes them, not E[x²] − E[x]²), in JAX's op order; each call then
+    moves the running statistics by momentum 0.1 towards μ and the unbiased
+    variance ``σ² · n / max(n − 1, 1)``, outside autograd."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, 0.1
         self.weight = nn.Parameter(1.0 + 0.02 * torch.randn(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.training = False
 
-    def train(self, mode: bool = True) -> "BatchNorm":
-        if mode:
-            raise NotImplementedError(
-                "training-mode BatchNorm comes with the pix2pixHD train step "
-                f"{_LATER}; the port runs BatchNorm in inference form")
-        return super().train(False)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = (x.float() - self.running_mean.float()) \
-            / torch.sqrt(self.running_var.float() + self.eps)
-        return (out * self.weight.float() + self.bias.float()).to(x.dtype)
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dim=(0, 1, 2))
+            var = torch.square(xf - mean).mean(dim=(0, 1, 2))
+            with torch.no_grad():
+                n = x.shape[0] * x.shape[1] * x.shape[2]
+                m = self.momentum
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * (var * (n / max(n - 1, 1))))
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        out = (xf - mean) / torch.sqrt(var + self.eps)
+        return (self.weight.float() * out + self.bias.float()).to(x.dtype)
 
 
 def _make_norm(norm: str, features: int):
@@ -97,8 +121,7 @@ class ResnetBlock(ResidualBlock):
 
     def __init__(self, features: int, padding_type: str = "reflect",
                  norm: str = "instance"):
-        if padding_type != "reflect":
-            _instance_only(norm, padding_type)
+        _reflect_only(padding_type)
         super().__init__(features)
         self.norm1 = _make_norm(norm, features)
         self.norm2 = _make_norm(norm, features)
@@ -164,17 +187,17 @@ class GlobalGeneratorTrunk(nn.Module):
                  n_downsampling: int = 3, n_blocks: int = 9,
                  norm: str = "instance", padding_type: str = "reflect"):
         super().__init__()
-        _instance_only(norm, padding_type)
-        self.stem = _C7S1(input_nc, ngf)
+        _reflect_only(padding_type)
+        self.stem = _C7S1(input_nc, ngf, norm)
         self.down = nn.ModuleList(
-            _Down(ngf * 2 ** i, ngf * 2 ** (i + 1))
+            _Down(ngf * 2 ** i, ngf * 2 ** (i + 1), norm)
             for i in range(n_downsampling))
         f = ngf * 2 ** n_downsampling
         self.res = nn.ModuleList(ResnetBlock(f, padding_type, norm)
                                  for _ in range(n_blocks))
         self.up = nn.ModuleList(
             _Up(ngf * 2 ** (n_downsampling - i),
-                ngf * 2 ** (n_downsampling - i) // 2)
+                ngf * 2 ** (n_downsampling - i) // 2, norm)
             for i in range(n_downsampling))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -207,24 +230,26 @@ class LocalEnhancer(nn.Module):
     registered as ``global``, on the input average-pooled n_local_enhancers
     times; each enhancer n adds a fine-scale stream (stem, a stride-2 down)
     to the coarser output, then runs its resnet blocks and an up; the last
-    carries the head. Instance norm and reflect padding."""
+    carries the head. Reflect padding."""
 
     def __init__(self, input_nc: int = 1, output_nc: int = 1, ngf: int = 32,
                  n_downsample_global: int = 3, n_blocks_global: int = 9,
-                 n_local_enhancers: int = 1, n_blocks_local: int = 3):
+                 n_local_enhancers: int = 1, n_blocks_local: int = 3,
+                 norm: str = "instance"):
         super().__init__()
         self.n_local_enhancers = n_local_enhancers
         self.n_blocks_local = n_blocks_local
         self.add_module("global", GlobalGeneratorTrunk(
             input_nc, ngf * 2 ** n_local_enhancers, n_downsample_global,
-            n_blocks_global))
+            n_blocks_global, norm))
         for n in range(1, n_local_enhancers + 1):
             f = ngf * 2 ** (n_local_enhancers - n)
-            self.add_module(f"enh{n}_stem", _C7S1(input_nc, f))
-            self.add_module(f"enh{n}_down", _Down(f, 2 * f))
+            self.add_module(f"enh{n}_stem", _C7S1(input_nc, f, norm))
+            self.add_module(f"enh{n}_down", _Down(f, 2 * f, norm))
             for i in range(n_blocks_local):
-                self.add_module(f"enh{n}_res_{i}", ResnetBlock(2 * f))
-            self.add_module(f"enh{n}_up", _Up(2 * f, f))
+                self.add_module(f"enh{n}_res_{i}",
+                                ResnetBlock(2 * f, norm=norm))
+            self.add_module(f"enh{n}_up", _Up(2 * f, f, norm))
         self.head = _OutHead(ngf, output_nc)
 
     @property
@@ -345,10 +370,9 @@ def define_g(net_g: str, input_nc: int, output_nc: int, ngf: int,
         return GlobalGenerator(input_nc, output_nc, ngf, n_downsample_global,
                                n_blocks_global, norm)
     if net_g == "local":
-        _instance_only(norm)
         return LocalEnhancer(input_nc, output_nc, ngf, n_downsample_global,
                              n_blocks_global, n_local_enhancers,
-                             n_blocks_local)
+                             n_blocks_local, norm)
     if net_g == "multiscale":
         return MultiscaleGlobalGenerator(input_nc, output_nc, ngf,
                                          n_blocks_global)
@@ -358,3 +382,146 @@ def define_g(net_g: str, input_nc: int, output_nc: int, ngf: int,
     raise NotImplementedError(
         f"netG={net_g!r} is not ported yet: 'global', 'local', 'multiscale' "
         f"and 'UNet' run here {_LATER}")
+
+
+class Encoder(nn.Module):
+    """Instance-feature encoder (``Encoder``): c7s1 → n stride-2 downs → n
+    ups → 7×7 reflect head + tanh to ``output_nc`` (``feat_num``) channels,
+    then, given instance ids, :func:`instance_average_pool`. Instance
+    norm."""
+
+    def __init__(self, input_nc: int = 1, output_nc: int = 3, ngf: int = 32,
+                 n_downsampling: int = 4, norm: str = "instance"):
+        super().__init__()
+        _instance_only(norm, "encoder")
+        self.stem = _C7S1(input_nc, ngf)
+        self.down = nn.ModuleList(
+            _Down(ngf * 2 ** i, ngf * 2 ** (i + 1))
+            for i in range(n_downsampling))
+        self.up = nn.ModuleList(
+            _Up(ngf * 2 ** (n_downsampling - i),
+                ngf * 2 ** (n_downsampling - i) // 2)
+            for i in range(n_downsampling))
+        self.head = _OutHead(ngf, output_nc)
+
+    def forward(self, x: torch.Tensor, inst: torch.Tensor = None,
+                max_instances: int = 64) -> torch.Tensor:
+        h = self.stem(x)
+        for m in (*self.down, *self.up):
+            h = m(h)
+        out = self.head(h)
+        if inst is None:
+            return out
+        return instance_average_pool(out, inst, max_instances)
+
+
+def instance_average_pool(features: torch.Tensor, inst: torch.Tensor,
+                          max_instances: int = 64) -> torch.Tensor:
+    """Each feature replaced by its mean over the image's pixels of the same
+    instance id (``instance_average_pool``), with the JAX version's
+    arithmetic. Per image, the ids are compacted as ``jnp.unique(size=K,
+    fill_value=-2)`` does: the sorted distinct ids, the first K of them,
+    padded with −2. The means are one-hot sums in fp32; a pixel whose id is
+    not among the K keeps its value. Batched, with no host read.
+
+    ``features`` (N, H, W, C); ``inst`` (N, H, W) or (N, H, W, 1), cast to
+    int32 (truncating, as ``astype``)."""
+    if inst.dim() == 4:
+        inst = inst[..., 0]
+    n, h, w, c = features.shape
+    k = max_instances
+    ids = inst.to(torch.int32).reshape(n, h * w)
+    srt = torch.sort(ids, dim=1).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    rank = torch.cumsum(first.long(), dim=1) - 1
+    # every id's first occurrence goes to its rank; the rest to slot K
+    slot = torch.where(first & (rank < k), rank, torch.full_like(rank, k))
+    uniq = torch.full((n, k + 1), -2, dtype=torch.int32,
+                      device=ids.device).scatter_(1, slot, srt)[:, :k]
+    onehot = (ids[:, :, None] == uniq[:, None, :]).float()     # (N, HW, K)
+    flat = features.reshape(n, h * w, c).float()
+    sums = onehot.transpose(1, 2) @ flat                        # (N, K, C)
+    counts = onehot.sum(dim=1)[..., None]                       # (N, K, 1)
+    means = sums / torch.clamp(counts, min=1.0)
+    pooled = onehot @ means                                     # (N, HW, C)
+    covered = onehot.sum(dim=2, keepdim=True) > 0
+    return torch.where(covered, pooled, flat).reshape(n, h, w, c) \
+        .to(features.dtype)
+
+
+class NLayerDiscriminator(nn.Module):
+    """The pix2pixHD PatchGAN (``NLayerDiscriminator``): 4×4 convs with
+    zero padding 2, channels doubling from ``ndf`` to at most 512: a
+    stride-2 conv + LeakyReLU(0.2), ``n_layers − 1`` stride-2 convs + IN +
+    LeakyReLU, a stride-1 conv + IN + LeakyReLU, a one-channel stride-1
+    conv (each stride-1 layer grows the map by 1), then a sigmoid unless
+    LSGAN. Returns every layer's output when ``get_interm_feat``, else the
+    last. Instance norm; NHWC."""
+
+    def __init__(self, input_nc: int, ndf: int = 64, n_layers: int = 3,
+                 use_sigmoid: bool = False, get_interm_feat: bool = False):
+        super().__init__()
+        self.n_layers, self.use_sigmoid = n_layers, use_sigmoid
+        self.get_interm_feat = get_interm_feat
+        nf = [ndf]
+        for _ in range(n_layers):
+            nf.append(min(nf[-1] * 2, 512))
+        self.layer0_conv = Conv2d(input_nc, ndf, 4, stride=2, padding=2)
+        for n in range(1, n_layers + 1):
+            self.add_module(f"layer{n}_conv", Conv2d(
+                nf[n - 1], nf[n], 4, stride=2 if n < n_layers else 1,
+                padding=2))
+        self.add_module(f"layer{n_layers + 1}_conv",
+                        Conv2d(nf[n_layers], 1, 4, stride=1, padding=2))
+
+    def forward(self, x: torch.Tensor):
+        h = tnn.leaky_relu(self.layer0_conv(x), 0.2)
+        feats = [h]
+        for n in range(1, self.n_layers + 1):
+            conv = self._modules[f"layer{n}_conv"]
+            h = tnn.leaky_relu(tnn.instance_norm(conv(h)), 0.2)
+            feats.append(h)
+        h = self._modules[f"layer{self.n_layers + 1}_conv"](h)
+        if self.use_sigmoid:
+            h = torch.sigmoid(h)
+        feats.append(h)
+        return feats if self.get_interm_feat else h
+
+
+class MultiscaleDiscriminator(nn.Module):
+    """``num_D`` PatchGANs over an average-pool pyramid
+    (``MultiscaleDiscriminator``): the i-th runs ``scale_{num_D−1−i}`` on
+    the input pooled i times (3×3, stride 2, padding 1,
+    ``count_include_pad=False``). Returns a list of per-scale lists: every
+    layer's output with ``get_interm_feat``, else the last alone."""
+
+    def __init__(self, input_nc: int, ndf: int = 64, n_layers: int = 3,
+                 use_sigmoid: bool = False, num_D: int = 3,
+                 get_interm_feat: bool = False):
+        super().__init__()
+        self.num_D, self.get_interm_feat = num_D, get_interm_feat
+        for k in range(num_D):
+            self.add_module(f"scale_{k}", NLayerDiscriminator(
+                input_nc, ndf, n_layers, use_sigmoid, get_interm_feat))
+
+    def forward(self, x: torch.Tensor) -> list:
+        results, inp = [], x
+        for i in range(self.num_D):
+            out = self._modules[f"scale_{self.num_D - 1 - i}"](inp)
+            results.append(out if self.get_interm_feat else [out])
+            if i != self.num_D - 1:
+                inp = tnn.avg_pool2d(inp, 3, 2, padding=1)
+        return results
+
+
+def define_d(input_nc: int, ndf: int, n_layers_d: int,
+             norm: str = "instance", use_sigmoid: bool = False,
+             num_d: int = 2, get_interm_feat: bool = True
+             ) -> MultiscaleDiscriminator:
+    """``define_d``: a :class:`MultiscaleDiscriminator`; instance norm
+    only. Parameters are drawn from PyTorch's global generator, on the
+    CPU."""
+    _instance_only(norm, "discriminator")
+    return MultiscaleDiscriminator(input_nc, ndf, n_layers_d, use_sigmoid,
+                                   num_d, get_interm_feat)

@@ -1,6 +1,7 @@
-"""Loss logging for the trainers and the test CLI's image panels
-(counterpart of ``setup_logger``, ``MetricsLogger`` and
-``save_image_grid`` in ``cistar_tpu/utils/metrics.py``): running means,
+"""Loss logging for the trainers, and the test CLIs' image panels and HTML
+gallery (counterpart of ``setup_logger``, ``MetricsLogger``,
+``HTMLGallery`` and ``save_image_grid`` in ``cistar_tpu/utils/metrics.py``):
+running means,
 console lines, CSV / JSONL / ``loss_log.npy`` persistence and throughput,
 as the reference's visdom ``Logger`` (``CycleGAN/utils.py:13-91``) and the
 p2pHD ``Visualizer`` (``p2pHD/util/visualizer.py:14-152``) keep them.
@@ -17,7 +18,7 @@ import logging
 import os
 import sys
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -151,6 +152,43 @@ class MetricsLogger:
         self.sums, self.counts, self.batch = {}, {}, 0
         self.epoch += 1
         return means
+
+
+class HTMLGallery:
+    """HTML image gallery (parity: ``p2pHD/util/html.py:6-63``):
+    ``index.html`` in ``web_dir`` over the images in ``web_dir/images``."""
+
+    def __init__(self, web_dir: str, title: str):
+        self.web_dir = web_dir
+        self.img_dir = os.path.join(web_dir, "images")
+        os.makedirs(self.img_dir, exist_ok=True)
+        self.title = title
+        self.rows: List[List[tuple]] = []
+        self.width = 512
+
+    def add_header(self, text: str) -> None:
+        self.rows.append([("__header__", text, "")])
+
+    def add_images(self, ims: Sequence[str], txts: Sequence[str],
+                   links: Sequence[str], width: int = 512) -> None:
+        self.rows.append(list(zip(ims, txts, links)))
+        self.width = width
+
+    def save(self) -> None:
+        parts = ["<!doctype html><html><head>",
+                 f"<title>{self.title}</title>", "</head><body><table>"]
+        for row in self.rows:
+            if row and row[0][0] == "__header__":
+                parts.append(f"<tr><td><h3>{row[0][1]}</h3></td></tr>")
+                continue
+            parts.append("<tr>" + "".join(
+                f'<td style="text-align:center"><p>{txt}</p>'
+                f'<a href="images/{link}"><img src="images/{im}" '
+                f'width="{self.width}"></a></td>'
+                for im, txt, link in row) + "</tr>")
+        parts.append("</table></body></html>")
+        with open(os.path.join(self.web_dir, "index.html"), "w") as f:
+            f.write("\n".join(parts))
 
 
 def save_image_grid(images: Dict[str, np.ndarray], out_path: str,

@@ -12,7 +12,7 @@ import torch
 
 from cistar_tpu_torch.device import resolve_device
 from cistar_tpu_torch.engines.cyclegan import CycleGANInference
-from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
+from cistar_tpu_torch.engines.p2phd import Pix2PixHD, Pix2PixHDInference
 from cistar_tpu_torch.kernels import fused_conv as kf
 from cistar_tpu_torch.kernels import head_cout1 as kh
 from cistar_tpu_torch.kernels import in_act as kn
@@ -48,9 +48,11 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
-# chip_smoke.py makes its training frames with tools/make_synthetic_r2l.py
+# chip_smoke.py makes its training frames with tools/make_synthetic_r2l.py;
+# tools/p2p_check_repeat.py runs its phase 36 again and again
 @pytest.mark.parametrize("rel", PORT_FILES + ["chip_smoke.py",
-                                              "tools/make_synthetic_r2l.py"])
+                                              "tools/make_synthetic_r2l.py",
+                                              "tools/p2p_check_repeat.py"])
 def test_no_jax_imports(rel):
     bad = FORBIDDEN.intersection(_imported_roots(ROOT / rel))
     assert not bad, f"{rel} imports {sorted(bad)}"
@@ -66,6 +68,19 @@ def test_scan_sees_the_port():
         ROOT / "cistar_tpu_torch/ops/quant_int8.py"))
 
 
+# the pix2pixHD trainer's modules, including the numpy / PIL copies of
+# JAX-free modules of the JAX package
+@pytest.mark.parametrize("rel", [
+    "cistar_tpu_torch/apps/p2phd_options.py",
+    "cistar_tpu_torch/apps/p2phd_train.py",
+    "cistar_tpu_torch/apps/p2phd_test.py",
+    "cistar_tpu_torch/data/aligned.py",
+    "cistar_tpu_torch/utils/label_viz.py"])
+def test_p2phd_trainer_modules_are_scanned(rel):
+    assert rel in PORT_FILES
+    assert "cistar_tpu" not in set(_imported_roots(ROOT / rel))
+
+
 def test_device_none_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -78,6 +93,9 @@ def test_device_none_raises_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             Pix2PixHDInference(net_g, ngf=4, n_downsample_global=1,
                                n_blocks_global=1, n_blocks_local=1)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Pix2PixHD(net_g, ngf=4, n_downsample_global=1,
+                      n_blocks_global=1, n_blocks_local=1, ndf=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")

@@ -22,7 +22,8 @@ from cistar_tpu.ops import quant_pallas as qp
 from cistar_tpu_torch.core.convert import local_enhancer_from_jax
 from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
 from cistar_tpu_torch.models import fast_infer as fi
-from cistar_tpu_torch.models.pix2pixhd import (GlobalGeneratorTrunk,
+from cistar_tpu_torch.models.pix2pixhd import (BatchNorm,
+                                               GlobalGeneratorTrunk,
                                                LocalEnhancer, define_g)
 from cistar_tpu_torch.ops import nn as tnn
 from cistar_tpu_torch.ops import quant_int8 as qi
@@ -148,8 +149,10 @@ def test_define_g_local():
     assert {"global", "enh1_stem", "enh1_down", "enh1_res_0", "enh1_up",
             "head"} == set(dict(g.named_children()))
     assert g.global_trunk.stem.conv.weight.shape[0] == 8   # ngf·2
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        define_g("local", 1, 1, 4, norm="batch")
+    # norm="batch" is ported now: the global trunk and the enhancer too
+    g = define_g("local", 1, 1, 4, 1, 1, 1, 1, norm="batch")
+    assert isinstance(g.global_trunk.res[0].norm1, BatchNorm)
+    assert isinstance(g.enhancer(1, "up").norm, BatchNorm)
 
 
 # --------------------------------------------------------------------------- #

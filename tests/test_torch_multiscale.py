@@ -235,14 +235,22 @@ def test_define_g_is_batchnorm_whatever_norm_says():
 
 
 def test_batchnorm_refuses_train_mode():
+    # train mode is ported now (the pix2pixHD train step): the layer starts
+    # in eval mode, at statistics (0, 1), and train() switches every
+    # BatchNorm of the generator to the batch's statistics
     g = define_g("multiscale", 1, 1, 4, 1, 1)
-    with pytest.raises(NotImplementedError, match="train step"):
-        g.train()
     bn = BatchNorm(3)
-    assert not bn.training
+    assert not bn.training and not g.b1_stem.norm.training
     assert bn.eval() is bn
     torch.testing.assert_close(bn.running_var, torch.ones(3))
     torch.testing.assert_close(bn.running_mean, torch.zeros(3))
+    assert g.train() is g and g.res[0].norm1.training
+    x = torch.randn(2, 3, 4, 3) * 3 + 1
+    with torch.no_grad():
+        y = bn.train()(x)
+    torch.testing.assert_close(y.mean(dim=(0, 1, 2)) / bn.weight,
+                               bn.bias / bn.weight, atol=1e-5, rtol=0)
+    assert not torch.equal(bn.running_mean, torch.zeros(3))
 
 
 # --------------------------------------------------------------------------- #

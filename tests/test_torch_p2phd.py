@@ -33,8 +33,8 @@ from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
 from cistar_tpu_torch.kernels import int8_msrb as km
 from cistar_tpu_torch.kernels import int8_tiled as kt
 from cistar_tpu_torch.models import fast_infer as fi
-from cistar_tpu_torch.models.pix2pixhd import (GlobalGenerator, UNetGeneratorHD,
-                                               define_g)
+from cistar_tpu_torch.models.pix2pixhd import (BatchNorm, GlobalGenerator,
+                                               UNetGeneratorHD, define_g)
 from cistar_tpu_torch.ops import nn as tnn
 from cistar_tpu_torch.ops import quant_int8 as qi
 from cistar_tpu_torch.ops.blocks import MSRB
@@ -173,8 +173,10 @@ def test_define_g_dispatch():
     for net_g in ("encoder", "autoencoder"):
         with pytest.raises(NotImplementedError, match="queue 1, item 9"):
             define_g(net_g, 1, 1, 4)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        define_g("global", 1, 1, 4, norm="batch")
+    # norm="batch" is ported now: every stage of the trunk gets a BatchNorm
+    g = define_g("global", 1, 1, 4, 1, 1, norm="batch")
+    assert isinstance(g.trunk.res[0].norm1, BatchNorm)
+    assert isinstance(g.trunk.stem.norm, BatchNorm)
 
 
 def test_define_g_unet_takes_any_norm():
