@@ -335,7 +335,46 @@ ops under autograd (no port kernel); the test CLI's int8 engine runs K8:
     call and no other kernel, counted): the PNGs and the gallery written;
     the int8 engine on those 4 frames as far from the fp32 forward as the
     same engine with the plain K8 (phase 12's rule); K8 per launch at batch
-    1, the CLI's batch, beside its bound and its plain version.
+    1, the CLI's batch, beside its bound, its plain version and the GEMM
+    yardstick of its conv (one ``torch._int_mm`` of the im2col, as phase
+    12 times it at batch 2 and 8).
+
+The extended pix2pixHD trainers (slice 15): plain ops under autograd, no
+port kernel; the UDA CLI, the feature tools and the UI session:
+
+41. each trainer's step on the card against the CPU's at 64², batch 2,
+    fp32 with TF32 off, from the same state, the CPU replaying the card's
+    activation patterns (``same_kinks``): ``R2LAE`` with both feature
+    critics, ``R2LImageCritic`` with explicit interpolation weights (the
+    penalty's double backward), ``R2LTransfer`` with the feature critic's
+    gate open and then, from the CPU's state, closed (DF and its Adam state
+    then unchanged), and phase 36's checks of the transfer pair and of
+    ``netG=autoencoder``; every metric, each net's Adam first moment after
+    the step (from zero moments, (1 − b1)·∇: its backward), the outputs of
+    the step and the BatchNorm running statistics, within ``TRAIN_RTOL`` /
+    ``TRAIN_ABS``; ``R2LTransfer``'s frozen nets bit for bit unchanged;
+42. the full-width steps (the constants ``EXT_*``): ``R2LAE`` at
+    ``r2l_MSRB_7`` through ``create_uda_model`` (fp32, ``--fp16``,
+    ``--wgan``), the CLI's default image critic, ``R2LTransfer`` and the
+    transfer pair through ``create_model`` at the JAX constructors' widths,
+    ``Pix2PixHD`` with ``netG=autoencoder`` at ``r2l_MSRB_7``'s G widths:
+    2 warm-up and 30 timed steps each (CUDA events around each), every
+    launch counter 0 before and after; ms a step (mean; min, median, max),
+    img/s, ``max_memory_allocated``; finite losses, the trained nets moved,
+    ``R2LTransfer``'s frozen nets bit for bit unchanged;
+43. one step each of ``R2LAE`` and ``R2LTransfer`` under
+    ``set_sync_debug_mode("error")``, a ``[breakdown]`` by phase and a
+    ``[profile]``;
+44. ``apps/p2phd_train.py --uda`` with ``--load_opt checkpoints/r2l_MSRB_7/
+    opt.txt`` for both training modules on 16 synthetic 512² pairs (one
+    epoch of the 30% split): the ``.npz`` files written, no kernel
+    launched; ``R2LAE.infer`` on the saved nets and 4 test frames, a frame
+    alone as in the batch;
+45. ``apps/encode_features.py`` ``--mode maps`` and ``--mode cluster`` at
+    512² (nef 16, 4 downsamplings, 3 features, 10 clusters) on those frames,
+    the encoder on the card; an ``EditSession`` over ``global`` with three
+    feature channels: a stroke edit composited inside its box (nothing
+    outside it changes) and a style switch to a cluster centre.
 
 The fp32 reference forwards run with TF32 off, the rest under PyTorch's
 defaults. The line before the last is the card's name and power limit; the
@@ -2581,6 +2620,46 @@ P2P_CHECK_RUNS = (("UNet", "UNet", 3, False),
 P2P_CLI_PAIRS, P2P_TEST_PAIRS = 16, 4
 
 
+# The extended trainers (slice 15). Full width: the UDA pair at
+# checkpoints/r2l_MSRB_7/opt.txt through `p2phd_train --uda` (ngf 64, 2
+# downsamplings, max_ch 256, no encoder blocks, ndf 64, 2 × 3-layer D,
+# 512², batch 1; fp32, the CLI's default, also --fp16 and --wgan; the image
+# critic, the CLI's default module: ngf 16, 5 layers, fp32), R2LTransfer
+# and the transfer pair through create_model at the JAX constructors'
+# widths (ngf 32, 4 downsamplings, 3 scales, 3 blocks, df_layers 5, ndf
+# 64, 2 × 3-layer D; 512², batch 1, fp32), and Pix2PixHD with
+# netG=autoencoder at r2l_MSRB_7's G widths (ngf 64, 2 downsamplings, 3
+# blocks; bf16, p2phd_train's default). The card is held to the CPU at 64²,
+# batch 2, fp32 with TF32 off (EXT_CHECK), with TRAIN_RTOL / TRAIN_ABS and
+# the card's activation patterns replayed on the CPU (phase 36's reasons).
+EXT_CHECK = dict(size=64, batch=2)
+# R2LAE.infer, frame 0 alone vs in a batch of 4, fp32 with TF32 off: eval
+# mode reads the running statistics, so only the order of sums differs
+# (cuDNN picks its algorithms by batch: 2.9e-5 read at 512² on the H100)
+INFER_BATCH_ABS = 1e-4
+EXT_CHECK_R2LAE = dict(size=64, n_downsample=1, ngf=8, max_ch=16, ndf=8)
+EXT_CHECK_CRITIC = dict(ngf=8, n_layer=5)
+EXT_CHECK_TRANSFER = dict(ngf=8, n_downsampling=3, n_scale=2, n_blocks=1,
+                          ndf=8, df_layers=3, image_size=64)
+P2P_CHECK_CFG.update({
+    "transfer": dict(ngf=8, n_downsample_global=3, n_scale=2,
+                     n_blocks_global=1),
+    "autoencoder": dict(ngf=8, n_downsample_global=2, n_blocks_global=1)})
+EXT_P2P_RUNS = (("transfer pair", "transfer", 1, False),
+                ("autoencoder", "autoencoder", 1, False))
+# the JAX constructors' widths (cistar_tpu/engines/extended.py:102-105)
+EXT_TRANSFER_FLAGS = ["--ngf", "32", "--n_downsample_global", "4",
+                      "--n_scale", "3", "--n_blocks_global", "3",
+                      "--ndf", "64", "--n_layers_D", "3", "--num_D", "2"]
+EXT_STEPS, EXT_SIZE = 30, 512
+# the UI session's engine: the JAX CLI's 'global' default with three
+# feature channels (instance_feat + load_features)
+EXT_UI = dict(ngf=64, n_downsample_global=4, n_blocks_global=9)
+# encode_features at the JAX CLI's defaults, on the CLI's 16 pairs
+EXT_FEATURES = ["--nef", "16", "--n_downsample_E", "4", "--feat_num", "3",
+                "--n_clusters", "10", "--label_nc", "0"]
+
+
 def family(dev, gen_type: str, dense: bool, seed: int = 0):
     """One of the other CycleGAN generators at ``FAM``'s width, its
     quantized trunk and its int8 engine ``fn(gen, q, x)``."""
@@ -3702,16 +3781,16 @@ def p2p_backward_check(engs, label, inst, image, gen) -> tuple:
             (sum(n for n, _ in flips), max(x for _, x in flips)))
 
 
-def p2p_train_check(dev) -> None:
-    """Phase 36: the card's train step against the CPU's, each card step
-    from the CPU's state."""
+def p2p_train_check(dev, runs=P2P_CHECK_RUNS) -> None:
+    """Phase 36 (and phase 41's ``runs``): the card's train step against
+    the CPU's, each card step from the CPU's state."""
     import torch
 
     from cistar_tpu_torch.engines.p2phd import Pix2PixHD
     from cistar_tpu_torch.losses.perceptual import make_vgg_loss
 
     n, size = P2P_CHECK["batch"], P2P_CHECK["size"]
-    for label_, family_, steps, vgg in P2P_CHECK_RUNS:
+    for label_, family_, steps, vgg in runs:
         gen = torch.Generator().manual_seed(14)   # the same frames in each
         cfg = dict(P2P_CHECK_CFG[family_], ndf=8, num_d=2, n_layers_d=3,
                    image_size=size, compute_dtype=torch.float32, seed=0)
@@ -3904,9 +3983,10 @@ def p2p_timed(dev, counters, family_: str):
     return step
 
 
-def p2p_breakdown(step, label: str) -> None:
-    """Phase 38 for one configuration: no host sync in a step; where its
-    time goes."""
+def p2p_breakdown(step, label: str, name: str = "p2phd train step"
+                  ) -> None:
+    """Phase 38 (and 43) for one configuration: no host sync in a step;
+    where its time goes."""
     import torch
 
     torch.cuda.synchronize()
@@ -3916,7 +3996,7 @@ def p2p_breakdown(step, label: str) -> None:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    print(f"[p2phd train path] one {label} step under "
+    print(f"[{name}] one {label} step under "
           "set_sync_debug_mode('error'): no host sync", flush=True)
     marks = [("start", torch.cuda.Event(enable_timing=True), 0.0)]
 
@@ -3934,13 +4014,13 @@ def p2p_breakdown(step, label: str) -> None:
             ("device", lambda a, b: a[1].elapsed_time(b[1])),
             ("host", lambda a, b: (b[2] - a[2]) * 1e3)):
         parts = {b[0]: span(a, b) for a, b in zip(marks, marks[1:])}
-        print(f"[breakdown] p2phd train step {label} batch "
+        print(f"[breakdown] {name} {label} batch "
               f"{P2P_TRAIN_BATCH}, {unit} ms (CUDA events between the "
               "phases' ends; host: their enqueue): "
               + "; ".join(f"{k} {t!r}" for k, t in parts.items())
               + f"; sum {sum(parts.values())!r}", flush=True)
     wall, busy, top = profile_top(lambda: step(0))
-    print(f"[profile] p2phd train step {label} batch {P2P_TRAIN_BATCH}: "
+    print(f"[profile] {name} {label} batch {P2P_TRAIN_BATCH}: "
           f"wall {wall!r} ms, device busy {busy!r} ms; top device time (ms): "
           + "; ".join(f"{k[:60]} {t!r}" for t, k in top), flush=True)
 
@@ -4052,7 +4132,7 @@ def p2p_cli(dev, counters) -> None:
         xq, xs = qi.quantize_act(h1)
         q0 = qb[0]
         cat, sc, _ = k8_vs_plain(xq, xs, q0)
-        tot = dict.fromkeys(("ms", "plain", "bound"), 0.0)
+        tot = dict.fromkeys(("ms", "plain", "bound", "lib"), 0.0)
         for st_, xin, xsc in (("a", xq, xs), ("b", cat, sc)):
             qo = st_ == "a"
             sb = q0["sb1" if qo else "sb2"]
@@ -4064,16 +4144,19 @@ def p2p_cli(dev, counters) -> None:
                 plain_ms = cuda_ms(lambda: qi.msrb_branch_plain(
                     xin, xsc, wq, sb, row, kk, K8_TILE, qo, odt), 5)
                 bnd, by = k8_bound_ms(*xin.shape, wk.shape[0], kk, qo)
+                lib_ms = gemm_ms(im2col_zero(xin, kk), wk)
                 for k, v in (("ms", ms), ("plain", plain_ms),
-                             ("bound", bnd)):
+                             ("bound", bnd), ("lib", lib_ms)):
                     tot[k] += v
                 print(f"[times] msrb_branch_int8 stage {st_} {kk}x{kk} "
                       f"{tuple(xin.shape)}: {ms!r} ms, bound {bnd!r} ms "
-                      f"({by}), plain {plain_ms!r} ms", flush=True)
+                      f"({by}), plain {plain_ms!r} ms, GEMM yardstick "
+                      f"{lib_ms!r} ms", flush=True)
         print(f"[times] msrb_branch_int8 at batch 1 (the test CLI's), per "
               f"launch (the mean of one block's four): {tot['ms'] / 4!r} ms, "
               f"bound {tot['bound'] / 4!r} ms, plain {tot['plain'] / 4!r} "
-              "ms", flush=True)
+              f"ms, GEMM yardstick (torch._int_mm of the conv's im2col) "
+              f"{tot['lib'] / 4!r} ms", flush=True)
 
 
 def p2phd_train_path(dev, counters) -> None:
@@ -4083,6 +4166,472 @@ def p2phd_train_path(dev, counters) -> None:
     p2p_breakdown(p2p_timed(dev, counters, "UNet"), "r2l_MSRB_7")
     p2p_breakdown(p2p_timed(dev, counters, "global"), "global + VGG19")
     p2p_cli(dev, counters)
+
+
+def ext_steps(engs, step) -> tuple:
+    """One step of the card's engine, then the CPU's with the card's
+    activation patterns replayed (:func:`same_kinks`): ``step(k)`` runs
+    engine k's and returns (metrics, {name: output}); per device the host
+    metrics and the outputs on the CPU, and the activations the CPU took
+    on the other side (count, largest distance from the kink)."""
+    masks, kinks, res = [], [], [None, None]
+    for k in (1, 0):
+        with same_kinks(masks, kinks if k == 0 else None):
+            m, outs = step(k)
+        res[k] = ({n: float(v) for n, v in m.items()},
+                  {n: v.detach().float().cpu() for n, v in outs.items()})
+    return res, (sum(n for n, _ in kinks), max((x for _, x in kinks),
+                                                default=0.0))
+
+
+def ext_hold(label: str, res, kinks, moments: dict, extra: dict) -> None:
+    """Phase 41's checks of one step: the metrics (TRAIN_RTOL relative),
+    each net's Adam first moment (its max-abs error over its largest
+    |value|, TRAIN_RTOL: after one step from zero moments, (1 − b1)·∇, the
+    net's backward), the step's outputs and ``extra`` max-abs errors
+    (TRAIN_ABS), and the kinks taken otherwise (within TRAIN_ABS)."""
+    (m_cpu, o_cpu), (m_card, o_card) = res
+    rel = max(abs(m_card[k] - v) / abs(v) for k, v in m_cpu.items() if v)
+    mu = {k: ((b.mu_flat.cpu() - a.mu_flat).abs().max()
+              / a.mu_flat.abs().max()).item()
+          for k, (a, b) in moments.items() if a.mu_flat.abs().max() > 0}
+    out = {k: (o_card[k] - v).abs().max().item() for k, v in o_cpu.items()}
+    print(f"[extended train check] {label}, {EXT_CHECK['size']}², batch "
+          f"{EXT_CHECK['batch']}, fp32, the CPU with the card's activation "
+          f"patterns ({kinks[0]} on the other side at CPU inputs up to "
+          f"{kinks[1]!r}, tol {TRAIN_ABS}): metrics max rel {rel!r} (tol "
+          f"{TRAIN_RTOL}); Adam first moments {mu} (tol {TRAIN_RTOL}); "
+          f"outputs max-abs {out}, {extra} (tol {TRAIN_ABS}); CPU {m_cpu}",
+          flush=True)
+    check(m_card.keys() == m_cpu.keys(), f"{label}: the same metrics")
+    check(rel <= TRAIN_RTOL, f"{label}: metrics, card vs CPU")
+    check(kinks[1] <= TRAIN_ABS, f"{label}: the activations on the other "
+          "side lie within rounding of their kink")
+    check(set(mu) == set(moments), f"{label}: every net has a gradient")
+    for k, r in mu.items():
+        check(r <= TRAIN_RTOL, f"{label}: {k}'s Adam first moment, card "
+              "vs CPU")
+    for k, e in (*out.items(), *extra.items()):
+        check(e <= TRAIN_ABS, f"{label}: {k}, card vs CPU")
+
+
+def ext_copy(nets, opts) -> None:
+    """The CPU's nets (buffers included) and Adam states into the card's:
+    ``nets`` / ``opts`` are (CPU, card) pairs."""
+    import torch
+
+    with torch.no_grad():
+        for a, b in nets:
+            b.load_state_dict(a.state_dict())
+        for a, b in opts:
+            for t in ("count", "mu_flat", "nu_flat"):
+                getattr(b, t).copy_(getattr(a, t))
+
+
+def ext_check(dev) -> None:
+    """Phase 41: the extended trainers' steps, card against CPU, each card
+    step from the CPU's state."""
+    import torch
+
+    from cistar_tpu_torch.engines import extended as px
+
+    n, size = EXT_CHECK["batch"], EXT_CHECK["size"]
+    gen = torch.Generator().manual_seed(15)
+    devs = ("cpu", dev)
+
+    def frames():
+        return torch.rand(n, size, size, 1, generator=gen) * 2 - 1
+
+    def on(t, e):
+        return t.to(e.device)
+
+    with fp32_exact():
+        # R2LAE, both feature critics: one joint step of six nets
+        for wgan in (False, True):
+            engs = [px.R2LAE(wgan=wgan, compute_dtype=torch.float32,
+                             device=d, **EXT_CHECK_R2LAE) for d in devs]
+            sts = [e.init_state(0) for e in engs]
+            radar, lidar = frames(), frames()
+
+            def step(k):
+                sts[k], m, fakes = engs[k].train_step(
+                    sts[k], on(radar, engs[k]), on(lidar, engs[k]))
+                return m, fakes
+
+            res, kinks = ext_steps(engs, step)
+            stats = {k: max(((sts[1].stats[k][b].cpu() - v).abs().max()
+                             .item() for b, v in sts[0].stats[k].items()),
+                            default=0.0) for k in px.BN_NETS}
+            ext_hold(f"R2LAE, DF {'WDiscriminator' if wgan else 'domain'}",
+                     res, kinks, {k: (sts[0].opts[k], sts[1].opts[k])
+                                  for k in px.NETS},
+                     {f"{k} running statistics": v for k, v in stats.items()})
+            # eval mode on the running statistics, after the step
+            outs = [e.infer(s, on(radar, e), on(lidar, e))
+                    for e, s in zip(engs, sts)]
+            err = max((outs[1][k].cpu() - v).abs().max().item()
+                      for k, v in outs[0].items())
+            print(f"[extended train check] R2LAE infer after the step, card "
+                  f"vs CPU max-abs {err!r}", flush=True)
+            check(err <= TRAIN_ABS, "R2LAE infer after the step, card vs "
+                  "CPU")
+
+        # the image critic with the JAX-style explicit interpolation weights
+        engs = [px.R2LImageCritic(compute_dtype=torch.float32, device=d,
+                                  **EXT_CHECK_CRITIC) for d in devs]
+        sts = [e.init_state(0) for e in engs]
+        lidar, radar = frames(), frames()
+        eps = torch.rand(n, 1, 1, 1, generator=gen)
+
+        def step(k):
+            sts[k], m = engs[k].train_step(sts[k], on(lidar, engs[k]),
+                                           on(radar, engs[k]),
+                                           eps=on(eps, engs[k]))
+            return m, {}
+
+        res, kinks = ext_steps(engs, step)
+        ext_hold("R2LImageCritic, explicit eps, the penalty's double "
+                 "backward", res, kinks, {"D": (sts[0].opt, sts[1].opt)}, {})
+        check(res[0][0]["gp"] > 0, "the gradient penalty is on")
+
+        # R2LTransfer: a step with the feature critic's gate open, then one
+        # from the CPU's state with it closed
+        engs = [px.R2LTransfer(compute_dtype=torch.float32, device=d,
+                               **EXT_CHECK_TRANSFER) for d in devs]
+        sts = [e.init_state(0) for e in engs]
+        frozen = [e.init_frozen(1) for e in engs]
+        for floor in (0.2, 1e9):
+            ext_copy([(engs[0].E, engs[1].E), (engs[0].DF, engs[1].DF)],
+                     [(sts[0].opt_lidar_e, sts[1].opt_lidar_e),
+                      (sts[0].opt_df, sts[1].opt_df)])
+            df0 = [torch.cat([p.detach().reshape(-1).cpu()
+                              for p in s.net_df.values()]) for s in sts]
+            count0 = int(sts[0].opt_df.count)
+            for e in engs:
+                e.d_floor = floor
+            radar, lidar = frames(), frames()
+
+            def step(k):
+                sts[k], m, (rt, lt) = engs[k].train_step(
+                    sts[k], frozen[k], on(radar, engs[k]), on(lidar, engs[k]))
+                return m, {"radar_trans": rt, "lidar_trans": lt}
+
+            res, kinks = ext_steps(engs, step)
+            gate = res[0][0]["D_Loss"] > floor
+            moments = {"E": (sts[0].opt_lidar_e, sts[1].opt_lidar_e)}
+            if gate:
+                moments["DF"] = (sts[0].opt_df, sts[1].opt_df)
+            ext_hold(f"R2LTransfer, DF gate {'open' if gate else 'closed'}",
+                     res, kinks, moments, {})
+            check(gate == (floor < 1), "the DF gate opened as asked")
+            for k, s in enumerate(sts):
+                df1 = torch.cat([p.detach().reshape(-1).cpu()
+                                 for p in s.net_df.values()])
+                check(torch.equal(df1, df0[k]) != gate
+                      and (int(s.opt_df.count) == count0 + gate),
+                      "DF and its Adam state move only through the gate")
+        ref = engs[0].init_frozen(1)
+        for f in frozen:
+            check(all(torch.equal(a.cpu(), b) for k in ref for a, b in zip(
+                f[k].state_dict().values(), ref[k].state_dict().values())),
+                  "R2LTransfer's frozen nets bit for bit unchanged")
+    # the transfer pair and the autoencoder generator: phase 36's checks
+    p2p_train_check(dev, EXT_P2P_RUNS)
+
+
+def ext_timed(label: str, counters, step, nets: dict, frozen=None,
+              batch: int = 1, dtype: str = "fp32"):
+    """Phase 42 for one configuration: ``step(i, mark=None)`` runs the
+    i-th step and returns its metrics; 2 warm-up and EXT_STEPS timed steps,
+    CUDA events around each, every launch counter 0 before and after; the
+    trained ``nets`` moved, the ``frozen`` ones bit for bit unchanged.
+    Returns ``step`` for phase 43."""
+    import numpy as np
+    import torch
+
+    def flat(ms):
+        return torch.cat([p.detach().reshape(-1) for m in ms.values()
+                          for p in m.parameters()])
+
+    before = {k: flat({k: m}) for k, m in nets.items()}
+    fz0 = flat(frozen).clone() if frozen else None
+    metrics = []
+    for m in counters:
+        m.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_WARMUP):
+        metrics.append(step(i))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    evs = [torch.cuda.Event(enable_timing=True)
+           for _ in range(EXT_STEPS + 1)]
+    evs[0].record()
+    for i in range(EXT_STEPS):
+        metrics.append(step(i))
+        evs[i + 1].record()
+    evs[-1].synchronize()
+    ms = evs[0].elapsed_time(evs[-1]) / EXT_STEPS
+    each = sorted(a.elapsed_time(b) for a, b in zip(evs, evs[1:]))
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for m in counters for k, v in m.launches.items()}
+    host = [{k: float(v) for k, v in m.items()} for m in metrics]
+    print(f"[extended train path] {label}: {sum(launches.values())} "
+          f"launches over the {len(launches)} kernel counters", flush=True)
+    check(not any(launches.values()), f"{label}: no kernel launched")
+    print(f"[times] {label} batch {batch} {EXT_SIZE}² {dtype}: {ms!r} ms a "
+          f"step "
+          f"(the mean of {EXT_STEPS}; each step min {each[0]!r}, median "
+          f"{each[len(each) // 2]!r}, max {each[-1]!r}), "
+          f"{batch / ms * 1e3!r} img/s; the {TRAIN_WARMUP} warm-up steps "
+          f"{first_s!r} s; peak memory {peak} B ({peak / 2**30!r} GiB); "
+          f"last step {host[-1]}", flush=True)
+    check(all(np.isfinite(v) for m in host for v in m.values()),
+          f"{label}: finite losses")
+    for k, m in nets.items():
+        check(not torch.equal(flat({k: m}), before[k]), f"{label}: {k} moved")
+    if frozen:
+        check(torch.equal(flat(frozen), fz0),
+              f"{label}: the frozen nets bit for bit unchanged")
+    return step
+
+
+def ext_opt(*flags):
+    """``p2phd_train``'s options at the shipped recipe, on the card."""
+    from cistar_tpu_torch.apps.p2phd_options import TrainOptions
+
+    return TrainOptions().parse(
+        ["--load_opt", os.path.join(ROOT, "checkpoints", "r2l_MSRB_7",
+                                    "opt.txt"),
+         "--dataroot", ROOT, "--checkpoints_dir",
+         os.path.join(ROOT, "checkpoints"), "--device", "cuda", *flags],
+        save=False)
+
+
+def ext_full(dev, counters) -> None:
+    """Phases 42-43: the full-width steps, counted and timed; the no-sync
+    check, the breakdown and the profile of R2LAE and R2LTransfer."""
+    import torch
+
+    from cistar_tpu_torch.apps.p2phd_train import make_engine
+    from cistar_tpu_torch.engines.factory import (create_model,
+                                                  create_uda_model)
+
+    size = EXT_SIZE
+    radar, lidar = synthetic_pairs(2, size)
+    frames = [(torch.from_numpy(radar[i:i + 1]).to(dev),
+               torch.from_numpy(lidar[i:i + 1]).to(dev)) for i in (0, 1)]
+    steps = {}
+    for label, flags, dtype in (
+            ("R2LAE (r2l_MSRB_7)", [], "fp32"),
+            ("R2LAE (r2l_MSRB_7) --fp16", ["--fp16"], "bf16"),
+            ("R2LAE (r2l_MSRB_7) --wgan", ["--wgan"], "fp32")):
+        eng = create_uda_model(ext_opt("--uda", "--training_module",
+                                       "autoencoder", *flags))
+        check(eng.cdt == (torch.bfloat16 if dtype == "bf16"
+                          else torch.float32), f"{label}: {dtype}")
+        box = [eng.init_state(0)]
+
+        def step(i, mark=None, eng=eng, box=box):
+            r, li = frames[i % 2]
+            box[0], m, _ = eng.train_step(box[0], r, li, mark=mark)
+            return m
+
+        steps[label] = ext_timed(label, counters, step, eng.nets(),
+                                 dtype=dtype)
+
+    eng = create_uda_model(ext_opt("--uda"))
+    check(type(eng).__name__ == "R2LImageCritic"
+          and eng.cdt == torch.float32,
+          "the CLI's default UDA module is the fp32 image critic")
+    box = [eng.init_state(0)]
+
+    def step(i, mark=None, eng=eng, box=box):
+        r, li = frames[i % 2]
+        box[0], m = eng.train_step(box[0], li, r, mark=mark)
+        return m
+
+    ext_timed("R2LImageCritic (ngf 16, 5 layers)", counters, step,
+              {"D": eng.D})
+
+    flags = [*EXT_TRANSFER_FLAGS, "--r2l", "--r2l_res", str(size)]
+    eng = create_model(ext_opt("--wgan", *flags))
+    box = [eng.init_state(0)]
+    frozen = eng.init_frozen(1)
+
+    def step(i, mark=None, eng=eng, box=box):
+        r, li = frames[i % 2]
+        box[0], m, _ = eng.train_step(box[0], frozen, r, li, mark=mark)
+        return m
+
+    steps["R2LTransfer"] = ext_timed(
+        "R2LTransfer (ngf 32, 4 downs, 3 scales, 3 blocks)", counters, step,
+        {"E": eng.E, "DF": eng.DF}, frozen=frozen)
+
+    for label, eng in (
+            ("transfer pair (ngf 32, 4 downs, 3 scales, 3 blocks)",
+             create_model(ext_opt("--transfer", *flags))),
+            ("Pix2PixHD netG=autoencoder (ngf 64, 2 downs, 3 blocks)",
+             make_engine(ext_opt("--netG", "autoencoder"), size))):
+        box = [eng.init_state(0)]
+
+        def step(i, mark=None, eng=eng, box=box):
+            r, li = frames[i % 2]
+            box[0], m, _ = eng.train_step(box[0], r, None, li, mark=mark)
+            return m
+
+        ext_timed(label, counters, step, {"G": eng.G, "D": eng.D},
+                  dtype="bf16" if eng.cdt == torch.bfloat16 else "fp32")
+
+    # 43. no host sync in a step; where the time goes
+    for label in ("R2LAE (r2l_MSRB_7)", "R2LTransfer"):
+        p2p_breakdown(steps[label], label, "extended train step")
+
+
+def ext_cli(dev, counters) -> None:
+    """Phases 44-45: ``p2phd_train --uda`` for both modules, R2LAE.infer on
+    its nets, ``encode_features`` in both modes and an ``EditSession`` edit
+    and style switch, on synthetic 512² pairs, on the card."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cistar_tpu_torch.apps import encode_features, p2phd_train
+    from cistar_tpu_torch.core import checkpoint as ckpt
+    from cistar_tpu_torch.core.convert import batch_stats_to_jax
+    from cistar_tpu_torch.data.datasets import UDADataset
+    from cistar_tpu_torch.engines import ui
+    from cistar_tpu_torch.engines.factory import create_uda_model
+    from cistar_tpu_torch.engines.p2phd import Pix2PixHD
+
+    size = EXT_SIZE
+    with tempfile.TemporaryDirectory() as tmp:
+        data, ck = os.path.join(tmp, "data"), os.path.join(tmp, "ck")
+        synthetic_tool().main(["--out", data, "--n", str(P2P_CLI_PAIRS),
+                               "--size", str(size)])
+        base = ["--load_opt", os.path.join(ROOT, "checkpoints", "r2l_MSRB_7",
+                                           "opt.txt"),
+                "--uda", "--dataroot", data, "--checkpoints_dir", ck,
+                "--device", dev.type, "--niter", "1", "--niter_decay", "0",
+                "--print_freq", "2"]
+        run = os.path.join(ck, "r2l_MSRB_7")
+        # 44. both modules, one epoch of UDADataset's 30% split
+        for module, labels in (("discriminator", ("img_D",)),
+                               ("autoencoder", tuple(
+                                   lab for lab, _ in p2phd_train.UDA_LABELS))):
+            for m in counters:
+                m.reset_launches()
+            t0 = time.perf_counter()
+            st = p2phd_train.main(base + ["--training_module", module])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {k: v for m in counters for k, v in m.launches.items()}
+            for lab in labels:
+                check(os.path.exists(os.path.join(
+                    run, f"latest_net_{lab}.npz")), f"--uda wrote {lab}")
+            check(not any(launches.values()), "--uda launches no kernel")
+            n_train = int(P2P_CLI_PAIRS * 0.3)
+            print(f"[uda cli] --training_module {module}: {P2P_CLI_PAIRS} "
+                  f"pairs {size}², one epoch of {n_train} steps at batch 1 "
+                  f"in {dt:.1f} s (set-up included); wrote "
+                  f"{', '.join(labels)}", flush=True)
+        # R2LAE.infer on the saved nets and the run's running statistics
+        # (the CLI saves none, as the JAX CLI)
+        opt = ext_opt("--uda", "--training_module", "autoencoder")
+        eng = create_uda_model(opt)
+        params = {f: ckpt.load_pytree(os.path.join(
+            run, f"latest_net_{lab}.npz"))
+            for lab, f in p2phd_train.UDA_LABELS}
+        stats = {k: batch_stats_to_jax(st.stats[k]) or {}
+                 for k in st.stats}
+        eng.load_jax_params(params, stats)
+        ds = UDADataset(data, size=size, mode="test")
+        r = torch.from_numpy(np.stack([ds[i]["radar"] for i in range(4)]))
+        li = torch.from_numpy(np.stack([ds[i]["lidar"] for i in range(4)]))
+        with fp32_exact():   # TF32 rounds at ~5e-4, over INFER_BATCH_ABS
+            out = eng.infer(st, r.to(dev), li.to(dev))
+            one = eng.infer(st, r[:1].to(dev), li[:1].to(dev))
+        for k, v in out.items():
+            check(tuple(v.shape) == (4, size, size, 1)
+                  and bool(torch.isfinite(v).all()),
+                  f"R2LAE.infer {k}: finite, 4 frames")
+        err = max((one[k][0] - out[k][0]).abs().max().item() for k in out)
+        top = max(v.abs().max().item() for v in out.values())
+        print(f"[uda cli] R2LAE.infer on the saved nets, 4 test frames: "
+              f"lidar_gen mean {out['lidar_gen'].float().mean().item()!r}; "
+              f"frame 0 alone vs in the batch max-abs {err!r} (TF32 off; "
+              f"largest |value| {top!r})", flush=True)
+        check(err <= INFER_BATCH_ABS, "R2LAE.infer is batch independent")
+
+        # 45. encode_features, then the UI, with the encoder on the card
+        feat_args = ["--dataroot", data, "--checkpoints_dir", ck,
+                     "--name", "features", "--size", str(size),
+                     "--device", dev.type, *EXT_FEATURES]
+        for m in counters:
+            m.reset_launches()
+        t0 = time.perf_counter()
+        out_dir = encode_features.main(["--mode", "maps", *feat_args])
+        t1 = time.perf_counter()
+        clusters = encode_features.main(["--mode", "cluster", *feat_args])
+        t2 = time.perf_counter()
+        check(not any(v for m in counters for v in m.launches.values()),
+              "encode_features launches no kernel")
+        maps = sorted(os.listdir(out_dir))
+        n_train = int(P2P_CLI_PAIRS * 0.7)
+        check(len(maps) == n_train, f"{n_train} feature maps")
+        fm = np.load(os.path.join(out_dir, maps[0]))
+        check(fm.shape == (size, size, 3) and np.isfinite(fm).all(),
+              "a 512² feature map of 3 channels")
+        check(set(clusters) == {0} and clusters[0].shape == (10, 3),
+              "10 centres of label 0")
+        print(f"[encode features] --mode maps {n_train} frames {size}² in "
+              f"{t1 - t0:.1f} s, --mode cluster in {t2 - t1:.1f} s: "
+              f"centres {clusters[0].round(4).tolist()}", flush=True)
+
+        eng = Pix2PixHD("global", instance_feat=True, load_features=True,
+                        feat_num=3, device=dev, **EXT_UI)
+        label = UDADataset(data, size=size, mode="train")[0]["radar"]
+        for m in counters:
+            m.reset_launches()
+        t0 = time.perf_counter()
+        s = ui.EditSession(eng, label, None, fm)
+        before = s.current.copy()
+        # a stroke of brush 9 (±4) at two points; the edit composites its
+        # box dilated by 64 pixels
+        ys, xs = np.array([size * 5 // 8, size * 5 // 8 + 10]), \
+            np.array([size * 3 // 8, size * 3 // 8 + 20])
+        region = (ys.min() - 4, xs.min() - 4, ys.max() + 5, xs.max() + 5)
+        got = s.apply(ui.add_strokes, ys, xs, 9, 1.0, region=region)
+        box = np.zeros(got.shape[:2], bool)
+        box[max(0, region[0] - 64):region[2] + 64,
+            max(0, region[1] - 64):region[3] + 64] = True
+        outside = np.abs(got[~box] - before[~box]).max(initial=0.0)
+        inside = np.abs(got[box] - before[box]).max()
+        styled = s.set_style(0, clusters[0], 3)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: v for m in counters for k, v in m.launches.items()}
+        print(f"[ui] EditSession on the card ({size}², global {EXT_UI} "
+              f"with 3 feature channels, bf16): synthesis, a stroke edit "
+              f"composited in its box + 64 px (changed up to "
+              f"{float(inside)!r} inside, {float(outside)!r} outside), a "
+              f"style switch to cluster 3 (moved the frame by up to "
+              f"{float(np.abs(styled - got).max())!r}) in {dt:.2f} s; "
+              f"{sum(launches.values())} kernel launches", flush=True)
+        check(not any(launches.values()), "the UI session launches no "
+              "kernel")
+        check(outside == 0.0 and inside > 0, "the edit stays in its box")
+        check(np.isfinite(styled).all() and np.abs(styled - got).max() > 0,
+              "the style switch changes the frame")
+
+
+def extended_path(dev, counters) -> None:
+    """Phases 41-45: the extended pix2pixHD trainers (slice 15)."""
+    ext_check(dev)
+    ext_full(dev, counters)
+    ext_cli(dev, counters)
 
 
 def main() -> int:
@@ -4162,6 +4711,7 @@ def main() -> int:
         family_train_path(dev, counters)
     gatys_path(dev, counters)
     p2phd_train_path(dev, counters)   # train_step enables grad itself
+    extended_path(dev, counters)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

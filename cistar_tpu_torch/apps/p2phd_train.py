@@ -16,7 +16,17 @@ images and at each epoch's end, the per-epoch ones every
 ``--save_epoch_freq`` epochs, as ``.npz`` files that the JAX package loads
 as well. Batches go to the device from pinned memory without blocking.
 
-``--uda`` (the UDA trainers) raises: ROADMAP queue 1, item 10.
+``--uda`` trains the UDA pair instead (:func:`train_uda`): the image
+critic (``--training_module discriminator``, the default) or the
+shared-encoder autoencoder (``autoencoder``; with ``--wgan`` its feature
+critic is a ``WDiscriminator``) on ``UDADataset``'s split, as the JAX CLI
+does: no resume of the nets, the split not cut by ``--max_dataset_size``
+or ``--debug``, and at each epoch's end the latest nets (``img_D``, or
+``E``, ``DF``, ``DR``, ``DL``, ``GL``, ``GR``) as JAX-layout ``.npz``
+files, without ``iter.txt`` or BatchNorm statistics. ``--wgan`` and
+``--transfer`` reach their trainers through ``engines/factory.py::
+create_model``, not through this CLI, as in JAX.
+
 ``--spatial_shard`` raises: ROADMAP queue 1, item 11. The JAX CLI's XLA
 executable cache and compile watchdog have no counterpart: the eager step
 compiles nothing.
@@ -59,42 +69,21 @@ def load_networks(pre: str, which_epoch, engine) -> None:
 
 def make_engine(opt, size: int):
     """The :class:`~cistar_tpu_torch.engines.p2phd.Pix2PixHD` the options
-    describe."""
+    describe: fp32 under ``--compute fp32`` unless ``--fp16`` or
+    ``--data_type 16`` asks for bf16, bf16 otherwise."""
     import torch
 
-    from cistar_tpu_torch.engines.p2phd import Pix2PixHD
-    from cistar_tpu_torch.losses.perceptual import make_vgg_loss
+    from cistar_tpu_torch.engines.factory import pix2pixhd_from_opt
 
     fp32 = opt.compute == "fp32" and not (opt.fp16 or opt.data_type == 16)
-    return Pix2PixHD(
-        net_g=opt.netG, input_nc=opt.input_nc, output_nc=opt.output_nc,
-        label_nc=opt.label_nc, ngf=opt.ngf, ndf=opt.ndf,
-        n_downsample_global=opt.n_downsample_global,
-        n_blocks_global=opt.n_blocks_global,
-        n_local_enhancers=opt.n_local_enhancers,
-        n_blocks_local=opt.n_blocks_local,
-        n_layers_d=opt.n_layers_D, num_d=opt.num_D, norm=opt.norm,
-        no_instance=opt.no_instance, r2l=opt.r2l,
-        use_lsgan=not opt.no_lsgan, lambda_feat=opt.lambda_feat,
-        use_ganfeat_loss=not opt.no_ganFeat_loss,
-        vgg_criterion=None if opt.no_vgg_loss else make_vgg_loss(),
-        lr=opt.lr, beta1=opt.beta1, niter=opt.niter,
-        niter_decay=opt.niter_decay, niter_fix_global=opt.niter_fix_global,
-        pool_size=opt.pool_size, image_size=size,
-        compute_dtype=torch.float32 if fp32 else torch.bfloat16,
-        instance_feat=opt.instance_feat, label_feat=opt.label_feat,
-        load_features=opt.load_features, feat_num=opt.feat_num, nef=opt.nef,
-        n_downsample_e=opt.n_downsample_E, device=opt.device or None)
+    return pix2pixhd_from_opt(opt, size,
+                              torch.float32 if fp32 else torch.bfloat16)
 
 
 def main(argv=None):
     from cistar_tpu_torch.apps.p2phd_options import TrainOptions
 
     opt = TrainOptions().parse(argv)
-    if opt.uda:
-        raise NotImplementedError(
-            "--uda (the UDA trainers) is not ported yet: ROADMAP queue 1, "
-            "item 10")
     if opt.spatial_shard:
         raise NotImplementedError(
             "--spatial_shard (the generator sharded over devices) is not "
@@ -118,6 +107,9 @@ def main(argv=None):
     if opt.debug:
         opt.display_freq = opt.print_freq = opt.niter = opt.niter_decay = 1
         opt.max_dataset_size = 10
+
+    if opt.uda:
+        return train_uda(opt, save_dir, start_epoch)
 
     size = opt.r2l_res if opt.r2l else opt.fineSize
     engine = make_engine(opt, size)
@@ -156,6 +148,53 @@ def main(argv=None):
         if epoch % opt.save_epoch_freq == 0:
             save_networks(save_dir, engine, epoch)
             print(f"saved model at end of epoch {epoch}")
+    return state
+
+
+# the UDA autoencoder's nets by checkpoint label, as the JAX CLI saves them
+UDA_LABELS = (("E", "e"), ("DF", "df"), ("DR", "dr"), ("DL", "dl"),
+              ("GL", "g_lidar"), ("GR", "g_radar"))
+
+
+def train_uda(opt, save_dir: str, start_epoch: int):
+    """The UDA loop (``_train_uda``, parity with ``p2pHD/train.py --uda``):
+    the trainer of ``--training_module`` (``create_uda_model``), its state
+    from seed 0, ``UDADataset``'s train split at ``--r2l_res``; the critic
+    steps on (lidar, radar), the autoencoder on (radar, lidar). Returns
+    the state."""
+    from cistar_tpu_torch.apps.cyclegan_train import to_device
+    from cistar_tpu_torch.core import checkpoint as ckpt
+    from cistar_tpu_torch.data.datasets import Loader, UDADataset
+    from cistar_tpu_torch.engines.factory import create_uda_model
+    from cistar_tpu_torch.utils.metrics import MetricsLogger
+
+    critic = opt.training_module == "discriminator"
+    engine = create_uda_model(opt)
+    state = engine.init_state(0)
+    dataset = UDADataset(opt.dataroot, size=opt.r2l_res, mode="train")
+    loader = Loader(dataset, opt.batchSize, shuffle=not opt.serial_batches)
+    logger = MetricsLogger(save_dir, opt.niter + opt.niter_decay, len(loader),
+                           start_epoch=start_epoch,
+                           log_every=max(1, opt.print_freq))
+    print(f"#training pairs = {len(dataset)}", flush=True)
+    for epoch in range(start_epoch, opt.niter + opt.niter_decay + 1):
+        for batch in loader:
+            radar = to_device(batch["radar"], engine.device)
+            lidar = to_device(batch["lidar"], engine.device)
+            if critic:
+                state, metrics = engine.train_step(state, lidar, radar)
+            else:
+                state, metrics, _ = engine.train_step(state, radar, lidar)
+            logger.log(metrics, n_images=radar.shape[0])
+        logger.end_epoch()
+        trees = engine.jax_params()
+        if critic:
+            ckpt.save_network(save_dir, "img_D", "latest", trees["d"])
+        else:
+            for label, field in UDA_LABELS:
+                ckpt.save_network(save_dir, label, "latest", trees[field])
+        if epoch % opt.save_epoch_freq == 0:
+            print(f"saved UDA model at end of epoch {epoch}")
     return state
 
 

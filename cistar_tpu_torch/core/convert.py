@@ -8,10 +8,10 @@ port's own copy so the port imports nothing of ``cistar_tpu``:
   * conv weight            HWIO → OIHW              (``transpose(3, 2, 0, 1)``)
   * transpose-conv weight  HWIO (I=in, O=out) → (in, out, kh, kw)
                            (``transpose(2, 3, 0, 1)``, no spatial flip)
-  * BatchNorm              ``gamma`` (stored as γ−1) + 1 → ``weight``,
-                           ``beta`` → ``bias``; the ``batch_stats`` tree's
-                           ``mean`` / ``var`` → ``running_mean`` /
-                           ``running_var``
+  * BatchNorm, affine IN   ``gamma`` (stored as γ−1) + 1 → ``weight``,
+                           ``beta`` → ``bias``; a BatchNorm's
+                           ``batch_stats`` ``mean`` / ``var`` →
+                           ``running_mean`` / ``running_var``
 
 The ``*_to_jax`` functions map a ``state_dict`` back onto the JAX param
 tree, with the same key paths: OIHW → HWIO, ``(in, out, kh, kw)`` → HWIO
@@ -61,13 +61,25 @@ def _torch_key(path: Tuple[str, ...]) -> str:
 
 def _nodes(params: Mapping[str, Any], path: Tuple[str, ...] = ()
            ) -> Iterator[Tuple[Tuple[str, ...], Mapping[str, Any]]]:
-    """Every conv ``{"w", "b"}`` and BatchNorm ``{"gamma", "beta"}`` node
-    of a param tree, with its path."""
+    """Every conv ``{"w"[, "b"]}`` and norm ``{"gamma", "beta"}`` node of
+    a param tree, with its path; arrays held directly by a module (the
+    UDA encoder's ``linear_w`` / ``linear_b``) are not nodes."""
     for k, v in params.items():
+        if not isinstance(v, Mapping):
+            continue
         if "w" in v or "gamma" in v:
             yield path + (k,), v
         else:
             yield from _nodes(v, path + (k,))
+
+
+def _stats_at(batch_stats: Optional[Mapping[str, Any]],
+              path: Tuple[str, ...]) -> Optional[Mapping[str, Any]]:
+    for p in path:
+        if not isinstance(batch_stats, Mapping) or p not in batch_stats:
+            return None
+        batch_stats = batch_stats[p]
+    return batch_stats
 
 
 def _f32(a: Any) -> torch.Tensor:
@@ -113,29 +125,38 @@ def generator_from_jax(params: Mapping[str, Any],
     defaults: ``init_conv``, ``down_i/conv`` or ``down_i/b{j}_conv``,
     ``res_i/conv{1,2}`` or ``res_i/atrous/b{j}_conv`` + ``res_i/conv``,
     ``up_i/convt``, ``up_i/b{j}_convt`` or ``up_i/conv``, ``out_conv``. A
-    BatchNorm node takes its running statistics from ``batch_stats`` at the
-    same path."""
-    sd: Dict[str, torch.Tensor] = {}
+    norm node needs ``batch_stats`` (ValueError without it): it is a
+    BatchNorm where they hold running statistics at its path, else an
+    affine instance norm (``weight`` / ``bias`` alone; pass ``{}`` for a
+    network without BatchNorm). A conv without ``b`` has no bias. Arrays at
+    the tree's root (the UDA encoder's ``linear_w`` / ``linear_b``) keep
+    their name and layout. The modules that keep JAX's names, the transpose
+    convs named ``*convt`` (pix2pixHD's ``Encoder``, ``AutoEncoder``,
+    ``FeatureEncoder``, ``TransferGenerator``, ``TransferPairG``,
+    ``WDiscriminator``, the UDA modules, the discriminators), take the
+    defaults with ``batch_stats=stats or {}``."""
+    sd: Dict[str, torch.Tensor] = {k: _f32(v) for k, v in params.items()
+                                   if not isinstance(v, Mapping)}
     for path, node in _nodes(params):
         key_ = key(path)
         if "gamma" in node:
             if batch_stats is None:
-                raise ValueError(f"BatchNorm {'/'.join(path)} needs the "
+                raise ValueError(f"norm {'/'.join(path)} needs the "
                                  "generator's batch_stats")
-            st = batch_stats
-            for p in path:
-                st = st[p]
             sd[f"{key_}.weight"] = _f32(np.asarray(node["gamma"], np.float32)
                                         + np.float32(1.0))
             sd[f"{key_}.bias"] = _f32(node["beta"])
-            sd[f"{key_}.running_mean"] = _f32(st["mean"])
-            sd[f"{key_}.running_var"] = _f32(st["var"])
+            st = _stats_at(batch_stats, path)
+            if st is not None:
+                sd[f"{key_}.running_mean"] = _f32(st["mean"])
+                sd[f"{key_}.running_var"] = _f32(st["var"])
             continue
         w = np.asarray(node["w"], np.float32)
         w = conv_transpose_w_from_hwio(w) if transposed(path) \
             else conv_w_from_hwio(w)
         sd[f"{key_}.weight"] = torch.from_numpy(w)
-        sd[f"{key_}.bias"] = _f32(node["b"])
+        if "b" in node:
+            sd[f"{key_}.bias"] = _f32(node["b"])
     return sd
 
 
@@ -265,8 +286,9 @@ def _unet_path(module: str) -> Tuple[str, ...]:
     return tuple(out)
 
 
-def _is_bn(sd: Mapping[str, torch.Tensor], module: str) -> bool:
-    return f"{module}.running_mean" in sd
+def _is_norm(sd: Mapping[str, torch.Tensor], module: str) -> bool:
+    """A BatchNorm or affine instance norm: its ``weight`` is (C,)."""
+    return sd[f"{module}.weight"].dim() == 1
 
 
 def generator_to_jax(sd: Mapping[str, torch.Tensor],
@@ -275,27 +297,33 @@ def generator_to_jax(sd: Mapping[str, torch.Tensor],
                      path: Callable[[str], Tuple[str, ...]] = _jax_path
                      ) -> Dict[str, Any]:
     """A ``state_dict`` of convs (``<module>.weight`` / ``<module>.bias``)
-    and BatchNorms (those with a ``running_mean``) → the JAX param tree of
-    the same network, numpy fp32 leaves: the inverse of
-    :func:`generator_from_jax`. ``transposed(path)`` says which nodes are
-    transpose convs, as there; ``path(module)`` gives a module's JAX path.
-    The running statistics go to :func:`batch_stats_to_jax`."""
+    and norms (those with a (C,) ``weight``: BatchNorms and affine instance
+    norms) → the JAX param tree of the same network, numpy fp32 leaves:
+    the inverse of :func:`generator_from_jax`. ``transposed(path)`` says
+    which nodes are transpose convs, as there; ``path(module)`` gives a
+    module's JAX path. A parameter of the root module keeps its name. The
+    running statistics go to :func:`batch_stats_to_jax`. The leaves are
+    copies, not views of the module's tensors, which later steps change in
+    place."""
     tree: Dict[str, Any] = {}
     for name, t in sd.items():
         module, _, leaf = name.rpartition(".")
+        a = t.detach().cpu().float().numpy().copy()
+        if not module:
+            tree[leaf] = a
+            continue
         p = path(module)
-        a = t.detach().cpu().float().numpy()
         if leaf in ("running_mean", "running_var"):
             continue
-        if _is_bn(sd, module):
+        if _is_norm(sd, module):
             a, leaf = ((a - np.float32(1.0), "gamma") if leaf == "weight"
-                       else (np.array(a), "beta"))
+                       else (a, "beta"))
         elif leaf == "weight":
             a = conv_transpose_w_from_hwio(a) if transposed(p) \
                 else conv_w_to_hwio(a)
             leaf = "w"
         elif leaf == "bias":
-            a, leaf = np.array(a), "b"
+            leaf = "b"
         else:
             raise ValueError(f"{name}: not a conv or BatchNorm parameter")
         node = tree
@@ -310,7 +338,7 @@ def batch_stats_to_jax(sd: Mapping[str, torch.Tensor],
                        ) -> Optional[Dict[str, Any]]:
     """The running statistics of a ``state_dict``'s BatchNorms as the JAX
     ``batch_stats`` tree (``mean`` / ``var`` at each norm's path, numpy
-    fp32), or ``None`` when it has no BatchNorm."""
+    fp32 copies), or ``None`` when it has no BatchNorm."""
     tree: Dict[str, Any] = {}
     for name, t in sd.items():
         module, _, leaf = name.rpartition(".")
@@ -320,7 +348,7 @@ def batch_stats_to_jax(sd: Mapping[str, torch.Tensor],
         for q in path(module):
             node = node.setdefault(q, {})
         node["mean" if leaf == "running_mean" else "var"] = \
-            t.detach().cpu().float().numpy()
+            t.detach().cpu().float().numpy().copy()
     return tree or None
 
 

@@ -13,6 +13,15 @@ and order:
 The hyperparameters are fp32 values, as ``inject_hyperparams`` holds them:
 ``1 − b2`` is ``1 − fp32(0.999)``, not the fp32 of 0.001.
 
+The UDA image critic (``engines/extended.py::R2LImageCritic``) builds
+``optax.chain(optax.add_decayed_weights(wd), optax.adam(lr, b1, b2))``
+instead, ``injected=False`` here. Two differences: the weight decay is
+added to the gradient before Adam, ``g + wd · p`` (coupled, as
+``torch.optim.Adam(weight_decay=…)``, not AdamW); and the hyperparameters
+are Python floats, so ``1 − b1`` and ``1 − b2`` are rounded once to fp32
+(``1 − 0.9`` is 0.1f, where the injected form computes
+``1 − fp32(0.9)``).
+
 The step is gated by a device bool ``mask``: where it is false, the params
 and the whole state, count included, stay bit for bit as they were (the
 JAX step's ``u · mask`` and ``jnp.where(do_step, new, old)``), and no value
@@ -65,14 +74,23 @@ class AdamState:
 @torch.no_grad()
 def adam_step(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
               state: AdamState, lr: torch.Tensor, mask: torch.Tensor,
-              b1: float = 0.5, b2: float = 0.999, eps: float = 1e-8) -> None:
+              b1: float = 0.5, b2: float = 0.999, eps: float = 1e-8,
+              weight_decay: float = 0.0, injected: bool = True) -> None:
     """One masked Adam step, in place on ``params`` and ``state``. ``lr``
-    is an fp32 device scalar, ``mask`` a device bool."""
+    is an fp32 device scalar, ``mask`` a device bool. ``injected`` takes
+    ``1 − b`` in fp32 from fp32 ``b`` (``inject_hyperparams``), else
+    rounds the Python float ``1 − b`` once; ``weight_decay`` adds
+    ``weight_decay · p`` to the gradient first."""
     f32 = np.float32
-    b1, b2, eps = (f32(v) for v in (b1, b2, eps))
-    c1, c2 = float(f32(1) - b1), float(f32(1) - b2)
-    b1, b2, eps = float(b1), float(b2), float(eps)
+    if injected:
+        c1, c2 = float(f32(1) - f32(b1)), float(f32(1) - f32(b2))
+    else:
+        c1, c2 = float(f32(1 - b1)), float(f32(1 - b2))
+    b1, b2, eps = (float(f32(v)) for v in (b1, b2, eps))
     g = torch.cat([t.reshape(-1) for t in grads]).float()
+    if weight_decay:
+        g = g + float(f32(weight_decay)) * torch.cat(
+            [p.detach().reshape(-1) for p in params])
     mu = c1 * g + b1 * state.mu_flat
     nu = c2 * (g * g) + b2 * state.nu_flat
     count = state.count + 1

@@ -11,13 +11,15 @@ arrays.
     branch): paired radar / lidar PNG or NPY, resized to ``size``², a
     shared random rotation 0–360° in train, Normalize(0.5, 0.5), a 70/30
     train / test split.
+  * :class:`UDADataset` ↔ the aligned dataset's UDA branch: pairs named by
+    ``timestamp.txt``, the first 30% for train.
 
 :class:`Loader` batches, in order or shuffled anew each epoch, with
 a background prefetch thread; the caller moves each batch to the device
 (the training CLIs copy it from pinned memory without blocking). The
 native C++ PNG loader of the JAX package, and with it the loader's
-``get_batch`` path, ``UDADataset``, ``NativeCycleGANDataset`` and
-``make_cyclegan_dataset`` are not ported yet (ROADMAP queue 1, item 7).
+``get_batch`` path, ``NativeCycleGANDataset`` and ``make_cyclegan_dataset``
+are not ported yet (ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -102,12 +104,14 @@ class Radar2LidarDataset:
     """p2pHD ``Radar2LidarDataset``: paired radar (label) → lidar (image).
 
     PNG or NPY inputs, resized to ``size``²; a shared random rotation
-    0–360° in train, drawn from ``RandomState(0)``; Normalize(0.5, 0.5);
-    70/30 train/test split (``p2pHD/data/aligned_dataset.py`` r2l path).
-    Decoded frames are kept, up to 1 GiB, so later epochs only augment.
+    0–360° in train (unless ``rotate`` is false), drawn from
+    ``RandomState(0)``; Normalize(0.5, 0.5); 70/30 train/test split
+    (``p2pHD/data/aligned_dataset.py`` r2l path). Decoded frames are kept,
+    up to 1 GiB, so later epochs only augment.
     """
 
-    def __init__(self, root: str, size: int = 512, mode: str = "train"):
+    def __init__(self, root: str, size: int = 512, mode: str = "train",
+                 rotate: bool = True):
         self.radar = _list_pngs(os.path.join(root, "radar")) or sorted(
             glob.glob(os.path.join(root, "radar", "*.npy")))
         self.lidar = _list_pngs(os.path.join(root, "lidar")) or sorted(
@@ -117,7 +121,7 @@ class Radar2LidarDataset:
             self.radar, self.lidar = self.radar[:split], self.lidar[:split]
         else:
             self.radar, self.lidar = self.radar[split:], self.lidar[split:]
-        self.size, self.mode = size, mode
+        self.size, self.mode, self.rotate = size, mode, rotate
         self.rng = np.random.RandomState(0)
         self._cache: Dict[str, np.ndarray] = {}
         self._cache_bytes = 0
@@ -152,7 +156,7 @@ class Radar2LidarDataset:
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         radar = self._load(self.radar[index])
         lidar = self._load(self.lidar[index])
-        if self.mode == "train":
+        if self.mode == "train" and self.rotate:
             angle = self.rng.randint(0, 360)
             radar = T.rotate_image(radar, angle)
             lidar = T.rotate_image(lidar, angle)
@@ -163,6 +167,50 @@ class Radar2LidarDataset:
             "feat": np.zeros((1,), np.float32),
             "path": self.radar[index],
         }
+
+
+class UDADataset:
+    """p2pHD ``UDADataset``: radar / lidar pairs named by the lines of
+    ``{root}/timestamp.txt`` (``radar/<stamp>.png``), else the sorted PNGs
+    of ``radar/`` and ``lidar/``; the first 30% for train, the rest for
+    test; grayscale, resized to ``size``² by PIL's default filter where
+    they differ, Normalize(0.5, 0.5)."""
+
+    TRAIN_FRAC = 0.3
+
+    def __init__(self, root: str, size: int = 512, mode: str = "train"):
+        ts_file = os.path.join(root, "timestamp.txt")
+        if os.path.exists(ts_file):
+            with open(ts_file) as f:
+                stamps = [line.strip() for line in f if line.strip()]
+            self.radar = [os.path.join(root, "radar", s + ".png")
+                          for s in stamps]
+            self.lidar = [os.path.join(root, "lidar", s + ".png")
+                          for s in stamps]
+        else:
+            self.radar = _list_pngs(os.path.join(root, "radar"))
+            self.lidar = _list_pngs(os.path.join(root, "lidar"))
+        split = int(len(self.radar) * self.TRAIN_FRAC)
+        if mode == "train":
+            self.radar, self.lidar = self.radar[:split], self.lidar[:split]
+        else:
+            self.radar, self.lidar = self.radar[split:], self.lidar[split:]
+        self.size = size
+
+    def __len__(self) -> int:
+        return len(self.radar)
+
+    def _load(self, path: str) -> np.ndarray:
+        arr = T.pil_to_array(T.load_image(path, mode="L"))
+        if arr.shape[0] != self.size:
+            arr = T.pil_to_array(T.array_to_pil(arr).resize(
+                (self.size, self.size)))
+        return T.normalize(arr).astype(np.float32)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        return {"radar": self._load(self.radar[index]),
+                "lidar": self._load(self.lidar[index]),
+                "path": self.radar[index]}
 
 
 class Loader:

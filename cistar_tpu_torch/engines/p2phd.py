@@ -2,11 +2,14 @@
 
 :class:`Pix2PixHDInference` holds one generator, ``netG`` ``global``
 (``GlobalGenerator``), ``local`` (``LocalEnhancer``), ``multiscale``
-(``MultiscaleGlobalGenerator``, always BatchNorm) or ``UNet``
-(``UNetGeneratorHD``), and serves :meth:`~Pix2PixHDInference.infer_step`
-(the plain forward in the compute dtype) and
-:meth:`~Pix2PixHDInference.infer_step_int8` (the family's int8 engine),
-both after the reference's input encoding (``pix2pixHD_model.py:119-150``).
+(``MultiscaleGlobalGenerator``, always BatchNorm), ``UNet``
+(``UNetGeneratorHD``), ``encoder`` (``Encoder``), ``autoencoder``
+(``AutoEncoder``) or ``transfer`` (``TransferPairG``, the generator of
+``engines/extended.py::make_transfer_p2p``), and serves
+:meth:`~Pix2PixHDInference.infer_step` (the plain forward in the compute
+dtype) and :meth:`~Pix2PixHDInference.infer_step_int8` (the family's int8
+engine; the last three have none, as in JAX), both after the reference's
+input encoding (``pix2pixHD_model.py:119-150``).
 
 :class:`Pix2PixHD` adds the multiscale PatchGAN discriminator, the
 instance-feature encoder netE and the train step of the reference
@@ -19,8 +22,7 @@ loss is at least 0.1; the LR is constant for ``niter`` epochs, then decays
 linearly over ``niter_decay``; ``niter_fix_global`` trains only the
 enhancer streams of ``local``. The step runs the plain ops under autograd,
 no CUDA kernel of the port (they are forward-only), and reads nothing back
-to the host. ``AutoEncoder`` comes with a later slice (ROADMAP queue 1,
-item 9).
+to the host.
 """
 
 from __future__ import annotations
@@ -32,23 +34,26 @@ import numpy as np
 import torch
 
 from cistar_tpu_torch.core.convert import (
-    batch_stats_to_jax, encoder_from_jax, generator_to_jax,
-    global_generator_from_jax, local_enhancer_from_jax,
-    multiscale_discriminator_from_jax, multiscale_global_generator_from_jax,
-    unet_generator_hd_from_jax, unet_generator_hd_to_jax)
+    batch_stats_to_jax, encoder_from_jax, generator_from_jax,
+    generator_to_jax, global_generator_from_jax, local_enhancer_from_jax,
+    multiscale_discriminator_from_jax,
+    multiscale_global_generator_from_jax, unet_generator_hd_from_jax,
+    unet_generator_hd_to_jax)
 from cistar_tpu_torch.core.optim import AdamState, adam_step
 from cistar_tpu_torch.device import DeviceLike, resolve_device
 from cistar_tpu_torch.losses.gan import gan_loss, l1_loss
 from cistar_tpu_torch.models import fast_infer as fi
-from cistar_tpu_torch.models.pix2pixhd import (BatchNorm, Encoder, define_d,
+from cistar_tpu_torch.models.pix2pixhd import (BatchNorm, Encoder,
+                                               TransferPairG, define_d,
                                                define_g)
 from cistar_tpu_torch.ops.quant_int8 import QBlock, quantize_global_trunk
 from cistar_tpu_torch.utils.image_pool import (PoolState, init_pool,
                                                push_and_pop)
 
 # netG → (JAX params, batch_stats → state_dict; state_dict → JAX params;
-# quantizer; int8 forward)
-_FAMILIES: Dict[str, Tuple[Callable, Callable, Callable, Callable]] = {
+# quantizer; int8 forward), None where JAX has no int8 engine
+_FAMILIES: Dict[str, Tuple[Callable, Callable, Optional[Callable],
+                           Optional[Callable]]] = {
     "global": (global_generator_from_jax, generator_to_jax,
                quantize_global_trunk, fi.global_generator_int8_trunk_apply),
     "local": (local_enhancer_from_jax, generator_to_jax,
@@ -58,6 +63,9 @@ _FAMILIES: Dict[str, Tuple[Callable, Callable, Callable, Callable]] = {
                    fi.multiscale_global_int8_apply),
     "UNet": (unet_generator_hd_from_jax, unet_generator_hd_to_jax,
              fi.quantize_unet_msrb, fi.unet_msrb_int8_apply),
+    "encoder": (generator_from_jax, generator_to_jax, None, None),
+    "autoencoder": (generator_from_jax, generator_to_jax, None, None),
+    "transfer": (generator_from_jax, generator_to_jax, None, None),
 }
 
 
@@ -88,13 +96,11 @@ class Pix2PixHDInference:
                  input_nc: int = 1, output_nc: int = 1, label_nc: int = 0,
                  r2l: bool = True, no_instance: bool = True,
                  compute_dtype: torch.dtype = torch.bfloat16, seed: int = 0,
-                 device: DeviceLike = None, norm: str = "instance"):
+                 device: DeviceLike = None, norm: str = "instance",
+                 n_scale: int = 3):
         if net_g not in _FAMILIES:
-            raise NotImplementedError(
-                f"netG={net_g!r} is not ported yet: "
-                f"{', '.join(map(repr, _FAMILIES))} run here (ROADMAP "
-                "queue 1, item 9)")
-        self.net_g, self.norm = net_g, norm
+            raise ValueError(f"generator {net_g!r} not implemented")
+        self.net_g, self.norm, self.n_scale = net_g, norm, n_scale
         self.ngf = ngf
         self.n_downsample_global = n_downsample_global
         self.n_blocks_global = n_blocks_global
@@ -113,6 +119,10 @@ class Pix2PixHDInference:
             _FAMILIES[net_g]
 
     def _build_g(self) -> torch.nn.Module:
+        if self.net_g == "transfer":   # instance norm, as JAX builds it
+            return TransferPairG(self.g_input_nc(), self.output_nc, self.ngf,
+                                 self.n_downsample_global, self.n_scale,
+                                 self.n_blocks_global)
         return define_g(self.net_g, self.g_input_nc(), self.output_nc,
                         self.ngf, self.n_downsample_global,
                         self.n_blocks_global, self.n_local_enhancers,
@@ -142,7 +152,8 @@ class Pix2PixHDInference:
             raise ValueError(
                 f"netG={self.net_g!r} runs BatchNorm: pass g_stats, the "
                 "generator's batch_stats (part of the checkpoint)")
-        self.G.load_state_dict(self._convert(g_params, g_stats))
+        self.G.load_state_dict(self._convert(g_params,
+                                             batch_stats=g_stats or {}))
 
     def jax_params(self) -> Dict[str, Any]:
         """G as JAX trees (numpy fp32 leaves), keyed by the checkpoint
@@ -181,11 +192,18 @@ class Pix2PixHDInference:
         ``local``'s global trunk, those of ``multiscale`` with the running
         statistics of their BatchNorms folded in, the MSRB blocks of
         ``UNet``. The int8 forwards of ``global`` and ``local`` run instance
-        norm, so with ``norm="batch"`` they raise, as the JAX engine's."""
+        norm, so with ``norm="batch"`` they raise, as the JAX engine's; so
+        do ``encoder``, ``autoencoder`` and ``transfer``, which have no int8
+        engine."""
         if self.net_g != "multiscale" and self.has_batch_norm():
             raise NotImplementedError(
                 "int8 inference engines assume instance norm; this generator "
                 f"was built with norm={self.norm!r}. Run --data_type 16/32.")
+        if self._quantize is None:
+            raise NotImplementedError(
+                f"no int8 inference engine for netG={self.net_g!r} "
+                "(supported: global, local, UNet, multiscale); run "
+                "--data_type 16/32")
         return self._quantize(self.G)
 
     @torch.inference_mode()
@@ -230,7 +248,8 @@ class Pix2PixHD(Pix2PixHDInference):
     fp32 params, netE in fp32; the losses, gradients and Adam states are
     fp32. Weights come from ``seed`` through :meth:`init_state`, the same
     on every device. The arguments are the JAX engine's, less
-    ``spatial_mesh``."""
+    ``spatial_mesh``; ``n_scale`` sets the ``transfer`` generator's
+    pyramid (``engines/extended.py::make_transfer_p2p``)."""
 
     def __init__(self, net_g: str = "global", input_nc: int = 1,
                  output_nc: int = 1, label_nc: int = 0, ngf: int = 64,
@@ -250,7 +269,7 @@ class Pix2PixHD(Pix2PixHDInference):
                  load_features: bool = False, feat_num: int = 3,
                  nef: int = 16, n_downsample_e: int = 4,
                  max_instances: int = 64, seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, n_scale: int = 3):
         # use_features / gen_features: pix2pixHD_model.py:26-28
         self.use_features = instance_feat or label_feat
         self.gen_features = self.use_features and not load_features
@@ -269,7 +288,7 @@ class Pix2PixHD(Pix2PixHDInference):
         super().__init__(net_g, ngf, n_downsample_global, n_blocks_global,
                          n_local_enhancers, n_blocks_local, input_nc,
                          output_nc, label_nc, r2l, no_instance,
-                         compute_dtype, seed, device, norm)
+                         compute_dtype, seed, device, norm, n_scale)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.D = self._build_d().to(self.device)

@@ -358,14 +358,61 @@ class UNetGeneratorHD(nn.Module):
         return self.output_layer(h)
 
 
+class AutoEncoder(nn.Module):
+    """GlobalGenerator split into named stages for GAN inversion
+    (``AutoEncoder``): ``init_layer`` (c7s1), ``encoder_i`` (stride-2
+    downs), ``resblock_i``, ``decoder_i`` (ups), ``output_layer`` (7×7
+    reflect head + tanh), the JAX names; :meth:`encode` runs the first two
+    groups, :meth:`decode` the rest."""
+
+    def __init__(self, input_nc: int = 1, output_nc: int = 1, ngf: int = 64,
+                 n_downsampling: int = 3, n_blocks: int = 9,
+                 norm: str = "instance", padding_type: str = "reflect"):
+        super().__init__()
+        _reflect_only(padding_type)
+        self.n_downsampling, self.n_blocks = n_downsampling, n_blocks
+        self.init_layer = _C7S1(input_nc, ngf, norm)
+        for i in range(n_downsampling):
+            self.add_module(f"encoder_{i}", _Down(ngf * 2 ** i,
+                                                  ngf * 2 ** (i + 1), norm))
+        f = ngf * 2 ** n_downsampling
+        for i in range(n_blocks):
+            self.add_module(f"resblock_{i}", ResnetBlock(f, padding_type,
+                                                         norm))
+        for i in range(n_downsampling):
+            c = ngf * 2 ** (n_downsampling - i)
+            self.add_module(f"decoder_{i}", _Up(c, c // 2, norm))
+        self.output_layer = _OutHead(ngf, output_nc)
+
+    def _stage(self, name: str, n: int) -> list:
+        return [self._modules[f"{name}_{i}"] for i in range(n)]
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.init_layer(x)
+        for m in self._stage("encoder", self.n_downsampling):
+            h = m(h)
+        return h
+
+    def decode(self, h: torch.Tensor) -> torch.Tensor:
+        for m in (*self._stage("resblock", self.n_blocks),
+                  *self._stage("decoder", self.n_downsampling)):
+            h = m(h)
+        return self.output_layer(h)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.decode(self.encode(x))
+
+
 def define_g(net_g: str, input_nc: int, output_nc: int, ngf: int,
              n_downsample_global: int = 3, n_blocks_global: int = 9,
              n_local_enhancers: int = 1, n_blocks_local: int = 3,
              norm: str = "instance") -> nn.Module:
-    """The generator dispatch of ``define_g`` for ``global``, ``local``,
-    ``multiscale`` (BatchNorm whatever ``norm`` says, the reference's quirk)
-    and ``UNet`` (which takes no norm). Parameters are drawn from PyTorch's global generator, on
-    the CPU."""
+    """The generator dispatch of ``define_g``: ``global``, ``local``,
+    ``encoder`` (the instance-feature :class:`Encoder` as G, to
+    ``output_nc`` channels), ``multiscale`` (BatchNorm whatever ``norm``
+    says, the reference's quirk), ``autoencoder`` and ``UNet`` (which takes
+    no norm). Parameters are drawn from PyTorch's global generator, on the
+    CPU."""
     if net_g == "global":
         return GlobalGenerator(input_nc, output_nc, ngf, n_downsample_global,
                                n_blocks_global, norm)
@@ -373,15 +420,18 @@ def define_g(net_g: str, input_nc: int, output_nc: int, ngf: int,
         return LocalEnhancer(input_nc, output_nc, ngf, n_downsample_global,
                              n_blocks_global, n_local_enhancers,
                              n_blocks_local, norm)
+    if net_g == "encoder":
+        return Encoder(input_nc, output_nc, ngf, n_downsample_global, norm)
     if net_g == "multiscale":
         return MultiscaleGlobalGenerator(input_nc, output_nc, ngf,
                                          n_blocks_global)
+    if net_g == "autoencoder":
+        return AutoEncoder(input_nc, output_nc, ngf, n_downsample_global,
+                           n_blocks_global, norm)
     if net_g == "UNet":
         # the reference builds the same UNet whatever ``norm`` says
         return UNetGeneratorHD(input_nc, output_nc, n_blocks_global, ngf)
-    raise NotImplementedError(
-        f"netG={net_g!r} is not ported yet: 'global', 'local', 'multiscale' "
-        f"and 'UNet' run here {_LATER}")
+    raise ValueError(f"generator {net_g!r} not implemented")
 
 
 class Encoder(nn.Module):
@@ -525,3 +575,231 @@ def define_d(input_nc: int, ndf: int, n_layers_d: int,
     _instance_only(norm, "discriminator")
     return MultiscaleDiscriminator(input_nc, ndf, n_layers_d, use_sigmoid,
                                    num_d, get_interm_feat)
+
+
+# --------------------------------------------------------------------------- #
+# the transfer pair, the Wasserstein critic and the UDA modules
+# --------------------------------------------------------------------------- #
+class InstanceNormAffine(nn.Module):
+    """``NormLayer("instance_affine")``: instance norm with a learned
+    per-channel ``weight`` (γ; JAX stores γ − 1) and ``bias`` (β), in fp32,
+    cast back. γ starts at 1 + N(0, 0.02), as JAX draws it."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(1.0 + 0.02 * torch.randn(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return tnn.instance_norm(x, self.eps, self.weight, self.bias)
+
+
+class FeatureEncoder(nn.Module):
+    """Pyramid feature encoder (``FeatureEncoder``): ONE c7s1 ``stem``
+    applied to the input and to its 3×3 stride-2 max pools, ``n_scale``
+    branches in all; ``down.0`` takes branch 0, ``down.i`` the previous
+    result concatenated with branch i, each a stride-2 conv → norm → ReLU
+    to ngf·2^(i+1); the downs past ``n_scale`` run plain. Out: ngf·2^max(
+    n_downsampling, n_scale) channels at 1/2^max(…) resolution."""
+
+    def __init__(self, input_nc: int = 1, ngf: int = 32,
+                 n_downsampling: int = 4, n_scale: int = 3,
+                 norm: str = "instance"):
+        super().__init__()
+        self.n_scale = n_scale
+        self.stem = _C7S1(input_nc, ngf, norm)
+        cins = [ngf] + [ngf * 2 ** i + ngf for i in range(1, n_scale)]
+        cins += [ngf * 2 ** (n_scale + i)
+                 for i in range(n_downsampling - n_scale)]
+        self.down = nn.ModuleList(_Down(c, ngf * 2 ** (i + 1), norm)
+                                  for i, c in enumerate(cins))
+        self.out_channels = ngf * 2 ** len(cins)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        branches, inp = [], x
+        for i in range(self.n_scale):
+            branches.append(self.stem(inp))
+            if i != self.n_scale - 1:
+                inp = tnn.max_pool2d(inp, 3, 2, padding=1)
+        h = None
+        for i, down in enumerate(self.down):
+            if i < self.n_scale:
+                h = branches[0] if i == 0 else torch.cat([h, branches[i]], -1)
+            h = down(h)
+        return h
+
+
+class TransferGenerator(nn.Module):
+    """The decoder half that pairs with :class:`FeatureEncoder`
+    (``TransferGenerator``): ``n_blocks`` resnet blocks at ngf·2^
+    n_upsampling, ``n_upsampling`` ups, the 7×7 reflect head + tanh."""
+
+    def __init__(self, output_nc: int = 1, n_blocks: int = 9, ngf: int = 32,
+                 n_upsampling: int = 4, norm: str = "instance",
+                 padding_type: str = "reflect"):
+        super().__init__()
+        f = ngf * 2 ** n_upsampling
+        self.res = nn.ModuleList(ResnetBlock(f, padding_type, norm)
+                                 for _ in range(n_blocks))
+        self.up = nn.ModuleList(
+            _Up(ngf * 2 ** (n_upsampling - i),
+                ngf * 2 ** (n_upsampling - i) // 2, norm)
+            for i in range(n_upsampling))
+        self.head = _OutHead(ngf, output_nc)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        for m in (*self.res, *self.up):
+            h = m(h)
+        return self.head(h)
+
+
+class TransferPairG(nn.Module):
+    """``E`` (:class:`FeatureEncoder`) then ``G`` (:class:`TransferGenerator`)
+    as one generator (``engines/extended.py::TransferPairG``, the
+    reference's ``fake = netG(netE(input))``)."""
+
+    def __init__(self, input_nc: int = 1, output_nc: int = 1, ngf: int = 32,
+                 n_downsampling: int = 4, n_scale: int = 3,
+                 n_blocks: int = 3, norm: str = "instance"):
+        super().__init__()
+        self.E = FeatureEncoder(input_nc, ngf, n_downsampling, n_scale, norm)
+        self.G = TransferGenerator(output_nc, n_blocks, ngf, n_downsampling,
+                                   norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.G(self.E(x))
+
+
+class WDiscriminator(nn.Module):
+    """Wasserstein critic (``WDiscriminator``): ``n_layer − 1`` stages of a
+    4×4 stride-2 zero-pad-1 conv without bias (``conv_i``; ngf, then
+    doubling to at most 512), affine instance norm (``norm_i``) and
+    LeakyReLU 0.2, then a one-channel conv of the same kind
+    (``conv_out``); LeakyReLU on it with ``activate``; with ``flatten``, the
+    mean of the whole batch's map in fp32, a scalar."""
+
+    def __init__(self, input_nc: int = 1, ngf: int = 16, n_layer: int = 5,
+                 activate: bool = False, flatten: bool = True):
+        super().__init__()
+        self.n_layer, self.activate, self.flatten = n_layer, activate, flatten
+        cin = input_nc
+        for i in range(n_layer - 1):
+            f = ngf if i == 0 else min(cin * 2, 512)
+            self.add_module(f"conv_{i}", Conv2d(cin, f, 4, stride=2,
+                                                padding=1, bias=False))
+            self.add_module(f"norm_{i}", InstanceNormAffine(f))
+            cin = f
+        self.conv_out = Conv2d(cin, 1, 4, stride=2, padding=1, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for i in range(self.n_layer - 1):
+            h = tnn.leaky_relu(self._modules[f"norm_{i}"](
+                self._modules[f"conv_{i}"](h)), 0.2)
+        h = self.conv_out(h)
+        if self.activate:
+            h = tnn.leaky_relu(h, 0.2)
+        if self.flatten:
+            return h.float().mean()
+        return h
+
+
+def _stride2_size(size: int, n: int) -> int:
+    for _ in range(n):
+        size = (size - 1) // 2 + 1
+    return size
+
+
+class UDAEncoder(nn.Module):
+    """UDA shared encoder (``UDAEncoder``): c7s1 stem with instance norm,
+    ``down_conv`` 3×3 stride-2 convs (``down_i_conv``) each with
+    BatchNorm (``down_i_bn``) and ReLU, channels doubling to at most
+    ``max_ch``, instance-norm resnet blocks (``res.i``); with ``linear``,
+    the NHWC-flattened map times ``linear_w`` ((H·W·C, max_ch), JAX's
+    layout) plus ``linear_b`` in fp32, for inputs of ``size``²."""
+
+    def __init__(self, input_nc: int = 1, size: int = 512,
+                 down_conv: int = 3, ngf: int = 16, n_resblocks: int = 3,
+                 linear: bool = False, max_ch: int = 512):
+        super().__init__()
+        self.down_conv, self.linear = down_conv, linear
+        self.stem = _C7S1(input_nc, ngf)
+        nf = ngf
+        for i in range(down_conv):
+            cin, nf = nf, min(nf * 2, max_ch)
+            self.add_module(f"down_{i}_conv",
+                            Conv2d(cin, nf, 3, stride=2, padding=1))
+            self.add_module(f"down_{i}_bn", BatchNorm(nf))
+        self.res = nn.ModuleList(ResnetBlock(nf) for _ in range(n_resblocks))
+        self.out_channels = nf
+        if linear:
+            n_in = _stride2_size(size, down_conv) ** 2 * nf
+            self.linear_w = nn.Parameter(0.02 * torch.randn(n_in, max_ch))
+            self.linear_b = nn.Parameter(torch.zeros(max_ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.stem(x)
+        for i in range(self.down_conv):
+            h = tnn.relu(self._modules[f"down_{i}_bn"](
+                self._modules[f"down_{i}_conv"](h)))
+        for m in self.res:
+            h = m(h)
+        if self.linear:   # fp32, as JAX promotes ``flat @ w`` to it
+            return h.reshape(h.shape[0], -1).float() @ self.linear_w \
+                + self.linear_b
+        return h
+
+
+class UDADecoder(nn.Module):
+    """UDA per-domain decoder (``UDADecoder``): resnet blocks (``res.i``),
+    each followed by instance norm and ReLU; ``down_conv`` 4×4 stride-2
+    pad-1 transpose convs (``up_i_convt``) halving the channels (floor 4),
+    each with BatchNorm (``up_i_bn``) and ReLU; the 7×7 reflect head +
+    tanh (``head``). ``input_nc`` is the encoder's channel count."""
+
+    def __init__(self, input_nc: int, output_nc: int = 1,
+                 down_conv: int = 3, n_resblocks: int = 3):
+        super().__init__()
+        self.down_conv = down_conv
+        nc = input_nc
+        self.res = nn.ModuleList(ResnetBlock(nc) for _ in range(n_resblocks))
+        for i in range(down_conv):
+            cin, nc = nc, max(nc // 2, 4)
+            self.add_module(f"up_{i}_convt", ConvTranspose2d(
+                cin, nc, 4, stride=2, padding=1))
+            self.add_module(f"up_{i}_bn", BatchNorm(nc))
+        self.head = _OutHead(nc, output_nc)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        for m in self.res:
+            h = tnn.relu(tnn.instance_norm(m(h)))
+        for i in range(self.down_conv):
+            h = tnn.relu(self._modules[f"up_{i}_bn"](
+                self._modules[f"up_{i}_convt"](h)))
+        return self.head(h)
+
+
+class DomainFeatureDiscriminator(nn.Module):
+    """Feature-space domain classifier (``DomainFeatureDiscriminator``):
+    four 3×3 pad-1 convs (``conv_i``) with BatchNorm (``bn_i``) and
+    LeakyReLU 0.2, channels halving from ``input_nc`` (floor ``min_nf``),
+    then a one-channel conv (``conv_out``), BatchNorm (``bn_out``) and a
+    sigmoid."""
+
+    def __init__(self, input_nc: int, min_nf: int = 8):
+        super().__init__()
+        cin, nf = input_nc, max(input_nc // 2, min_nf)
+        for i in range(4):
+            self.add_module(f"conv_{i}", Conv2d(cin, nf, 3, padding=1))
+            self.add_module(f"bn_{i}", BatchNorm(nf))
+            cin, nf = nf, max(nf // 2, min_nf)
+        self.conv_out = Conv2d(cin, 1, 3, padding=1)
+        self.bn_out = BatchNorm(1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for i in range(4):
+            h = tnn.leaky_relu(self._modules[f"bn_{i}"](
+                self._modules[f"conv_{i}"](h)), 0.2)
+        return torch.sigmoid(self.bn_out(self.conv_out(h)))

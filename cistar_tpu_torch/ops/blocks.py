@@ -16,19 +16,21 @@ from cistar_tpu_torch.ops import nn as tnn
 
 
 class _ConvBase(nn.Module):
-    def __init__(self, w_shape, cout: int):
+    def __init__(self, w_shape, cout: int, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(w_shape))
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.register_parameter(
+            "bias", nn.Parameter(torch.zeros(cout)) if bias else None)
         nn.init.normal_(self.weight, 0.0, 0.02)
 
 
 class Conv2d(_ConvBase):
-    """``ops/blocks.py::Conv2d``: NHWC in/out, OIHW weight."""
+    """``ops/blocks.py::Conv2d``: NHWC in/out, OIHW weight; ``bias=False``
+    is JAX's ``use_bias=False``."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 padding: int = 0, dilation: int = 1):
-        super().__init__((cout, cin, kernel, kernel), cout)
+                 padding: int = 0, dilation: int = 1, bias: bool = True):
+        super().__init__((cout, cin, kernel, kernel), cout, bias)
         self.stride, self.padding, self.dilation = stride, padding, dilation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

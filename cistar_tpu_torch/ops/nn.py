@@ -115,11 +115,19 @@ def instance_norm_stats(x: torch.Tensor, eps: float = 1e-5
     return mean, torch.rsqrt(var + eps)
 
 
-def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Affine-free instance norm over H, W; statistics in fp32, result cast
-    back to the input dtype (``ops/nn.py::instance_norm``)."""
+def instance_norm(x: torch.Tensor, eps: float = 1e-5,
+                  gamma: Optional[torch.Tensor] = None,
+                  beta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Instance norm over H, W; statistics in fp32, result cast back to the
+    input dtype (``ops/nn.py::instance_norm``). Affine when given the (C,)
+    ``gamma`` (γ itself) and ``beta``, applied in fp32 in that order."""
     mean, rsigma = instance_norm_stats(x, eps)
-    return ((x.float() - mean) * rsigma).to(x.dtype)
+    out = (x.float() - mean) * rsigma
+    if gamma is not None:
+        out = out * gamma.float()
+    if beta is not None:
+        out = out + beta.float()
+    return out.to(x.dtype)
 
 
 def instance_norm_act(x: torch.Tensor, act: str = "none",

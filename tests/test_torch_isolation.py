@@ -37,7 +37,9 @@ def _one_torch_thread():
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(ROOT))
                     for p in (ROOT / "cistar_tpu_torch").rglob("*.py"))
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cistar_tpu"}
+# sklearn: the card's machine has none (apps/encode_features.py carries
+# its own k-means)
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cistar_tpu", "sklearn"}
 
 
 def _imported_roots(path: Path):

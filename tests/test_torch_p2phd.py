@@ -33,7 +33,8 @@ from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
 from cistar_tpu_torch.kernels import int8_msrb as km
 from cistar_tpu_torch.kernels import int8_tiled as kt
 from cistar_tpu_torch.models import fast_infer as fi
-from cistar_tpu_torch.models.pix2pixhd import (BatchNorm, GlobalGenerator,
+from cistar_tpu_torch.models.pix2pixhd import (AutoEncoder, BatchNorm,
+                                               Encoder, GlobalGenerator,
                                                UNetGeneratorHD, define_g)
 from cistar_tpu_torch.ops import nn as tnn
 from cistar_tpu_torch.ops import quant_int8 as qi
@@ -170,9 +171,17 @@ def test_generator_fp32_matches_jax(gens, family):
 def test_define_g_dispatch():
     assert isinstance(define_g("global", 1, 1, 4, 1, 1), GlobalGenerator)
     assert isinstance(define_g("UNet", 1, 1, 4, 1, 1), UNetGeneratorHD)
-    for net_g in ("encoder", "autoencoder"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-            define_g(net_g, 1, 1, 4)
+    # encoder and autoencoder are ported now: JAX's Encoder(output_nc, ngf,
+    # n_downsample_global) and AutoEncoder; an unknown netG raises as JAX's
+    enc = define_g("encoder", 1, 3, 4, 2)
+    assert isinstance(enc, Encoder) and len(enc.down) == 2
+    assert enc.head.conv.weight.shape[0] == 3
+    ae = define_g("autoencoder", 1, 1, 4, 2, 1)
+    assert isinstance(ae, AutoEncoder)
+    assert {"init_layer", "encoder_1", "resblock_0", "decoder_1",
+            "output_layer"} <= set(dict(ae.named_children()))
+    with pytest.raises(ValueError, match="not implemented"):
+        define_g("nope", 1, 1, 4)
     # norm="batch" is ported now: every stage of the trunk gets a BatchNorm
     g = define_g("global", 1, 1, 4, 1, 1, norm="batch")
     assert isinstance(g.trunk.res[0].norm1, BatchNorm)
@@ -542,6 +551,14 @@ def test_encode_input_matches_jax():
 
 
 def test_engine_refuses_unported_families():
+    # encoder and autoencoder now build and serve; the int8 tier still
+    # refuses them, as JAX's quantize_generator does
     for net_g in ("encoder", "autoencoder"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-            Pix2PixHDInference(net_g, device="cpu")
+        eng = Pix2PixHDInference(net_g, ngf=4, n_downsample_global=1,
+                                 n_blocks_global=1, device="cpu")
+        out = eng.infer_step(torch.zeros(1, 8, 8, 1))
+        assert out.shape == (1, 8, 8, 1) and out.dtype == torch.float32
+        with pytest.raises(NotImplementedError, match="no int8"):
+            eng.quantize_generator()
+    with pytest.raises(ValueError, match="not implemented"):
+        Pix2PixHDInference("nope", device="cpu")

@@ -820,7 +820,6 @@ def test_test_cli_writes_the_gallery(dataroot, tmp_path, data_type):
 
 
 @pytest.mark.parametrize("app,flag,item", [
-    (p2phd_train, ["--uda"], "item 10"),
     (p2phd_train, ["--spatial_shard"], "item 11"),
     (p2phd_test, ["--export_onnx", "x"], "item 11"),
     (p2phd_test, ["--engine", "x"], "item 11"),
