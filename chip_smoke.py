@@ -369,12 +369,47 @@ port kernel; the UDA CLI, the feature tools and the UI session:
     opt.txt`` for both training modules on 16 synthetic 512² pairs (one
     epoch of the 30% split): the ``.npz`` files written, no kernel
     launched; ``R2LAE.infer`` on the saved nets and 4 test frames, a frame
-    alone as in the batch;
+    alone as in the batch; the same two calls again with cuDNN's
+    deterministic algorithms (no autotuning), every module's frame-0 output
+    recorded in both and the first that differs printed (``[uda cli]``);
 45. ``apps/encode_features.py`` ``--mode maps`` and ``--mode cluster`` at
     512² (nef 16, 4 downsamplings, 3 features, 10 clusters) on those frames,
     the encoder on the card; an ``EditSession`` over ``global`` with three
     feature channels: a stroke edit composited inside its box (nothing
     outside it changes) and a style switch to a cluster centre.
+
+LPIPS, checkpoint import and the dashboard (slice 16; the dashboard uses no
+device and is not driven here):
+
+46. the rows of ``tools/fidelity_table.py`` at its shapes, weights from
+    seed 0, inputs from the port's ``make_radar``: ``cyclegan256``
+    (ResNet-9, 64 features, 8 × 256², int8 through K1), ``p2phd_global512``
+    (``global``, ngf 64, 4 downsamplings, 9 blocks, 4 × 512²; K7a + K7b at
+    ct 256), ``unet_msrb512`` (``UNet`` at ``r2l_MSRB_7``'s widths, 4 ×
+    512²; K8), ``local1024`` (``local``, ngf 32, 2 × 1024²; K7 at ct 128):
+    for each, the fp32 forward (TF32 off), the bf16 forward and the int8
+    engine (counted: the row's kernels, no other); each engine's calibrated
+    LPIPS metric and pixel L1 against fp32 (``utils/fidelity.py::
+    fidelity_metric``, computed in fp32 with TF32 off), each within
+    ``BUDGET`` (1e-2); the first row's ``lpips_distance`` of frames 0-1
+    (bf16, fp32) on the card within ``LPIPS_CPU_RTOL`` of the CPU's;
+47. the reference's checkpoints: seeded ``state_dict`` s of the torch twins
+    (``tools/reference_twins.py``) saved as ``.pth`` in a temporary
+    directory, the ``UNet`` of ``checkpoints/r2l_MSRB_7/opt.txt`` as
+    ``latest_net_G.pth`` and the CycleGAN test CLI's ``bilinear_content``
+    pair with its two D as ``netG_A2B.pth`` … ``netD_B.pth``; each converted
+    by ``python -m cistar_tpu_torch.apps.convert_checkpoint`` (five
+    processes side by side), each ``.npz`` equal key for key and bit for bit
+    to what ``core/convert_models.py``'s ``*_from_pth`` gives; then, each in
+    a process of its own, the four side by side (``CLI_RUNNER``: the CLI's
+    ``main`` with its engine's calls recorded and the launch counts
+    printed), ``p2phd_test --data_type 32`` and ``8`` (K8, 12 a frame) and
+    ``cyclegan_test --dtype fp32`` and ``--engine int8`` (K5 18 and K6 3 a
+    frame) on 2 test frames of 512²: the fp32 outputs within
+    ``CKPT_FP32_ABS`` of the twins' fp32 forwards of the same frames on the
+    card with one-pass instance norms and within ``CKPT_REF_ABS`` with their
+    own (TF32 off), the int8 outputs within ``BUDGET`` of the same CLI's
+    fp32 in ``fidelity_metric``; the seconds each step took.
 
 The fp32 reference forwards run with TF32 off, the rest under PyTorch's
 defaults. The line before the last is the card's name and power limit; the
@@ -2659,6 +2694,71 @@ EXT_UI = dict(ngf=64, n_downsample_global=4, n_blocks_global=9)
 EXT_FEATURES = ["--nef", "16", "--n_downsample_E", "4", "--feat_num", "3",
                 "--n_clusters", "10", "--label_nc", "0"]
 
+# LPIPS, checkpoint import and the dashboard (slice 16). Phase 46: the
+# rows of tools/fidelity_table.py at its shapes (row, batch of
+# make_radar, size), weights from seed 0; every engine within
+# utils/fidelity.py's BUDGET of its fp32 forward in the calibrated LPIPS
+# metric. The card's LPIPS of the first row's first two (bf16, fp32) pairs
+# within LPIPS_CPU_RTOL of the CPU's on the same tensors: fp32 with TF32
+# off, so only the convs' order of sums differs.
+FIDELITY_ROWS = (("cyclegan256", 8, 256), ("p2phd_global512", 4, 512),
+                 ("unet_msrb512", 4, 512), ("local1024", 2, 1024))
+LPIPS_CPU_RTOL = 1e-4
+# Phase 47: the reference's .pth files from the torch twins
+# (tools/reference_twins.py), seeded: the UNet of
+# checkpoints/r2l_MSRB_7/opt.txt (64 features, 3 MSRB blocks), and the
+# CycleGAN test CLI's bilinear_content pair (16 features, 6 blocks) with
+# its two D; the test CLIs on CKPT_FRAMES test frames of CKPT_PAIRS
+# synthetic 512² pairs (CycleGAN's test split is the last 10%: 2 of 12).
+# Each CLI's fp32 output against the twin's fp32 forward of the same frame
+# on the card, TF32 off on both sides: within CKPT_FP32_ABS of the twin
+# with the port's one-pass instance-norm moments (the twin's NCHW convs
+# and the port's NHWC ones sum in other orders: 1.9e-6 read at the UNet),
+# and within CKPT_REF_ABS of the twin's own nn.InstanceNorm2d, from which
+# the one-pass moments, E[x²] − E[x]² in fp32 as the JAX package takes
+# them, move the output by 1.2e-5-1.8e-5 (read on the H100).
+CKPT_UNET, CKPT_BIL = dict(nf=64, n_res=3), dict(nf=16, n_res=6)
+CKPT_SIZE, CKPT_PAIRS, CKPT_FRAMES = 512, 12, 2
+CKPT_FP32_ABS, CKPT_REF_ABS = 1e-5, 5e-5
+# Runs a CLI's ``main`` in a process of its own, as ``python -m`` would:
+# argv[1] the module, argv[2] an .npz for what its engine computed (every
+# infer_step / infer_step_int8 call's inputs and outputs, in call order),
+# argv[3] "0" to turn TF32 off; prints the kernel launch counts as JSON on
+# its last line.
+CLI_RUNNER = r"""
+import importlib, json, sys
+import numpy as np, torch
+mod, out, tf32 = sys.argv[1], sys.argv[2], sys.argv[3] == "1"
+argv = sys.argv[4:]
+torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+from cistar_tpu_torch.engines.cyclegan import CycleGANInference
+from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
+from cistar_tpu_torch.kernels import (fused_conv, head_cout1, in_act,
+    int8_atrous, int8_msrb, int8_resblock, int8_tiled)
+calls = []
+def record(cls, name):
+    fn = getattr(cls, name)
+    def wrapped(self, *a):
+        y = fn(self, *a)
+        ins = [t for v in a for t in (v if isinstance(v, tuple) else (v,))
+               if isinstance(t, torch.Tensor)]
+        calls.append([t.float().cpu().numpy() for t in
+                      (*ins, *(y if isinstance(y, tuple) else (y,)))])
+        return y
+    setattr(cls, name, wrapped)
+for cls in (CycleGANInference, Pix2PixHDInference):
+    for name in ("infer_step", "infer_step_int8"):
+        record(cls, name)
+mods = (fused_conv, head_cout1, in_act, int8_atrous, int8_msrb,
+        int8_resblock, int8_tiled)
+importlib.import_module(mod).main(argv)
+if torch.cuda.is_available():
+    torch.cuda.synchronize()
+np.savez(out, **{f"{c:03d}_{i}": v for c, vs in enumerate(calls)
+                   for i, v in enumerate(vs)})
+print(json.dumps({k: v for m in mods for k, v in m.launches.items()}))
+"""
+
 
 def family(dev, gen_type: str, dense: bool, seed: int = 0):
     """One of the other CycleGAN generators at ``FAM``'s width, its
@@ -2997,16 +3097,20 @@ def family_train_path(dev, counters) -> None:
                     os.remove(os.path.join(out, f))
 
 
-def synthetic_tool():
-    """``tools/make_synthetic_r2l.py``, loaded from its file."""
+def tool(name: str):
+    """``tools/<name>.py``, loaded from its file."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "make_synthetic_r2l", os.path.join(ROOT, "tools",
-                                           "make_synthetic_r2l.py"))
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
-    return tool
+        name, os.path.join(ROOT, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def synthetic_tool():
+    """``tools/make_synthetic_r2l.py``."""
+    return tool("make_synthetic_r2l")
 
 
 def synthetic_pairs(n: int, size: int):
@@ -4564,6 +4668,7 @@ def ext_cli(dev, counters) -> None:
               f"frame 0 alone vs in the batch max-abs {err!r} (TF32 off; "
               f"largest |value| {top!r})", flush=True)
         check(err <= INFER_BATCH_ABS, "R2LAE.infer is batch independent")
+        infer_batch_bisect(eng, st, r.to(dev), li.to(dev))
 
         # 45. encode_features, then the UI, with the encoder on the card
         feat_args = ["--dataroot", data, "--checkpoints_dir", ck,
@@ -4627,11 +4732,406 @@ def ext_cli(dev, counters) -> None:
               "the style switch changes the frame")
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms, no autotuning."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            saved
+
+
+def infer_batch_bisect(eng, st, r, li) -> None:
+    """Phase 44's two ``R2LAE.infer`` calls (frame 0 alone and in the batch)
+    with TF32 off and cuDNN's deterministic algorithms, and the first module
+    of ``E``, ``G_lidar``, ``G_radar`` (in call order) whose frame-0 output
+    differs between them; printed, not held (the outputs stay held to
+    ``INFER_BATCH_ABS`` by phase 44)."""
+    import torch
+
+    mods = [(f"{net}.{name}" if name else net, m)
+            for net in ("E", "G_lidar", "G_radar")
+            for name, m in getattr(eng, net).named_modules()]
+
+    def run(n):
+        rec = []
+        hooks = [m.register_forward_hook(
+            lambda m_, i, o, name=name: rec.append(
+                (name, type(m_).__name__, o[0].detach().float().clone(),
+                 o.shape[0])))
+            for name, m in mods]
+        try:
+            out = eng.infer(st, r[:n], li[:n])
+        finally:
+            for h in hooks:
+                h.remove()
+        return out, rec
+
+    with fp32_exact(), cudnn_deterministic():
+        out, rec_n = run(r.shape[0])
+        one, rec_1 = run(1)
+    err = max((one[k][0] - out[k][0]).abs().max().item() for k in out)
+    check([e[0] for e in rec_n] == [e[0] for e in rec_1],
+          "the same modules run in both calls")
+    diffs = [(name, kind, (a - b).abs().max().item())
+             for (name, kind, a, _), (_, _, b, _) in zip(rec_n, rec_1)]
+    first = next((d for d in diffs if d[2] > 0), None)
+    n_diff = sum(d[2] > 0 for d in diffs)
+    print(f"[uda cli] R2LAE.infer frame 0 alone vs in the batch, TF32 off, "
+          f"cuDNN deterministic (benchmark off): max-abs {err!r}; "
+          f"{n_diff} of {len(diffs)} module outputs differ, the first "
+          f"{first!r}", flush=True)
+    if first is None:
+        return
+    i = diffs.index(first)
+    print(f"[uda cli] the modules around it: {diffs[max(0, i - 2):i + 4]!r}",
+          flush=True)
+    if i == 0 or diffs[i - 1][2] != 0:
+        return
+    # its input is the same in both calls: the instance-norm moments of
+    # that frame at either call's batch shape (a reduction's order of sums
+    # follows the shape, not the values), one-pass as the port takes them
+    # and two-pass
+    frame, nb = rec_n[i - 1][2], (rec_n[i - 1][3], rec_1[i - 1][3])
+    with fp32_exact():
+        moments = []
+        for n in nb:
+            xf = frame.expand(n, *frame.shape).contiguous()
+            mean = xf.mean((1, 2))[0]
+            one = (xf * xf).mean((1, 2))[0] - mean * mean
+            two = ((xf - mean) ** 2).mean((1, 2))[0]
+            moments.append((mean, one, two))
+    (m_a, o_a, t_a), (m_b, o_b, t_b) = moments
+
+    def rel(a, b):
+        return ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+
+    print(f"[uda cli] the instance-norm moments of that module's input "
+          f"(the same frame at batch {nb[0]} and {nb[1]}): mean "
+          f"{rel(m_a, m_b)!r} relative, one-pass variance E[x²]-E[x]² "
+          f"{rel(o_a, o_b)!r}, "
+          f"two-pass variance {rel(t_a, t_b)!r}; |mean| / std up to "
+          f"{(m_a.abs() / t_a.sqrt()).max().item()!r}", flush=True)
+
+
 def extended_path(dev, counters) -> None:
     """Phases 41-45: the extended pix2pixHD trainers (slice 15)."""
     ext_check(dev)
     ext_full(dev, counters)
     ext_cli(dev, counters)
+
+
+def fidelity_path(dev, counters) -> None:
+    """Phase 46: the bf16 forward and the int8 engine of each row of
+    ``tools/fidelity_table.py`` against the fp32 forward, in the calibrated
+    LPIPS metric and the pixel L1."""
+    import torch
+
+    from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
+    from cistar_tpu_torch.models import fast_infer as fi
+    from cistar_tpu_torch.models.cyclegan import seeded_generator
+    from cistar_tpu_torch.ops import quant_int8 as qi
+    from cistar_tpu_torch.utils.fidelity import (BUDGET, fidelity_metric,
+                                                 make_radar)
+    from cistar_tpu_torch.utils.lpips import lpips_distance
+
+    def p2p(family_, **cfg):
+        eng = Pix2PixHDInference(family_, seed=0, **cfg)
+        return eng.G, eng.quantize_generator()
+
+    def k7(nb):
+        return {"resblock_int8_tiled_a": nb, "resblock_int8_tiled_b": nb}
+
+    glob, unet = P2PHD["global"], P2PHD["UNet"]
+    builders = {
+        "cyclegan256": lambda: (
+            *(lambda g: (g, qi.quantize_resnet_trunk(g)))(seeded_generator(
+                "p2p", BLOCKS, FEATURES, seed=0, device=dev)),
+            fi.resnet_generator_int8_trunk_apply,
+            {"resblock_int8_bf16io": BLOCKS}),
+        "p2phd_global512": lambda: (
+            *p2p("global", ngf=glob["ngf"],
+                 n_downsample_global=glob["n_downsample_global"],
+                 n_blocks_global=glob["n_blocks_global"]),
+            fi.global_generator_int8_trunk_apply,
+            k7(glob["n_blocks_global"])),
+        "unet_msrb512": lambda: (
+            *p2p("UNet", ngf=unet["ngf"],
+                 n_blocks_global=unet["n_blocks_global"]),
+            fi.unet_msrb_int8_apply,
+            {"msrb_branch_int8": 4 * unet["n_blocks_global"]}),
+        "local1024": lambda: (
+            *p2p("local", **{k: LOCAL[k] for k in (
+                "ngf", "n_downsample_global", "n_blocks_global",
+                "n_local_enhancers", "n_blocks_local")}),
+            fi.local_enhancer_int8_apply, k7(LOCAL["n_blocks_global"])),
+    }
+    t_phase = time.perf_counter()
+    for name, batch, size in FIDELITY_ROWS:
+        gen, qb, int8_fn, want = builders[name]()
+        x = torch.from_numpy(make_radar(batch, size)).to(dev)
+        with fp32_exact():
+            ref = gen(x)
+        outs = {"bf16": gen(x.bfloat16())}
+        for m in counters:
+            m.reset_launches()
+        outs["int8"] = int8_fn(gen, qb, x.bfloat16())
+        torch.cuda.synchronize()
+        launches = {k: v for m in counters for k, v in m.launches.items()}
+        check(all(launches[k] == want.get(k, 0) for k in launches),
+              f"{name}: the int8 engine launches {want} and no other kernel")
+        with fp32_exact():
+            metrics = {e: fidelity_metric(ref, y) for e, y in outs.items()}
+        for e, mt in metrics.items():
+            print(f"[fidelity] {name} ({batch}, {size}, {size}, 1) {e} vs "
+                  f"fp32: lpips_metric {mt['lpips_metric']!r}, pixel_l1 "
+                  f"{mt['pixel_l1']!r} (budget {BUDGET}; launches "
+                  f"{want if e == 'int8' else {}})", flush=True)
+            check(mt["lpips_metric"] < BUDGET,
+                  f"{name} {e} within the LPIPS budget of fp32")
+        if name == FIDELITY_ROWS[0][0]:
+            a, b = ((y[:2].float() + 1) / 2 for y in (outs["bf16"], ref))
+            with fp32_exact():
+                d_card = lpips_distance(a, b).cpu()
+            d_cpu = lpips_distance(a.cpu(), b.cpu())
+            rel = ((d_card - d_cpu).abs() / d_cpu).max().item()
+            print(f"[fidelity] {name} lpips_distance of frames 0-1 (bf16, "
+                  f"fp32) on the card {d_card.tolist()!r}, on the CPU "
+                  f"{d_cpu.tolist()!r}: {rel!r} relative (tol "
+                  f"{LPIPS_CPU_RTOL})", flush=True)
+            check(rel <= LPIPS_CPU_RTOL, "the card's LPIPS is the CPU's")
+        del gen, qb, ref, outs
+        torch.cuda.empty_cache()
+    print(f"[fidelity] phase 46 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def run_clis(runs: dict, tmp: str) -> dict:
+    """Each CLI of ``runs`` (label → (module, args, TF32 on)) in a process
+    of its own (:data:`CLI_RUNNER`), all started together: label → (the
+    seconds to its exit, its engine's calls (each a list of arrays: the
+    inputs, then the outputs), its kernel launches)."""
+    import numpy as np
+
+    procs = {}
+    t0 = time.perf_counter()
+    for k, (label, (module, args, tf32)) in enumerate(runs.items()):
+        out = os.path.join(tmp, f"cli{k}")
+        with open(out + ".out", "w") as so, open(out + ".err", "w") as se:
+            procs[label] = (out, subprocess.Popen(
+                [sys.executable, "-c", CLI_RUNNER, module, out + ".npz",
+                 "1" if tf32 else "0", *args], cwd=ROOT, stdout=so,
+                stderr=se))
+    secs = {}
+    while len(secs) < len(procs):
+        for label, (_, p) in procs.items():
+            if label not in secs and p.poll() is not None:
+                secs[label] = time.perf_counter() - t0
+        time.sleep(0.05)
+    results = {}
+    for label, (out, p) in procs.items():
+        stdout = open(out + ".out").read()
+        if p.returncode != 0:
+            print(stdout[-4000:], open(out + ".err").read()[-4000:],
+                  flush=True)
+            check(False, f"{label}: exit {p.returncode}")
+        with np.load(out + ".npz") as f:
+            calls = {}
+            for k in sorted(f.files):
+                calls.setdefault(k.split("_")[0], []).append(f[k])
+        results[label] = (secs[label], [calls[c] for c in sorted(calls)],
+                          json.loads(stdout.strip().splitlines()[-1]))
+    return results
+
+
+def checkpoint_path(dev, counters) -> None:
+    """Phase 47: the reference's ``.pth`` files converted by
+    ``apps/convert_checkpoint.py`` and served by both test CLIs, each step a
+    process of its own."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cistar_tpu_torch.core import checkpoint as ckpt
+    from cistar_tpu_torch.core import convert as cv
+    from cistar_tpu_torch.core import convert_models as cm
+    from cistar_tpu_torch.core.torch_import import load_state_dict
+    from cistar_tpu_torch.data.datasets import (CycleGANImageDataset,
+                                                Radar2LidarDataset)
+    from cistar_tpu_torch.utils.fidelity import BUDGET, fidelity_metric
+
+    tw = tool("reference_twins")
+    size = CKPT_SIZE
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data, ck = os.path.join(tmp, "data"), os.path.join(tmp, "ck")
+        run, mdir = os.path.join(ck, "r2l_MSRB_7"), os.path.join(tmp, "cg")
+        for d in (run, mdir):
+            os.makedirs(d)
+        synthetic_tool().main(["--out", data, "--n", str(CKPT_PAIRS),
+                               "--size", str(size)])
+        # the reference's files: (path, family flags, twin, port state_dict)
+        unet = tw.seeded(tw.UNetHD, n_res=CKPT_UNET["n_res"],
+                         nf=CKPT_UNET["nf"])
+        files = {os.path.join(run, "latest_net_G"): (
+            ["--family", "p2phd-g", "--netG", "UNet", "--n_blocks_global",
+             str(CKPT_UNET["n_res"])], unet,
+            lambda sd: cm.p2phd_generator_from_pth(
+                sd, "UNet", n_blocks_global=CKPT_UNET["n_res"]))}
+        for seed, net in enumerate(("netG_A2B", "netG_B2A", "netD_A",
+                                    "netD_B"), 1):
+            gen = net.startswith("netG")
+            files[os.path.join(mdir, net)] = (
+                ["--family", "cyclegan-g" if gen else "cyclegan-d",
+                 "--gen_type", "bilinear_content", "--n_residual_blocks",
+                 str(CKPT_BIL["n_res"])],
+                tw.seeded(tw.SkipDecoderG, seed, kind="bilinear",
+                          n_res=CKPT_BIL["n_res"], nf=CKPT_BIL["nf"])
+                if gen else tw.seeded(tw.CycleD, seed),
+                (lambda sd: cm.cyclegan_generator_from_pth(
+                    sd, "bilinear_content", CKPT_BIL["n_res"])) if gen
+                else cm.cyclegan_discriminator_from_pth)
+        for base, (_, twin, _) in files.items():
+            torch.save(twin.state_dict(), base + ".pth")
+        # convert each file, the processes side by side
+        t0 = time.perf_counter()
+        procs = {base: subprocess.Popen(
+            [sys.executable, "-m", "cistar_tpu_torch.apps.convert_checkpoint",
+             *flags, "--in_pth", base + ".pth", "--out", base + ".npz"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for base, (flags, _, _) in files.items()}
+        for base, p in procs.items():
+            out = p.communicate()[0]
+            check(p.returncode == 0, f"convert_checkpoint {base}: {out}")
+            print(f"[checkpoint import] {out.strip()}", flush=True)
+        print(f"[checkpoint import] {len(procs)} convert_checkpoint "
+              f"processes side by side in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        for base, (_, _, from_pth) in files.items():
+            want = from_pth(load_state_dict(base + ".pth"))
+            tree = ckpt.load_pytree(base + ".npz")
+            got = (cv.unet_generator_hd_from_jax(tree) if "net_G" in base
+                   else cv.generator_from_jax(tree) if "netG" in base
+                   else cv.patch_discriminator_from_jax(tree))
+            check(sorted(got) == sorted(want) and all(
+                torch.equal(got[k], want[k]) for k in want),
+                f"{os.path.basename(base)}.npz is what *_from_pth loads")
+        print(f"[checkpoint import] each .npz equals its *_from_pth "
+              f"state_dict key for key, bit for bit", flush=True)
+
+        # the test CLIs on the converted files
+        p2p_args = ["--load_opt", os.path.join(ROOT, "checkpoints",
+                                               "r2l_MSRB_7", "opt.txt"),
+                    "--r2l_res", str(size), "--ngf", str(CKPT_UNET["nf"]),
+                    "--n_blocks_global", str(CKPT_UNET["n_res"]),
+                    "--dataroot", data, "--checkpoints_dir", ck,
+                    "--results_dir", os.path.join(tmp, "res"), "--phase",
+                    "test", "--how_many", str(CKPT_FRAMES), "--device",
+                    dev.type]
+        cg_args = ["--dataroot", data, "--model_dir", mdir, "--size",
+                   str(size), "--gen_type", "bilinear_content", "--device",
+                   dev.type]
+        k8 = {"msrb_branch_int8": 4 * CKPT_UNET["n_res"] * CKPT_FRAMES}
+        # 3 generator calls a frame (fake_B, fake_A, recover_B), each 6 K5
+        # and 1 K6
+        k56 = {"atrous_resblock_int8": 6 * 3 * CKPT_FRAMES,
+               "multi_atrous_stage_int8": 3 * CKPT_FRAMES}
+        p2p, cg = "cistar_tpu_torch.apps.p2phd_test", \
+            "cistar_tpu_torch.apps.cyclegan_test"
+        plan = {"p2phd_test --data_type 32": (
+                    p2p, p2p_args + ["--data_type", "32"], False, {}),
+                "p2phd_test --data_type 8": (
+                    p2p, p2p_args + ["--data_type", "8"], True, k8),
+                "cyclegan_test --dtype fp32": (
+                    cg, cg_args + ["--dtype", "fp32"], False, {}),
+                "cyclegan_test --engine int8": (
+                    cg, cg_args + ["--engine", "int8"], True, k56)}
+        t0 = time.perf_counter()
+        results = run_clis({k: v[:3] for k, v in plan.items()}, tmp)
+        runs = {}
+        for label, (dt, calls, launches) in results.items():
+            want = plan[label][3]
+            nz = {k: v for k, v in launches.items() if v}
+            print(f"[checkpoint cli] {label}: {len(calls)} frames of "
+                  f"{size}² in {dt:.1f} s (its own process, start-up "
+                  f"included, the four side by side); launches {nz}",
+                  flush=True)
+            check(len(calls) == CKPT_FRAMES, f"{label}: {CKPT_FRAMES} calls")
+            check(all(launches[k] == want.get(k, 0) for k in launches),
+                  f"{label} launches {want} and no other kernel")
+            runs[label] = calls
+        print(f"[checkpoint cli] the four CLI processes in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # fp32: the twins' forwards of the same frames on the card, with
+        # nn.InstanceNorm2d and with the port's one-pass moments
+        r2l = Radar2LidarDataset(data, size=size, mode="test")
+        cgd = CycleGANImageDataset(data, size=size, mode="test")
+        nets = {"p2phd_test": unet, "A2B": files[os.path.join(
+            mdir, "netG_A2B")][1], "B2A": files[os.path.join(mdir,
+                                                             "netG_B2A")][1]}
+        worst = {}
+        with fp32_exact():
+            for kind, tol in (("its nn.InstanceNorm2d", CKPT_REF_ABS),
+                              ("one-pass instance norms", CKPT_FP32_ABS)):
+                tn = {k: (tw.with_one_pass_norms(m) if kind.startswith(
+                    "one-pass") else m).to(dev) for k, m in nets.items()}
+
+                def hold(lab, t, y):
+                    err = float(np.abs(tw.nhwc(t).cpu().numpy() - y).max())
+                    key = (lab, kind, tol)
+                    worst[key] = max(worst.get(key, 0.0), err)
+
+                for i, call in enumerate(runs["p2phd_test --data_type 32"]):
+                    x, y = call[0], call[-1]
+                    check(np.array_equal(x[0], r2l[i]["label"]),
+                          "p2phd_test read the test frame")
+                    hold("p2phd_test", tn["p2phd_test"](
+                        tw.nchw(x).to(dev)), y)
+                for i, call in enumerate(runs["cyclegan_test --dtype fp32"]):
+                    a, b, fake_b, fake_a, rec_b = call
+                    check(np.array_equal(b[0], cgd[i]["B"]),
+                          "cyclegan_test read the test frame")
+                    tfa = tn["B2A"](tw.nchw(b).to(dev))
+                    hold("cyclegan_test fake_B", tn["A2B"](
+                        tw.nchw(a).to(dev)), fake_b)
+                    hold("cyclegan_test fake_A", tfa, fake_a)
+                    hold("cyclegan_test recover_B",
+                         tn["A2B"]((tfa - 0.5) / 0.5), rec_b)
+        for (lab, kind, tol), err in worst.items():
+            print(f"[checkpoint cli] {lab} fp32 vs the twin's fp32 forward "
+                  f"({kind}) on the card, TF32 off: max-abs {err!r} (tol "
+                  f"{tol})", flush=True)
+            check(err <= tol, f"{lab}: the converted checkpoint serves the "
+                  f"twin's function ({kind})")
+        # int8 against the same CLI's fp32, in the LPIPS metric
+        for lab, fp32_run, int8_run, outs in (
+                ("p2phd_test", "p2phd_test --data_type 32",
+                 "p2phd_test --data_type 8", {"fake": -1}),
+                ("cyclegan_test", "cyclegan_test --dtype fp32",
+                 "cyclegan_test --engine int8",
+                 {"fake_B": 2, "fake_A": 3, "recover_B": 4})):
+            for o, j in outs.items():
+                ref, y = (torch.from_numpy(np.concatenate(
+                    [c[j] for c in runs[r]])).to(dev)
+                    for r in (fp32_run, int8_run))
+                with fp32_exact():
+                    mt = fidelity_metric(ref, y)
+                print(f"[checkpoint cli] {lab} int8 {o} vs its fp32, "
+                      f"{CKPT_FRAMES} frames: lpips_metric "
+                      f"{mt['lpips_metric']!r}, pixel_l1 {mt['pixel_l1']!r} "
+                      f"(budget {BUDGET})", flush=True)
+                check(mt["lpips_metric"] < BUDGET,
+                      f"{lab} int8 {o} within the LPIPS budget")
+    print(f"[checkpoint import] phase 47 in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -4712,6 +5212,8 @@ def main() -> int:
     gatys_path(dev, counters)
     p2phd_train_path(dev, counters)   # train_step enables grad itself
     extended_path(dev, counters)
+    fidelity_path(dev, counters)
+    checkpoint_path(dev, counters)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

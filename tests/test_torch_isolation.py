@@ -50,11 +50,13 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
-# chip_smoke.py makes its training frames with tools/make_synthetic_r2l.py;
+# chip_smoke.py makes its training frames with tools/make_synthetic_r2l.py
+# and its reference checkpoints with tools/reference_twins.py;
 # tools/p2p_check_repeat.py runs its phase 36 again and again
 @pytest.mark.parametrize("rel", PORT_FILES + ["chip_smoke.py",
                                               "tools/make_synthetic_r2l.py",
-                                              "tools/p2p_check_repeat.py"])
+                                              "tools/p2p_check_repeat.py",
+                                              "tools/reference_twins.py"])
 def test_no_jax_imports(rel):
     bad = FORBIDDEN.intersection(_imported_roots(ROOT / rel))
     assert not bad, f"{rel} imports {sorted(bad)}"
@@ -79,6 +81,22 @@ def test_scan_sees_the_port():
     "cistar_tpu_torch/data/aligned.py",
     "cistar_tpu_torch/utils/label_viz.py"])
 def test_p2phd_trainer_modules_are_scanned(rel):
+    assert rel in PORT_FILES
+    assert "cistar_tpu" not in set(_imported_roots(ROOT / rel))
+
+
+# LPIPS, checkpoint import and the dashboard, including the copies of the
+# JAX-free modules core/torch_import.py, core/convert_models.py and
+# utils/dashboard.py of the JAX package
+@pytest.mark.parametrize("rel", [
+    "cistar_tpu_torch/utils/lpips.py",
+    "cistar_tpu_torch/utils/fidelity.py",
+    "cistar_tpu_torch/core/torch_import.py",
+    "cistar_tpu_torch/core/convert_models.py",
+    "cistar_tpu_torch/apps/convert_checkpoint.py",
+    "cistar_tpu_torch/utils/dashboard.py",
+    "cistar_tpu_torch/apps/dashboard.py"])
+def test_slice16_modules_are_scanned(rel):
     assert rel in PORT_FILES
     assert "cistar_tpu" not in set(_imported_roots(ROOT / rel))
 
