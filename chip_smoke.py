@@ -411,6 +411,43 @@ device and is not driven here):
     own (TF32 off), the int8 outputs within ``BUDGET`` of the same CLI's
     fp32 in ``fidelity_metric``; the seconds each step took.
 
+Exported programs and data parallelism (``runtime/``,
+``parallel/``; the kernels are ``cistar`` custom ops,
+``kernels/custom_ops.py``, so ``torch.export`` traces through them):
+
+48. exported programs on the card (``export_path``): the ResNet-9 int8
+    engine (64 features, 256², batch 64: K1) and the ``bilinear_content``
+    int8 engine (16 features, 6 blocks, 512², batch 32: K5, K6), each the
+    per-rank program of ``make_sharded_infer`` (``InferProgram``, weights
+    as arguments) exported, saved and loaded (``runtime/aot.py``); then
+    ``p2phd_test --data_type 8 --export_onnx`` and ``--engine`` at
+    ``r2l_MSRB_7`` (``UNet``, 512², K8) on a seeded checkpoint, through the
+    CLI. For each: export and load seconds, eager and loaded ms a call
+    (``profile_fn``), the loaded program's op table, top 8
+    (``runtime/profiler.py``), which must name the case's kernels (K1; K5
+    and K6; K8: kernels the trace links to their ``cistar`` op), its
+    launches counted (only the case's kernels); the loaded program against
+    the eager call under cuDNN's deterministic mode: bit for bit where two
+    eager calls are, else (the kernels' IN sums in atomics) the eager
+    calls' gap printed and the loaded program's error against the fp32
+    forward within ``KERNEL_MEAN_RATIO`` / ``KERNEL_MAX_EXCESS`` of the
+    eager call's, the run-to-run budget of phases 4 and 8;
+49. data parallelism at world size 1 with NCCL (``dp_path``; a
+    ``file://`` rendezvous in a temporary directory): the CycleGAN step
+    (``bilinear_content``, 512², batch 4) and the ``r2l_MSRB_7`` pix2pixHD
+    step, each with the mesh against the same engine without, from the
+    same state, in fp32 with TF32 off (as phases 36 and 41 hold their
+    steps: in bf16 the backward's atomics, in bilinear upsampling and
+    reflect padding, move G's gradients by a bf16 rounding from run to
+    run), with the activation patterns replayed (``same_kinks``) and
+    cuDNN deterministic: the metrics and Adam's first moments within
+    ``TRAIN_RTOL`` (phase 41's rule); ms a step of both in bf16, the
+    CLIs' default; ``make_sharded_infer`` at ResNet-9, 256², batch 64,
+    both engines, against the unsharded engines as phase 48 holds a
+    loaded program, and ms a call of both.
+    One card cannot run NCCL with two ranks: world size 2 is the CPU
+    tests' (gloo, ``tests/test_torch_parallel.py``).
+
 The fp32 reference forwards run with TF32 off, the rest under PyTorch's
 defaults. The line before the last is the card's name and power limit; the
 kernels' JSON line comes before it; the last line is
@@ -583,24 +620,15 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def profile_top(fn, k: int = 8) -> tuple:
-    """One profiled call: wall ms, summed device-kernel ms, and the ``k``
-    kernels with the most device time as (ms, name)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One profiled call (after one warm-up call,
+    ``runtime/profiler.py::profile_op_table``): wall ms, summed
+    device-kernel ms, and the ``k`` kernels with the most device time as
+    (ms, name), a port kernel's name led by its id (``K1 ...``)."""
+    from cistar_tpu_torch.runtime.profiler import profile_op_table
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.self_device_time_total / 1e3, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
-    return wall, sum(t for t, _ in rows), rows[:k]
+    rows, totals = profile_op_table(fn, iters=1, device="cuda")
+    return (totals["wall_ms"], totals["total_ms"],
+            [(r["total_ms"], r["op"]) for r in rows[:k]])
 
 
 def print_times(label: str, batch: int, fn) -> None:
@@ -4950,6 +4978,380 @@ def run_clis(runs: dict, tmp: str) -> dict:
     return results
 
 
+# Phase 48's cases: label, gen_type, features, blocks, size, batch, the
+# kernel ids its op table must name
+EXPORT_CASES = (("ResNet-9 int8", "p2p-content", FEATURES, BLOCKS, SIZE,
+                 BENCH_BATCH, ("K1",)),
+                ("bilinear_content int8", "bilinear_content",
+                 BIL["features"], BIL["blocks"], BIL["size"],
+                 BIL_BENCH_BATCH, ("K5", "K6")))
+EXPORT_ITERS, EXPORT_TOP = 20, 8
+DP_STEPS = 5
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms for both sides of a comparison."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+
+
+def hold_to_eager(label: str, names, got, eager0, eager1, ref32) -> None:
+    """Phase 48's rule for an output computed two ways (a loaded program or
+    a sharded one, ``got``) against the eager call (``eager0``; a second
+    eager call ``eager1``): bit for bit where the two eager calls are;
+    else the eager gap printed, and ``got``'s error against the fp32
+    forward ``ref32`` within KERNEL_MEAN_RATIO (mean-abs) and
+    KERNEL_MAX_EXCESS (max-abs) of the eager call's."""
+    import torch
+
+    for name, g, e0, e1, r in zip(names, got, eager0, eager1, ref32):
+        gap_e, gap_g = (e1 - e0).abs(), (g - e0).abs()
+        same = torch.equal(e0, e1)
+        print(f"[{label}] {name}: eager vs eager max {gap_e.max().item()!r} "
+              f"mean {gap_e.mean().item()!r}; vs eager max "
+              f"{gap_g.max().item()!r} mean {gap_g.mean().item()!r}"
+              + ("; the eager calls equal bit for bit" if same else ""),
+              flush=True)
+        if same:
+            check(torch.equal(g, e0), f"{label} {name}: bit for bit with the "
+                  "eager call, as two eager calls are")
+            continue
+        el, ee = (g - r).abs(), (e0 - r).abs()
+        print(f"[{label}] {name} vs fp32: max {el.max().item()!r} mean "
+              f"{el.mean().item()!r}; the eager call's max "
+              f"{ee.max().item()!r} mean {ee.mean().item()!r}", flush=True)
+        check(el.mean() <= KERNEL_MEAN_RATIO * ee.mean()
+              and el.max() <= ee.max() + KERNEL_MAX_EXCESS,
+              f"{label} {name}: within the eager call's run-to-run budget")
+
+
+def check_table(label: str, rows, totals, ids) -> None:
+    """Print the op table's top EXPORT_TOP and check that it names ``ids``
+    (rows led by a kernel id, ``runtime/profiler.py``)."""
+    from cistar_tpu_torch.runtime.profiler import format_op_table
+
+    print(f"[export] {label}: the loaded program's op table\n"
+          + format_op_table(rows, totals, top=EXPORT_TOP), flush=True)
+    named = {i for r in rows for i in r["op"].split(" ", 1)[0].split("+")}
+    check(set(ids) <= named, f"{label}: the op table names {ids} (it names "
+          f"{sorted(named & {'K1', 'K2', 'K5', 'K6', 'K7a', 'K7b', 'K8'})})")
+
+
+def counted(counters, fn) -> dict:
+    """The launches of one call of ``fn``, every counter at 0 before."""
+    import torch
+
+    for m in counters:
+        m.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    return {k: v for m in counters for k, v in m.launches.items() if v}
+
+
+def export_path(dev, images, counters) -> None:
+    """Phase 48: exported programs, saved and loaded, on the card."""
+    import contextlib as cl
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cistar_tpu_torch.apps import p2phd_test
+    from cistar_tpu_torch.apps.p2phd_options import TestOptions
+    from cistar_tpu_torch.core import checkpoint as ckpt
+    from cistar_tpu_torch.data.datasets import Radar2LidarDataset
+    from cistar_tpu_torch.engines.cyclegan import (CycleGANInference,
+                                                   InferProgram)
+    from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
+    from cistar_tpu_torch.runtime.aot import (load_compiled, profile_fn,
+                                              save_compiled)
+    from cistar_tpu_torch.runtime.profiler import profile_op_table
+
+    names = ("fake_b", "fake_a", "recover_b")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, gen, feat, blocks, size, n, ids in EXPORT_CASES:
+            eng = CycleGANInference(gen, in_features=feat,
+                                    n_residual_blocks=blocks, device=dev)
+            extra = eng.program_args("int8")
+            a, b = images(n, size), images(n, size)
+            path = os.path.join(tmp, f"{gen}.pt2")
+            t0 = time.perf_counter()
+            nbytes = save_compiled(InferProgram(eng, True), extra + (a, b),
+                                   path)
+            t1 = time.perf_counter()
+            run = load_compiled(path)
+            t2 = time.perf_counter()
+            loaded = lambda: run(*extra, a, b)  # noqa: E731
+            eager = lambda: eng.infer_step_int8(  # noqa: E731
+                extra[2], extra[3], (a, b))
+            launches = counted(counters, loaded)
+            want = {"p2p-content": {"resblock_int8_bf16io": 3 * blocks},
+                    "bilinear_content": {"atrous_resblock_int8": 3 * blocks,
+                                         "multi_atrous_stage_int8": 3}}[gen]
+            print(f"[export] {label} {size}² batch {n}: exported in "
+                  f"{t1 - t0!r} s ({nbytes} bytes), loaded in {t2 - t1!r} s; "
+                  f"one loaded call launches {launches}", flush=True)
+            check(launches == want, f"{label}: the loaded program launches "
+                  f"{want}")
+            with cudnn_deterministic():
+                e0, e1, got = eager(), eager(), loaded()
+            ref = CycleGANInference(gen, in_features=feat,
+                                    n_residual_blocks=blocks, device=dev,
+                                    compute_dtype=torch.float32)
+            with fp32_exact():
+                r32 = ref.infer_step(a, b)
+            del ref
+            hold_to_eager(f"export {label}", names, got, e0, e1, r32)
+            del e0, e1, got, r32
+            pe, pl = (profile_fn(f, iters=EXPORT_ITERS, warmup=2)
+                      for f in (eager, loaded))
+            print(f"[times] {label} batch {n}: eager {pe['mean_ms']!r} ms a "
+                  f"call (p50 {pe['p50_ms']!r}), loaded {pl['mean_ms']!r} "
+                  f"ms (p50 {pl['p50_ms']!r}), {n / pl['mean_ms'] * 1e3!r} "
+                  "img/s loaded", flush=True)
+            check_table(label, *profile_op_table(loaded, iters=2), ids)
+            del eng, run, extra
+            torch.cuda.empty_cache()
+
+        # p2phd_test --export_onnx / --engine at r2l_MSRB_7 (UNet, 512²)
+        label = "p2phd_test UNet int8 (r2l_MSRB_7)"
+        opt_txt = os.path.join(ROOT, "checkpoints", "r2l_MSRB_7", "opt.txt")
+        size = P2P_TRAIN_COMMON["image_size"]
+        data, ck = os.path.join(tmp, "data"), os.path.join(tmp, "ck")
+        synthetic_tool().main(["--out", data, "--n", str(P2P_TEST_PAIRS * 2),
+                               "--size", str(size)])
+        args = ["--load_opt", opt_txt, "--dataroot", data,
+                "--checkpoints_dir", ck, "--device", dev.type, "--phase",
+                "test", "--data_type", "8", "--results_dir",
+                os.path.join(tmp, "res"), "--how_many", "2"]
+        opt = TestOptions().parse(args, save=False)
+        g = Pix2PixHDInference(opt.netG, ngf=opt.ngf,
+                               n_blocks_global=opt.n_blocks_global,
+                               input_nc=opt.input_nc, output_nc=opt.output_nc,
+                               label_nc=opt.label_nc, r2l=opt.r2l,
+                               no_instance=opt.no_instance, device=dev)
+        ckpt.save_network(os.path.join(ck, opt.name), "G", "latest",
+                          g.jax_params()["G"])
+        del g
+        pt2 = os.path.join(tmp, "unet.pt2")
+        for flag in ("--export_onnx", "--engine"):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with cl.redirect_stdout(buf):
+                p2phd_test.main(args + [flag, pt2])
+            torch.cuda.synchronize()
+            out = buf.getvalue()
+            print(f"[export] {label} {flag}: the CLI in "
+                  f"{time.perf_counter() - t0!r} s; it printed:\n"
+                  + out.strip(), flush=True)
+            if flag == "--engine":
+                check("ms/iter" in out and "\nK8 " in out,
+                      "the CLI's --engine printed its time and an op table "
+                      "naming K8")
+        eng = p2phd_test.load_engine(opt)
+        qb = eng.quantize_generator()
+        ds = Radar2LidarDataset(data, size=size, mode="test")
+        x = torch.from_numpy(np.stack([ds[0]["label"]])).to(dev)
+        t0 = time.perf_counter()
+        run = load_compiled(pt2)
+        load_s = time.perf_counter() - t0
+        loaded = lambda: run(x)  # noqa: E731
+        eager = lambda: eng.infer_step_int8(qb, x)  # noqa: E731
+        launches = counted(counters, loaded)
+        want = {"msrb_branch_int8": 4 * opt.n_blocks_global}
+        print(f"[export] {label}: loaded in {load_s!r} s; one loaded call "
+              f"launches {launches}", flush=True)
+        check(launches == want, f"{label}: the loaded program launches {want}")
+        with cudnn_deterministic():
+            e0, e1, got = eager(), eager(), loaded()
+        with fp32_exact():
+            r32 = eng.G(x)
+        hold_to_eager(f"export {label}", ("fake",), (got,), (e0,), (e1,),
+                      (r32,))
+        pe, pl = (profile_fn(f, iters=EXPORT_ITERS, warmup=2)
+                  for f in (eager, loaded))
+        print(f"[times] {label} batch 1: eager {pe['mean_ms']!r} ms a call "
+              f"(p50 {pe['p50_ms']!r}), loaded {pl['mean_ms']!r} ms (p50 "
+              f"{pl['p50_ms']!r})", flush=True)
+        check_table(label, *profile_op_table(loaded, iters=2), ("K8",))
+    print(f"[export] phase 48 took {time.perf_counter() - t_phase!r} s",
+          flush=True)
+
+
+def dp_hold(label: str, run) -> None:
+    """Phase 49's check of one train step: ``run(k)`` steps engine k (1:
+    the mesh's, recording its activation patterns; 0: without the mesh,
+    replaying them) and returns (metrics, {net: Adam state}); the metrics
+    and each net's first moment (its max-abs error over its largest) within
+    TRAIN_RTOL."""
+    masks, kinks, res = [], [], [None, None]
+    for k in (1, 0):
+        with same_kinks(masks, kinks if k == 0 else None):
+            m, opts = run(k)
+        res[k] = ({n: float(v) for n, v in m.items()},
+                  {n: o.mu_flat.float().cpu() for n, o in opts.items()})
+    (m0, mu0), (m1, mu1) = res
+    rel = max(abs(m1[k] - v) / abs(v) for k, v in m0.items() if v)
+    mu = {k: ((mu1[k] - v).abs().max() / v.abs().max()).item()
+          for k, v in mu0.items()}
+    print(f"[dp] {label}: mesh vs none, metrics max rel {rel!r}; first "
+          f"moments (max-abs over largest) {mu}; activations replayed on "
+          f"the other side {sum(n for n, _ in kinks)} (max distance "
+          f"{max((x for _, x in kinks), default=0.0)!r}); tol {TRAIN_RTOL}",
+          flush=True)
+    check(m0.keys() == m1.keys() and rel <= TRAIN_RTOL,
+          f"{label}: the sharded step's metrics")
+    check(all(v <= TRAIN_RTOL for v in mu.values()),
+          f"{label}: the sharded step's gradients")
+
+
+def dp_time(label: str, steps, unit: str = "step") -> None:
+    """ms a ``unit`` of each of ``steps`` (label → step function), in
+    turns, DP_STEPS each after one warm-up call."""
+    import torch
+
+    out = {}
+    for name, step in steps.items():
+        step()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(DP_STEPS):
+            step()
+        e1.record()
+        e1.synchronize()
+        out[name] = e0.elapsed_time(e1) / DP_STEPS
+    print(f"[times] {label}: " + "; ".join(f"{k} {v!r} ms a {unit}"
+                                           for k, v in out.items()),
+          flush=True)
+
+
+def dp_path(dev, images, counters) -> None:
+    """Phase 49: data parallelism at world size 1 with NCCL."""
+    import tempfile
+
+    import torch
+
+    from cistar_tpu_torch.engines.cyclegan import (CycleGAN,
+                                                   CycleGANInference)
+    from cistar_tpu_torch.engines.p2phd import Pix2PixHD
+    from cistar_tpu_torch.parallel import sharding
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = sharding.make_mesh(dev, 0, 1,
+                                  "file://" + os.path.join(tmp, "rendezvous"))
+        try:
+            backend = "nccl" if dev.type == "cuda" else "gloo"
+            check(mesh.grouped and torch.distributed.get_backend() == backend,
+                  f"a {backend} group of one")
+            print(f"[dp] {mesh}, backend {torch.distributed.get_backend()}",
+                  flush=True)
+            # the CycleGAN step at the train CLI's defaults: held in fp32
+            # (TF32 off), timed in the CLI's bf16
+            n, size = TRAIN["batch"], TRAIN["size"]
+            radar, lidar = synthetic_pairs(n, size)
+            a, b = (torch.from_numpy(t).to(dev) for t in (radar, lidar))
+            cfg = dict(gen_type="bilinear_content",
+                       in_features=TRAIN["features"],
+                       n_residual_blocks=TRAIN["blocks"], image_size=size,
+                       batch_size=n, pool_size=TRAIN["pool"], device=dev)
+            for cdt in (torch.float32, torch.bfloat16):
+                engs = [CycleGAN(**cfg, compute_dtype=cdt),
+                        CycleGAN(**cfg, compute_dtype=cdt, mesh=mesh)]
+                sts = [e.init_state(0) for e in engs]
+
+                def cg_step(k):
+                    sts[k], m = engs[k].train_step(sts[k], a, b)
+                    return m, {"G": sts[k].opt_g, "D_A": sts[k].opt_d_a,
+                               "D_B": sts[k].opt_d_b}
+
+                if cdt == torch.float32:
+                    with fp32_exact(), cudnn_deterministic():
+                        dp_hold(f"CycleGAN bilinear_content {size}² batch "
+                                f"{n}, fp32", cg_step)
+                else:
+                    dp_time(f"CycleGAN step bilinear_content {size}² batch "
+                            f"{n} bf16", {"sharded (world 1)":
+                                          lambda: cg_step(1),
+                                          "unsharded": lambda: cg_step(0)})
+                del engs, sts
+
+            # the r2l_MSRB_7 pix2pixHD step, the same way
+            n, size = P2P_TRAIN_BATCH, P2P_TRAIN_COMMON["image_size"]
+            radar, lidar = synthetic_pairs(n, size)
+            lab, img = (torch.from_numpy(t).to(dev) for t in (radar, lidar))
+            cfg = dict(P2P_TRAIN["UNet"], **P2P_TRAIN_COMMON, device=dev,
+                       seed=0)
+            for cdt in (torch.float32, torch.bfloat16):
+                engs = [Pix2PixHD("UNet", **cfg, compute_dtype=cdt),
+                        Pix2PixHD("UNet", **cfg, compute_dtype=cdt,
+                                  mesh=mesh)]
+                sts = [e.init_state(0) for e in engs]
+
+                def p2p_step(k):
+                    sts[k], m, _ = engs[k].train_step(sts[k], lab, None, img)
+                    return m, {"G": sts[k].opt_g, "D": sts[k].opt_d}
+
+                if cdt == torch.float32:
+                    with fp32_exact(), cudnn_deterministic():
+                        dp_hold(f"pix2pixHD r2l_MSRB_7 {size}² batch {n}, "
+                                "fp32", p2p_step)
+                else:
+                    dp_time(f"pix2pixHD step r2l_MSRB_7 {size}² batch {n} "
+                            "bf16", {"sharded (world 1)": lambda: p2p_step(1),
+                                     "unsharded": lambda: p2p_step(0)})
+                del engs, sts
+
+            # make_sharded_infer at ResNet-9, both engines
+            n = BENCH_BATCH
+            eng = CycleGANInference("p2p-content", in_features=FEATURES,
+                                    n_residual_blocks=BLOCKS, device=dev)
+            ref = CycleGANInference("p2p-content", in_features=FEATURES,
+                                    n_residual_blocks=BLOCKS, device=dev,
+                                    compute_dtype=torch.float32)
+            a, b = images(n, SIZE), images(n, SIZE)
+            with fp32_exact():
+                r32 = ref.infer_step(a, b)
+            del ref
+            for kind in ("bf16", "int8"):
+                extra = eng.program_args(kind)
+                f = eng.make_sharded_infer(mesh, kind)
+                sharded = lambda: f(*extra, a, b)  # noqa: E731
+                plain = (lambda: eng.infer_step_int8(  # noqa: E731
+                    extra[2], extra[3], (a, b))) if kind == "int8" \
+                    else (lambda: eng.infer_step(a, b))
+                launches = counted(counters, sharded)
+                want = {"resblock_int8_bf16io": 3 * BLOCKS} \
+                    if kind == "int8" else {}
+                check(launches == want, f"make_sharded_infer {kind} "
+                      f"launches {want}")
+                with cudnn_deterministic():
+                    e0, e1, got = plain(), plain(), sharded()
+                hold_to_eager(f"dp make_sharded_infer {kind}",
+                              ("fake_b", "fake_a", "recover_b"), got, e0,
+                              e1, r32)
+                del e0, e1, got
+                dp_time(f"ResNet-9 {kind} inference {SIZE}² batch {n}",
+                        {"sharded (world 1)": sharded,
+                         "unsharded": plain}, "call")
+        finally:
+            sharding.close_mesh(mesh)
+    print(f"[dp] phase 49 took {time.perf_counter() - t_phase!r} s",
+          flush=True)
+
+
 def checkpoint_path(dev, counters) -> None:
     """Phase 47: the reference's ``.pth`` files converted by
     ``apps/convert_checkpoint.py`` and served by both test CLIs, each step a
@@ -5214,6 +5616,8 @@ def main() -> int:
     extended_path(dev, counters)
     fidelity_path(dev, counters)
     checkpoint_path(dev, counters)
+    export_path(dev, images, counters)
+    dp_path(dev, images, counters)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -21,6 +21,14 @@ on the host only every ``--log_every`` steps, then per epoch ``next_epoch``
 and the per-epoch + latest ``.npz`` checkpoints, which the JAX package
 loads as well. Batches go to the device from pinned memory without
 blocking.
+
+Data parallelism, the JAX CLI's batch sharding over the mesh: under
+``torchrun --nproc_per_node N`` (one process a card, NCCL; gloo with
+``--device cpu``) every process reads the same global batch, pads it to a
+multiple of N as JAX does, and steps on its slice
+(:mod:`cistar_tpu_torch.parallel.sharding`); the step is the global
+batch's (``CycleGAN``'s ``mesh``). Rank 0 logs and writes the
+checkpoints.
 """
 
 from __future__ import annotations
@@ -71,9 +79,10 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def make_engine(args):
+def make_engine(args, mesh=None):
     """The :class:`~cistar_tpu_torch.engines.cyclegan.CycleGAN` the flags
-    describe, with the content criterion under ``--content_loss``."""
+    describe, with the content criterion under ``--content_loss``, data-
+    parallel over ``mesh`` (on its device) when given."""
     from cistar_tpu_torch.engines.cyclegan import CycleGAN
     from cistar_tpu_torch.losses.perceptual import make_content_criterion
 
@@ -86,40 +95,65 @@ def make_engine(args):
         cycle_criterion=make_content_criterion() if args.content_loss
         else None, min_points=args.min_points,
         compute_dtype=torch.bfloat16 if args.dtype == "bf16" else torch.float32,
-        device=args.device or None)
+        device=(args.device or None) if mesh is None else mesh.device,
+        mesh=mesh)
 
 
 def main(argv=None):
     args = parse_args(argv)
 
+    import torch.distributed as dist
+
+    from cistar_tpu_torch.parallel import sharding
+
+    own_group = not dist.is_initialized()
+    mesh = sharding.make_mesh(args.device or None)
+    try:
+        return _train(args, mesh)
+    finally:
+        if own_group:
+            sharding.close_mesh(mesh)
+
+
+def _train(args, mesh):
     from cistar_tpu_torch.core import checkpoint as ckpt
     from cistar_tpu_torch.data.datasets import CycleGANImageDataset, Loader
+    from cistar_tpu_torch.parallel.sharding import (pad_batch_to_multiple,
+                                                    replicate, shard_batch)
     from cistar_tpu_torch.utils.metrics import MetricsLogger
 
+    lead = mesh.rank == 0
     output_dir = args.output_dir + "_" + args.gen_type
     os.makedirs(output_dir, exist_ok=True)
 
-    engine = make_engine(args)
+    engine = make_engine(args, mesh)
     state = engine.init_state(0, image_size=args.size)
     if args.resume:
         state = ckpt.load_cyclegan_state(output_dir, engine, state)
         print("resumed from", output_dir)
+    replicate([state.g_a2b, state.g_b2a, state.d_a, state.d_b], mesh)
 
     dataset = CycleGANImageDataset(args.dataroot, size=args.size,
                                    unaligned=True, mode="train")
     loader = Loader(dataset, args.batchSize)
     logger = MetricsLogger(output_dir, args.n_epochs, len(loader),
-                           start_epoch=args.epoch, log_every=args.log_every)
+                           start_epoch=args.epoch, log_every=args.log_every) \
+        if lead else None
     for epoch in range(args.epoch, args.n_epochs):
         for batch in loader:
-            real_a = to_device(batch["A"], engine.device)
-            real_b = to_device(batch["B"], engine.device)
+            arrs, _ = pad_batch_to_multiple({"A": batch["A"], "B": batch["B"]},
+                                            mesh.size)
+            local = shard_batch(arrs, mesh)
+            real_a = to_device(local["A"], engine.device)
+            real_b = to_device(local["B"], engine.device)
             state, metrics = engine.train_step(state, real_a, real_b)
-            logger.log(metrics, n_images=real_a.shape[0])
-        logger.end_epoch()
+            if lead:
+                logger.log(metrics, n_images=arrs["A"].shape[0])
         state = engine.next_epoch(state)
-        ckpt.save_cyclegan_state(output_dir, engine, epoch=epoch)
-        print(f"saved checkpoints for epoch {epoch}")
+        if lead:
+            logger.end_epoch()
+            ckpt.save_cyclegan_state(output_dir, engine, epoch=epoch)
+            print(f"saved checkpoints for epoch {epoch}")
     return state
 
 

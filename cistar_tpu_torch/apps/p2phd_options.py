@@ -57,7 +57,8 @@ class BaseOptions:
                             "nothing before its first step (opt.txt files "
                             "carry it)")
         p.add_argument("--spatial_shard", action="store_true",
-                       help="not ported (ROADMAP queue 1, item 11): raises")
+                       help="not ported (ROADMAP queue 1, item 11.5): "
+                            "raises")
 
         # input/output sizes
         p.add_argument("--batchSize", type=int, default=1)
@@ -214,11 +215,12 @@ class TestOptions(BaseOptions):
         p.add_argument("--cluster_path", type=str, default="features_clustered_010.npy")
         p.add_argument("--use_encoded_image", action="store_true")
         p.add_argument("--export_onnx", type=str, default="",
-                       help="not ported (ROADMAP queue 1, item 11): raises")
+                       help="export the generator program (.pt2) to this "
+                            "path and exit")
         p.add_argument("--engine", type=str, default="",
-                       help="not ported (ROADMAP queue 1, item 11): raises")
+                       help="serve and profile an exported program (.pt2)")
         p.add_argument("--onnx", type=str, default="",
-                       help="not ported (ROADMAP queue 1, item 11): raises")
+                       help="same as --engine")
         p.add_argument("--ndf", type=int, default=64)
         p.add_argument("--n_layers_D", type=int, default=3)
         p.add_argument("--num_D", type=int, default=2)

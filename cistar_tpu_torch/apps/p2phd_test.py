@@ -14,14 +14,23 @@ family's int8 engine (:meth:`Pix2PixHDInference.quantize_generator`, then
 :meth:`Pix2PixHDInference.infer_step_int8`), which launches the port's
 CUDA kernels on the card.
 
-``--export_onnx``, ``--engine`` / ``--onnx`` (an exported program and its
-profile) and ``--spatial_shard`` raise: ROADMAP queue 1, item 11.
+``--export_onnx PATH`` exports the generator as a program of the label
+(``torch.export`` of :meth:`Pix2PixHDInference.program`: the forward in
+the ``--data_type``'s dtype, or the int8 engine under ``--data_type 8``;
+weights and quantized trunk in the file) to a ``.pt2`` and returns. ``--engine PATH`` (or
+``--onnx PATH``) loads it, prints its steady-state time
+(:func:`~cistar_tpu_torch.runtime.aot.profile_fn`) and its op table
+(:mod:`cistar_tpu_torch.runtime.profiler`; the CUDA kernels on the card),
+and serves the frames with it; frames with an instance map take the eager
+path, as in JAX (the program takes the label alone).
+``--spatial_shard`` raises: ROADMAP queue 1, item 11.5.
 ``--compile_timeout`` does nothing.
 """
 
 from __future__ import annotations
 
 import os
+import time
 
 
 def load_engine(opt):
@@ -63,13 +72,13 @@ def main(argv=None):
     opt.batchSize = 1
     opt.serial_batches = True
     opt.no_flip = True
-    for flag in ("export_onnx", "engine", "onnx", "spatial_shard"):
-        if getattr(opt, flag):
-            raise NotImplementedError(
-                f"--{flag} (exported programs, their profile, sharding) is "
-                "not ported yet: ROADMAP queue 1, item 11")
+    if opt.spatial_shard:
+        raise NotImplementedError(
+            "--spatial_shard (the generator sharded over devices) is not "
+            "ported yet: ROADMAP queue 1, item 11.5")
 
     import numpy as np
+    import torch
     from PIL import Image
 
     from cistar_tpu_torch.apps.cyclegan_train import to_device
@@ -85,6 +94,37 @@ def main(argv=None):
         qblocks = engine.quantize_generator()
         print(f"int8 engine: quantized {len(qblocks)} trunk blocks "
               f"(netG={opt.netG})")
+
+    # what the dataset yields: 1-channel label-id maps in semantic mode and
+    # grayscale radar in r2l mode, full input_nc for image-conditional G
+    label_ch = 1 if (opt.r2l or opt.label_nc > 0) else opt.input_nc
+    example = torch.zeros((1, size, size, label_ch), device=engine.device)
+    run = None
+    with torch.no_grad():
+        if opt.export_onnx:
+            from cistar_tpu_torch.runtime.aot import save_compiled
+
+            t0 = time.perf_counter()
+            nbytes = save_compiled(engine.program(qblocks), (example,),
+                                   opt.export_onnx)
+            print(f"exported the generator program -> {opt.export_onnx} "
+                  f"({nbytes} bytes, {time.perf_counter() - t0:.2f} s)")
+            return opt.export_onnx
+        if opt.engine or opt.onnx:
+            from cistar_tpu_torch.runtime.aot import load_compiled, profile_fn
+            from cistar_tpu_torch.runtime.profiler import (format_op_table,
+                                                           profile_op_table)
+
+            path = opt.engine or opt.onnx
+            t0 = time.perf_counter()
+            run = load_compiled(path)
+            print(f"loaded {path} in {time.perf_counter() - t0:.2f} s")
+            stats = profile_fn(run, example, iters=100)
+            print(f"engine {path}: {stats['mean_ms']:.3f} ms/iter "
+                  f"(p50 {stats['p50_ms']:.3f}, p95 {stats['p95_ms']:.3f})")
+            # the per-op table, the TRT profiler's printout
+            # (run_engine.py:35-59,112-117)
+            print(format_op_table(*profile_op_table(run, example, iters=10)))
 
     web_dir = os.path.join(opt.results_dir, opt.name,
                            f"{opt.phase}_{opt.which_epoch}")
@@ -102,8 +142,12 @@ def main(argv=None):
         label = to_device(batch["label"], engine.device)
         inst = (to_device(batch["inst"], engine.device)
                 if batch["inst"].ndim == 4 else None)
-        fake = (engine.infer_step_int8(qblocks, label, inst)
-                if qblocks is not None else engine.infer_step(label, inst))
+        if run is not None and inst is None:
+            with torch.no_grad():
+                fake = run(label)
+        else:
+            fake = (engine.infer_step_int8(qblocks, label, inst)
+                    if qblocks is not None else engine.infer_step(label, inst))
         fake = fake.cpu().numpy()
         name = os.path.splitext(os.path.basename(batch["path"][0]))[0]
         ims, txts = [], []

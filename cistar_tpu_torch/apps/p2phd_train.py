@@ -27,9 +27,18 @@ files, without ``iter.txt`` or BatchNorm statistics. ``--wgan`` and
 ``--transfer`` reach their trainers through ``engines/factory.py::
 create_model``, not through this CLI, as in JAX.
 
-``--spatial_shard`` raises: ROADMAP queue 1, item 11. The JAX CLI's XLA
-executable cache and compile watchdog have no counterpart: the eager step
-compiles nothing.
+Data parallelism, the JAX CLI's batch sharding over the mesh: under
+``torchrun --nproc_per_node N`` (one process a card, NCCL; gloo with
+``--device cpu``) every process reads the same global batch (one shuffle,
+one seed), pads it to a multiple of N as JAX does and steps on its slice
+(:mod:`cistar_tpu_torch.parallel.sharding`); the step is the global
+batch's (``Pix2PixHD``'s ``mesh``: BatchNorm statistics, gradients, the D
+gate and the metrics reduced over ranks). Rank 0 logs and writes the
+checkpoints.
+
+``--spatial_shard``, and ``--uda`` at a world size above 1, raise:
+ROADMAP queue 1, item 11.5. The JAX CLI's XLA executable cache and compile
+watchdog have no counterpart: the eager step compiles nothing.
 """
 
 from __future__ import annotations
@@ -67,17 +76,19 @@ def load_networks(pre: str, which_epoch, engine) -> None:
     engine.load_jax_params(g, g_stats, d)
 
 
-def make_engine(opt, size: int):
+def make_engine(opt, size: int, mesh=None):
     """The :class:`~cistar_tpu_torch.engines.p2phd.Pix2PixHD` the options
     describe: fp32 under ``--compute fp32`` unless ``--fp16`` or
-    ``--data_type 16`` asks for bf16, bf16 otherwise."""
+    ``--data_type 16`` asks for bf16, bf16 otherwise; data-parallel over
+    ``mesh`` when given."""
     import torch
 
     from cistar_tpu_torch.engines.factory import pix2pixhd_from_opt
 
     fp32 = opt.compute == "fp32" and not (opt.fp16 or opt.data_type == 16)
     return pix2pixhd_from_opt(opt, size,
-                              torch.float32 if fp32 else torch.bfloat16)
+                              torch.float32 if fp32 else torch.bfloat16,
+                              mesh)
 
 
 def main(argv=None):
@@ -87,13 +98,33 @@ def main(argv=None):
     if opt.spatial_shard:
         raise NotImplementedError(
             "--spatial_shard (the generator sharded over devices) is not "
-            "ported yet: ROADMAP queue 1, item 11")
+            "ported yet: ROADMAP queue 1, item 11.5")
 
+    import torch.distributed as dist
+
+    from cistar_tpu_torch.parallel import sharding
+
+    if opt.uda and sharding.world_size() > 1:
+        raise NotImplementedError(
+            "--uda across processes (data parallelism of the UDA trainers) "
+            "is not ported yet: ROADMAP queue 1, item 11.5")
+    own_group = not dist.is_initialized()
+    mesh = sharding.make_mesh(opt.device or None)
+    try:
+        return _main(opt, mesh)
+    finally:
+        if own_group:
+            sharding.close_mesh(mesh)
+
+
+def _main(opt, mesh):
     import torch
 
     from cistar_tpu_torch.apps.cyclegan_train import to_device
     from cistar_tpu_torch.core import checkpoint as ckpt
     from cistar_tpu_torch.data.datasets import Loader, Radar2LidarDataset
+    from cistar_tpu_torch.parallel.sharding import (pad_batch_to_multiple,
+                                                    replicate, shard_batch)
     from cistar_tpu_torch.utils.metrics import MetricsLogger
 
     save_dir = os.path.join(opt.checkpoints_dir, opt.name)
@@ -111,13 +142,15 @@ def main(argv=None):
     if opt.uda:
         return train_uda(opt, save_dir, start_epoch)
 
+    lead = mesh.rank == 0
     size = opt.r2l_res if opt.r2l else opt.fineSize
-    engine = make_engine(opt, size)
+    engine = make_engine(opt, size, mesh)
     state = engine.init_state(0, image_size=size)
     if opt.continue_train or opt.load_pretrain:
         pre = opt.load_pretrain or save_dir
         load_networks(pre, opt.which_epoch, engine)
         print("loaded networks from", pre)
+    replicate([state.g, state.d, state.e, state.g_stats], mesh)
 
     dataset = Radar2LidarDataset(opt.dataroot, size=size, mode="train")
     if opt.max_dataset_size != float("inf"):
@@ -126,7 +159,7 @@ def main(argv=None):
     loader = Loader(dataset, opt.batchSize, shuffle=not opt.serial_batches)
     logger = MetricsLogger(save_dir, opt.niter + opt.niter_decay, len(loader),
                            start_epoch=start_epoch,
-                           log_every=max(1, opt.print_freq))
+                           log_every=max(1, opt.print_freq)) if lead else None
     print(f"#training images = {len(dataset)}", flush=True)
 
     total_iter = (start_epoch - 1) * len(dataset) + epoch_iter
@@ -134,14 +167,21 @@ def main(argv=None):
         state = state._replace(epoch=torch.full(
             (), epoch - 1, dtype=torch.int32, device=engine.device))
         for batch in loader:
-            label = to_device(batch["label"], engine.device)
-            image = to_device(batch["image"], engine.device)
+            arrs, _ = pad_batch_to_multiple(
+                {"label": batch["label"], "image": batch["image"]}, mesh.size)
+            local = shard_batch(arrs, mesh)
+            label = to_device(local["label"], engine.device)
+            image = to_device(local["image"], engine.device)
             state, metrics, _ = engine.train_step(state, label, None, image)
             total_iter += opt.batchSize
-            logger.log(metrics, n_images=label.shape[0])
+            if not lead:
+                continue
+            logger.log(metrics, n_images=arrs["label"].shape[0])
             if total_iter % opt.save_latest_freq < opt.batchSize:
                 save_networks(save_dir, engine, "latest")
                 ckpt.save_iter(save_dir, epoch, total_iter)
+        if not lead:
+            continue
         logger.end_epoch()
         save_networks(save_dir, engine, "latest")
         ckpt.save_iter(save_dir, epoch + 1, 0)

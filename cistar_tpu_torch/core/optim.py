@@ -75,19 +75,25 @@ class AdamState:
 def adam_step(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
               state: AdamState, lr: torch.Tensor, mask: torch.Tensor,
               b1: float = 0.5, b2: float = 0.999, eps: float = 1e-8,
-              weight_decay: float = 0.0, injected: bool = True) -> None:
+              weight_decay: float = 0.0, injected: bool = True,
+              mesh=None) -> None:
     """One masked Adam step, in place on ``params`` and ``state``. ``lr``
     is an fp32 device scalar, ``mask`` a device bool. ``injected`` takes
     ``1 − b`` in fp32 from fp32 ``b`` (``inject_hyperparams``), else
     rounds the Python float ``1 − b`` once; ``weight_decay`` adds
-    ``weight_decay · p`` to the gradient first."""
+    ``weight_decay · p`` to the gradient first. ``mesh`` (data
+    parallelism): the flat gradient is averaged over ranks first, one
+    ``all_reduce`` (:mod:`cistar_tpu_torch.parallel.sharding`)."""
+    from cistar_tpu_torch.parallel.sharding import all_reduce_mean
+
     f32 = np.float32
     if injected:
         c1, c2 = float(f32(1) - f32(b1)), float(f32(1) - f32(b2))
     else:
         c1, c2 = float(f32(1 - b1)), float(f32(1 - b2))
     b1, b2, eps = (float(f32(v)) for v in (b1, b2, eps))
-    g = torch.cat([t.reshape(-1) for t in grads]).float()
+    g = all_reduce_mean(torch.cat([t.reshape(-1) for t in grads]).float(),
+                        mesh)
     if weight_decay:
         g = g + float(f32(weight_decay)) * torch.cat(
             [p.detach().reshape(-1) for p in params])

@@ -42,8 +42,10 @@ from cistar_tpu_torch.models import fast_infer as fi
 from cistar_tpu_torch.models.cyclegan import (PatchDiscriminator,
                                               build_generator)
 from cistar_tpu_torch.ops.quant_int8 import QBlock, quantize_resnet_trunk
+from cistar_tpu_torch.parallel import sharding
+from cistar_tpu_torch.parallel.sharding import Mesh, global_means
 from cistar_tpu_torch.utils.image_pool import (PoolState, init_pool,
-                                               push_and_pop)
+                                               sharded_push_and_pop)
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 QGen = Union[List[QBlock], fi.QTrunk]
@@ -121,19 +123,103 @@ class CycleGANInference:
         residual blocks and encoder stages."""
         return self._quantize(self.G_a2b), self._quantize(self.G_b2a)
 
+    def _gen_int8(self, gen, q: QGen, x: torch.Tensor) -> torch.Tensor:
+        return self._int8_fwd(gen, q, x.to(self.device, self.cdt)).float()
+
     @torch.inference_mode()
     def infer_step_int8(self, q_a2b: QGen, q_b2a: QGen,
                         batch_ab: Tuple[torch.Tensor, torch.Tensor]
                         ) -> Triple:
         """:meth:`infer_step` through both generators' int8 engines."""
         real_a, real_b = batch_ab
+        fake_b = self._gen_int8(self.G_a2b, q_a2b, real_a)
+        fake_a = self._gen_int8(self.G_b2a, q_b2a, real_b)
+        recover_b = self._gen_int8(self.G_a2b, q_a2b, (fake_a - 0.5) / 0.5)
+        return fake_b, fake_a, recover_b
 
-        def gen(g, q, x):
-            return self._int8_fwd(g, q, x.to(self.device, self.cdt)).float()
+    # -- the sharded inference program (the deployment unit) -----------------
+    def program_args(self, engine: str = "bf16") -> Tuple[Any, ...]:
+        """The leading arguments of :class:`InferProgram`, in the JAX order:
+        ``bf16``: (g_a2b, g_b2a), each generator's parameters by name;
+        ``int8``: the same, then both generators' quantized trunks."""
+        weights = tuple({k: v.detach() for k, v in g.named_parameters()}
+                        for g in (self.G_a2b, self.G_b2a))
+        if engine == "int8":
+            return weights + self.quantize_generators()
+        return weights
 
-        fake_b = gen(self.G_a2b, q_a2b, real_a)
-        fake_a = gen(self.G_b2a, q_b2a, real_b)
-        recover_b = gen(self.G_a2b, q_a2b, (fake_a - 0.5) / 0.5)
+    def make_sharded_infer(self, mesh: Mesh, engine: str = "bf16",
+                           program: Optional[Callable] = None) -> Callable:
+        """Batch-sharded inference over ``mesh`` (the JAX
+        ``make_sharded_infer``, ``CycleGAN/test.py:141-145`` semantics):
+        ``bf16``: ``f(g_a2b, g_b2a, a, b)``; ``int8``: ``f(g_a2b, g_b2a,
+        q_a2b, q_b2a, a, b)``, each on the global batch ``a`` / ``b`` and
+        returning the global ``(fake_b, fake_a, recover_b)``: every rank
+        runs the per-rank ``program`` (default :class:`InferProgram`, or a
+        loaded export of one) on its slice, then gathers the three outputs
+        in rank order. No other collective: instance norm is per image.
+        The per-rank program is the returned function's ``program``. The
+        JAX program's int8 body is the ResNet engine whatever the family;
+        here it is the engine's own family, the same at 'p2p*'."""
+        if engine not in ("bf16", "int8"):
+            raise ValueError(f"engine must be 'bf16' or 'int8', got "
+                             f"{engine!r}")
+        prog = program if program is not None \
+            else InferProgram(self, engine == "int8")
+
+        @torch.inference_mode()
+        def infer(*args):
+            *weights, a, b = args
+            outs = prog(*weights, sharding.shard_batch(a, mesh),
+                        sharding.shard_batch(b, mesh))
+            return tuple(sharding.all_gather_batch(o, mesh) for o in outs)
+
+        infer.program = prog
+        return infer
+
+
+class _Gen(torch.nn.Module):
+    """One generator call of :class:`InferProgram`: the plain forward, or
+    the family's int8 forward, in the engine's compute dtype, fp32 out."""
+
+    def __init__(self, engine: CycleGANInference, gen: torch.nn.Module,
+                 int8: bool):
+        super().__init__()
+        self.gen, self.engine, self.int8 = gen, engine, int8
+
+    def forward(self, x: torch.Tensor, q: Optional[QGen] = None
+                ) -> torch.Tensor:
+        if self.int8:
+            return self.engine._gen_int8(self.gen, q, x)
+        return self.engine._gen(self.gen, x)
+
+
+class InferProgram(torch.nn.Module):
+    """The per-rank program of :meth:`CycleGANInference.make_sharded_infer`,
+    the module that ``cyclegan_test --export_engine`` exports: ``forward(
+    g_a2b, g_b2a, a, b)`` (``int8``: ``forward(g_a2b, g_b2a, q_a2b, q_b2a,
+    a, b)``) → ``(fake_b, fake_a, recover_b)``, the generators run with the
+    given parameters (``torch.func.functional_call``). The generators are
+    held outside the module's registry, so an export of it holds no
+    weights: they are its arguments, as in JAX."""
+
+    def __init__(self, engine: CycleGANInference, int8: bool):
+        super().__init__()
+        self.int8 = int8
+        self._gens = (_Gen(engine, engine.G_a2b, int8),
+                      _Gen(engine, engine.G_b2a, int8))
+
+    @staticmethod
+    def _call(gen: _Gen, params, x, q):
+        return torch.func.functional_call(
+            gen, {f"gen.{k}": v for k, v in params.items()}, (x, q))
+
+    def forward(self, g_a2b, g_b2a, *rest):
+        q_a2b, q_b2a, a, b = rest if self.int8 else (None, None, *rest)
+        a2b, b2a = self._gens
+        fake_b = self._call(a2b, g_a2b, a, q_a2b)
+        fake_a = self._call(b2a, g_b2a, b, q_b2a)
+        recover_b = self._call(a2b, g_a2b, (fake_a - 0.5) / 0.5, q_a2b)
         return fake_b, fake_a, recover_b
 
 
@@ -183,7 +269,15 @@ class CycleGAN(CycleGANInference):
 
     The step updates the state's tensors in place and returns the state
     (the JAX step donates its state). Weights come from ``seed`` through
-    :meth:`init_state`, the same on every device."""
+    :meth:`init_state`, the same on every device.
+
+    With ``mesh`` (:func:`~cistar_tpu_torch.parallel.sharding.make_mesh`)
+    each process steps on its slice of the global batch and the step is the
+    JAX program's over the whole batch: the skip gate counts the points of
+    the global batch, the gradients are averaged over ranks before Adam,
+    the D gates read the global ``loss_D``, the pools run on the gathered
+    fakes (:func:`~cistar_tpu_torch.utils.image_pool.sharded_push_and_pop`)
+    and the metrics are global means."""
 
     def __init__(self, gen_type: str = "bilinear_content", input_nc: int = 1,
                  output_nc: int = 1, in_features: int = 16,
@@ -196,10 +290,12 @@ class CycleGAN(CycleGANInference):
                  identity_weight: float = 1.0, min_points: float = 300.0,
                  d_loss_floor: float = 0.1,
                  compute_dtype: torch.dtype = torch.bfloat16, seed: int = 0,
-                 device: DeviceLike = None, dense_decoder: bool = True):
+                 device: DeviceLike = None, dense_decoder: bool = True,
+                 mesh: Optional[Mesh] = None):
         super().__init__(gen_type, input_nc, output_nc, in_features,
                          n_residual_blocks, compute_dtype, seed, device,
                          dense_decoder)
+        self.mesh = mesh
         self.gen_type = gen_type
         self.input_nc, self.output_nc = input_nc, output_nc
         self.in_features = in_features
@@ -320,8 +416,10 @@ class CycleGAN(CycleGANInference):
                   + lsgan_loss(preds[n:], False)) * 0.5
         plist = list(params.values())
         grads = torch.autograd.grad(loss_d, plist)
-        adam_step(plist, grads, opt, lr, (loss_d > self.d_floor) & do_step)
-        return loss_d.detach()
+        loss_d = sharding.all_reduce_mean(loss_d.detach(), self.mesh)
+        adam_step(plist, grads, opt, lr, (loss_d > self.d_floor) & do_step,
+                  mesh=self.mesh)
+        return loss_d
 
     @torch.enable_grad()
     def train_step(self, state: CycleGANState, real_a: torch.Tensor,
@@ -335,7 +433,7 @@ class CycleGAN(CycleGANInference):
         mark = mark or (lambda label: None)
         real_a = real_a.to(self.device, torch.float32)
         real_b = real_b.to(self.device, torch.float32)
-        do_step = count_points(real_a) >= self.min_points
+        do_step = count_points(real_a, self.mesh) >= self.min_points
         lr_now = self.lr * lambda_lr_factor(
             state.epoch, self.n_epochs, self.start_epoch, self.decay_epoch)
 
@@ -346,14 +444,17 @@ class CycleGAN(CycleGANInference):
         g_params = [*state.g_a2b.values(), *state.g_b2a.values()]
         g_grads = torch.autograd.grad(aux["loss_G"], g_params)
         mark("g_backward")
-        adam_step(g_params, g_grads, state.opt_g, lr_now, do_step)
+        adam_step(g_params, g_grads, state.opt_g, lr_now, do_step,
+                  mesh=self.mesh)
         mark("g_adam")
 
         # ---- replay pools (updated only on active steps) ------------------
-        pool_a, fake_a_hist = push_and_pop(
-            state.pool_a, aux.pop("fake_a").detach(), state.pool_gen, do_step)
-        pool_b, fake_b_hist = push_and_pop(
-            state.pool_b, aux.pop("fake_b").detach(), state.pool_gen, do_step)
+        pool_a, fake_a_hist = sharded_push_and_pop(
+            state.pool_a, aux.pop("fake_a").detach(), state.pool_gen,
+            self.mesh, do_step)
+        pool_b, fake_b_hist = sharded_push_and_pop(
+            state.pool_b, aux.pop("fake_b").detach(), state.pool_gen,
+            self.mesh, do_step)
         mark("pools")
 
         # ---- discriminator updates (gated on the loss floor) --------------
@@ -364,7 +465,8 @@ class CycleGAN(CycleGANInference):
                                 fake_b_hist, lr_now, do_step)
         mark("d_b")
 
-        metrics = {k: v.detach() for k, v in aux.items()}
+        metrics = global_means({k: v.detach() for k, v in aux.items()},
+                               self.mesh)
         metrics.update({"loss_D_A": loss_d_a, "loss_D_B": loss_d_b,
                         "loss_D": loss_d_a + loss_d_b,
                         "skipped": 1.0 - do_step.float()})

@@ -27,10 +27,12 @@ def _device(opt):
     return getattr(opt, "device", "") or None
 
 
-def pix2pixhd_from_opt(opt, size: int, compute_dtype: torch.dtype):
+def pix2pixhd_from_opt(opt, size: int, compute_dtype: torch.dtype,
+                       mesh=None):
     """The :class:`~cistar_tpu_torch.engines.p2phd.Pix2PixHD` train step a
     ``TrainOptions`` namespace describes, at ``size``² in
-    ``compute_dtype`` (each caller keeps its own dtype rule)."""
+    ``compute_dtype`` (each caller keeps its own dtype rule), data-parallel
+    over ``mesh`` when given."""
     from cistar_tpu_torch.engines.p2phd import Pix2PixHD
     from cistar_tpu_torch.losses.perceptual import make_vgg_loss
 
@@ -52,7 +54,7 @@ def pix2pixhd_from_opt(opt, size: int, compute_dtype: torch.dtype):
         compute_dtype=compute_dtype, instance_feat=opt.instance_feat,
         label_feat=opt.label_feat, load_features=opt.load_features,
         feat_num=opt.feat_num, nef=opt.nef, n_downsample_e=opt.n_downsample_E,
-        device=_device(opt))
+        device=_device(opt) if mesh is None else mesh.device, mesh=mesh)
 
 
 def create_model(opt):

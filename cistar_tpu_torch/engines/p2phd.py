@@ -47,8 +47,10 @@ from cistar_tpu_torch.models.pix2pixhd import (BatchNorm, Encoder,
                                                TransferPairG, define_d,
                                                define_g)
 from cistar_tpu_torch.ops.quant_int8 import QBlock, quantize_global_trunk
+from cistar_tpu_torch.parallel import sharding
+from cistar_tpu_torch.parallel.sharding import Mesh
 from cistar_tpu_torch.utils.image_pool import (PoolState, init_pool,
-                                               push_and_pop)
+                                               sharded_push_and_pop)
 
 # netG → (JAX params, batch_stats → state_dict; state_dict → JAX params;
 # quantizer; int8 forward), None where JAX has no int8 engine
@@ -183,7 +185,7 @@ class Pix2PixHDInference:
                    inst: Optional[torch.Tensor] = None) -> torch.Tensor:
         """G(encode_input(label, inst)) in the compute dtype
         (``infer_step``)."""
-        return self.G(self.encode_input(label, inst).to(self.cdt)).float()
+        return self._forward(None, label, inst)
 
     @torch.inference_mode()
     def quantize_generator(self) -> List[QBlock]:
@@ -206,13 +208,39 @@ class Pix2PixHDInference:
                 "--data_type 16/32")
         return self._quantize(self.G)
 
+    def _forward(self, qblocks: Optional[List[QBlock]], label: torch.Tensor,
+                 inst: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.encode_input(label, inst).to(self.cdt)
+        if qblocks is None:
+            return self.G(x).float()
+        return self._int8_fwd(self.G, qblocks, x).float()
+
     @torch.inference_mode()
     def infer_step_int8(self, qblocks: List[QBlock], label: torch.Tensor,
                         inst: Optional[torch.Tensor] = None) -> torch.Tensor:
         """:meth:`infer_step` through the family's int8 engine
         (``infer_step_int8``); ``qblocks`` from :meth:`quantize_generator`."""
-        x = self.encode_input(label, inst).to(self.cdt)
-        return self._int8_fwd(self.G, qblocks, x).float()
+        return self._forward(qblocks, label, inst)
+
+    def program(self, qblocks: Optional[List[QBlock]] = None
+                ) -> torch.nn.Module:
+        """The generator as a module of the label alone, ``forward(label)``
+        → :meth:`infer_step` (``qblocks``: :meth:`infer_step_int8`), the
+        program ``p2phd_test --export_onnx`` exports: G's weights are its
+        parameters, the quantized trunk its constants, so the file holds
+        them, as the JAX export closes over them."""
+        return _P2PProgram(self, qblocks)
+
+
+class _P2PProgram(torch.nn.Module):
+    def __init__(self, engine: Pix2PixHDInference,
+                 qblocks: Optional[List[QBlock]]):
+        super().__init__()
+        self.G = engine.G
+        self._engine, self._qblocks = engine, qblocks
+
+    def forward(self, label: torch.Tensor) -> torch.Tensor:
+        return self._engine._forward(self._qblocks, label)
 
 
 Params = Dict[str, torch.Tensor]
@@ -249,7 +277,14 @@ class Pix2PixHD(Pix2PixHDInference):
     fp32. Weights come from ``seed`` through :meth:`init_state`, the same
     on every device. The arguments are the JAX engine's, less
     ``spatial_mesh``; ``n_scale`` sets the ``transfer`` generator's
-    pyramid (``engines/extended.py::make_transfer_p2p``)."""
+    pyramid (``engines/extended.py::make_transfer_p2p``).
+
+    With ``mesh`` (:func:`~cistar_tpu_torch.parallel.sharding.make_mesh`)
+    each process steps on its slice of the global batch and the step is the
+    JAX program's over the whole batch: G's training-mode BatchNorms reduce
+    their statistics over ranks, the gradients are averaged over ranks
+    before Adam, the D gate reads the global ``loss_D``, the pool runs on
+    the gathered fakes and the metrics are global means."""
 
     def __init__(self, net_g: str = "global", input_nc: int = 1,
                  output_nc: int = 1, label_nc: int = 0, ngf: int = 64,
@@ -269,7 +304,8 @@ class Pix2PixHD(Pix2PixHDInference):
                  load_features: bool = False, feat_num: int = 3,
                  nef: int = 16, n_downsample_e: int = 4,
                  max_instances: int = 64, seed: int = 0,
-                 device: DeviceLike = None, n_scale: int = 3):
+                 device: DeviceLike = None, n_scale: int = 3,
+                 mesh: Optional[Mesh] = None):
         # use_features / gen_features: pix2pixHD_model.py:26-28
         self.use_features = instance_feat or label_feat
         self.gen_features = self.use_features and not load_features
@@ -296,6 +332,10 @@ class Pix2PixHD(Pix2PixHDInference):
         if self.E is not None:
             self.E.to(self.device).eval()
         self._on = torch.ones((), dtype=torch.bool, device=self.device)
+        self.mesh = mesh
+        for m in self.G.modules():
+            if isinstance(m, BatchNorm):
+                m.mesh = mesh
 
     def g_input_nc(self) -> int:
         """The encoded label's channels, plus ``feat_num`` when G takes
@@ -489,10 +529,10 @@ class Pix2PixHD(Pix2PixHDInference):
         g_grads = self._fix_global_mask(g_names, list(grads[:len(g_params)]),
                                         state.epoch)
         adam_step(g_params, g_grads, state.opt_g, lr_now, self._on,
-                  b1=self.beta1)
+                  b1=self.beta1, mesh=self.mesh)
         if self.gen_features:
             adam_step(e_params, grads[len(g_params):], state.opt_e, lr_now,
-                      self._on, b1=self.beta1)
+                      self._on, b1=self.beta1, mesh=self.mesh)
         mark("g_adam")
 
         # ---- D on the detached fake of the same forward (through the
@@ -502,8 +542,8 @@ class Pix2PixHD(Pix2PixHDInference):
         real_concat = torch.cat([input_label, image], -1)
         pool = state.pool
         if pool is not None:
-            pool, fake_concat = push_and_pop(pool, fake_concat,
-                                             state.pool_gen)
+            pool, fake_concat = sharded_push_and_pop(
+                pool, fake_concat, state.pool_gen, self.mesh)
         both = self._d(torch.cat([fake_concat, real_concat]))
         nb = fake_concat.shape[0]
         loss_d_fake = gan_loss([[t[:nb] for t in s] for s in both], False,
@@ -514,16 +554,17 @@ class Pix2PixHD(Pix2PixHDInference):
         d_params = list(state.d.values())
         d_grads = torch.autograd.grad(loss_d, d_params)
         mark("d_forward_backward")
+        metrics = sharding.global_means(
+            {"G_GAN": loss_g_gan, "G_GAN_Feat": loss_feat,
+             "G_VGG": loss_vgg, "D_real": loss_d_real,
+             "D_fake": loss_d_fake, "loss_D": loss_d,
+             "loss_G": loss_g_gan + loss_feat + loss_vgg}, self.mesh)
+        metrics = {k: v.detach() for k, v in metrics.items()}
         adam_step(d_params, d_grads, state.opt_d, lr_now,
-                  loss_d >= self.d_floor, b1=self.beta1)
+                  metrics["loss_D"] >= self.d_floor, b1=self.beta1,
+                  mesh=self.mesh)
         mark("d_adam")
-
-        metrics = {"G_GAN": loss_g_gan, "G_GAN_Feat": loss_feat,
-                   "G_VGG": loss_vgg, "D_real": loss_d_real,
-                   "D_fake": loss_d_fake, "loss_D": loss_d,
-                   "loss_G": loss_g_gan + loss_feat + loss_vgg}
-        return (state._replace(pool=pool),
-                {k: v.detach() for k, v in metrics.items()}, fake)
+        return state._replace(pool=pool), metrics, fake
 
     # -- inference with features ---------------------------------------------
     @torch.inference_mode()

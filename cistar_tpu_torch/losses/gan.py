@@ -70,15 +70,20 @@ def energy_reg(fake: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
     return torch.abs(e_fake - e_real)
 
 
-def count_points(images: torch.Tensor) -> torch.Tensor:
+def count_points(images: torch.Tensor, mesh=None) -> torch.Tensor:
     """Radar point count per frame (``CycleGAN/train.py:52-59``): threshold
     the [-1, 1] NHWC batch at 0.5 after mapping it to [0, 1], count, and
     divide by batch · channels. A device scalar: the train step compares it
-    with ``min_points`` without a host sync."""
+    with ``min_points`` without a host sync. With ``mesh`` (data
+    parallelism) ``images`` is this rank's slice and the count is the
+    global batch's: the ranks' sums added, over the global batch size."""
+    from cistar_tpu_torch.parallel import sharding
+
     img = images.float() * 0.5 + 0.5
     binary = (img > 0.5).float()
     n, _, _, c = images.shape
-    return torch.sum(binary) / (n * c)
+    size = mesh.size if mesh is not None and mesh.grouped else 1
+    return sharding.all_reduce_sum(torch.sum(binary), mesh) / (n * size * c)
 
 
 def gradient_penalty_at(critic_fn: Callable[[torch.Tensor], torch.Tensor],

@@ -71,10 +71,18 @@ class BatchNorm(nn.Module):
     mean and the biased variance ``mean((x − μ)²)`` (two passes, as JAX
     computes them, not E[x²] − E[x]²), in JAX's op order; each call then
     moves the running statistics by momentum 0.1 towards μ and the unbiased
-    variance ``σ² · n / max(n − 1, 1)``, outside autograd."""
+    variance ``σ² · n / max(n − 1, 1)``, outside autograd.
+
+    ``mesh`` (set by a data-parallel trainer, a
+    :class:`~cistar_tpu_torch.parallel.sharding.Mesh`): in train mode the
+    input is this rank's slice of the global batch, and both passes sum
+    over ranks (differentiably) before dividing by the global count, so
+    the statistics, the running update and the gradients are the global
+    batch's."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
+        self.mesh = None
         self.eps, self.momentum = eps, 0.1
         self.weight = nn.Parameter(1.0 + 0.02 * torch.randn(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -84,20 +92,29 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        if self.training:
+        if not self.training:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        elif self.mesh is not None and self.mesh.grouped:
+            from cistar_tpu_torch.parallel.sharding import \
+                all_reduce_sum_grad as psum
+            n = x.shape[0] * x.shape[1] * x.shape[2] * self.mesh.size
+            mean = psum(xf.sum(dim=(0, 1, 2)), self.mesh) / n
+            var = psum(torch.square(xf - mean).sum(dim=(0, 1, 2)),
+                       self.mesh) / n
+            self._update(mean, var, n)
+        else:
             mean = xf.mean(dim=(0, 1, 2))
             var = torch.square(xf - mean).mean(dim=(0, 1, 2))
-            with torch.no_grad():
-                n = x.shape[0] * x.shape[1] * x.shape[2]
-                m = self.momentum
-                self.running_mean.copy_((1 - m) * self.running_mean
-                                        + m * mean)
-                self.running_var.copy_((1 - m) * self.running_var
-                                       + m * (var * (n / max(n - 1, 1))))
-        else:
-            mean, var = self.running_mean.float(), self.running_var.float()
+            self._update(mean, var, x.shape[0] * x.shape[1] * x.shape[2])
         out = (xf - mean) / torch.sqrt(var + self.eps)
         return (self.weight.float() * out + self.bias.float()).to(x.dtype)
+
+    @torch.no_grad()
+    def _update(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+        m = self.momentum
+        self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+        self.running_var.copy_((1 - m) * self.running_var
+                               + m * (var * (n / max(n - 1, 1))))
 
 
 def _make_norm(norm: str, features: int):

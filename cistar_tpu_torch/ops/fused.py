@@ -21,10 +21,11 @@ Three kernels, each with its plain PyTorch version here:
 Routing. The JAX package runs K3 and K4 only where its TPU kernel fits
 VMEM (:func:`conv3x3_in_act_fits`, :func:`in_act_fits`), and the plain
 composition everywhere else. The two round differently, so the port keeps
-the TPU routing on every device: where the rule says kernel, a CUDA tensor
-launches the hand-written kernel (or raises) and a CPU tensor takes the
-kernel's plain version; where it says composition, both take the
-composition.
+the TPU routing on every device: where the rule says kernel, the
+``cistar`` custom op (:mod:`cistar_tpu_torch.kernels.custom_ops`) runs: on
+a CUDA tensor it launches the hand-written kernel (or raises), on a CPU
+tensor it takes the kernel's plain version; where it says composition,
+both take the composition.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+import cistar_tpu_torch.kernels  # noqa: F401  (registers the ops)
 from cistar_tpu_torch.device import on_cuda
 from cistar_tpu_torch.ops import nn as tnn
 from cistar_tpu_torch.ops.quant_int8 import EPS, _div
@@ -117,13 +119,10 @@ def fused_instance_norm_act(x: torch.Tensor, act: str = "none",
     _check_act(act)
     if not in_act_fits(x, residual):
         return _in_act_composition(x, act, eps, negative_slope, residual)
-    if on_cuda(x):
-        from cistar_tpu_torch.kernels import in_act
-        return in_act.in_act(x.contiguous(), act, negative_slope,
-                             None if residual is None
-                             else residual.contiguous(), eps)
-    return fused_instance_norm_act_plain(x, act, eps, negative_slope,
-                                         residual)
+    on_cuda(x)
+    return torch.ops.cistar.in_act(
+        x.contiguous(), act, negative_slope,
+        None if residual is None else residual.contiguous(), eps)
 
 
 # --------------------------------------------------------------------------- #
@@ -210,17 +209,13 @@ def fused_conv3x3_in_act(x: torch.Tensor, w: torch.Tensor,
                          f"got {pad_mode!r}")
     if not conv3x3_in_act_fits(x, w, residual):
         return _conv_in_act_composition(x, w, b, act, residual, pad_mode, eps)
-    if on_cuda(x):
-        from cistar_tpu_torch.kernels import fused_conv
-        cout = w.shape[0]
-        wk = w.detach().permute(0, 2, 3, 1).reshape(cout, -1).contiguous()
-        bias = torch.zeros(cout, device=x.device) if b is None \
-            else b.detach().float().contiguous()
-        return fused_conv.conv3x3_in_act(
-            x.contiguous(), wk, bias, act == "relu",
-            None if residual is None else residual.contiguous(),
-            pad_mode == "reflect", eps)
-    return fused_conv3x3_in_act_plain(x, w, b, act, residual, pad_mode, eps)
+    on_cuda(x)
+    wk = w.detach().permute(0, 2, 3, 1).reshape(w.shape[0], -1).contiguous()
+    bias = None if b is None else b.detach().float().contiguous()
+    return torch.ops.cistar.conv3x3_in_act(
+        x.contiguous(), wk, bias, act == "relu",
+        None if residual is None else residual.contiguous(),
+        pad_mode == "reflect", eps)
 
 
 # --------------------------------------------------------------------------- #
@@ -268,14 +263,12 @@ def _cout1(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                          f"got x {tuple(x.shape)}, w {tuple(w.shape)}")
     if act not in ("none", "tanh"):
         raise ValueError(f"K9 takes act 'none' or 'tanh', got {act!r}")
-    if on_cuda(x):
-        from cistar_tpu_torch.kernels import head_cout1
-        wt = w.detach()[0].permute(1, 2, 0).reshape(49, cin).to(x.dtype) \
-            .float().contiguous()
-        bias = None if b is None else b.detach().float().contiguous()
-        return head_cout1.head_cout1(x.contiguous(), wt, bias, act == "tanh",
-                                     pre_in, eps)
-    return conv2d_reflect_cout1_plain(x, w, b, act, pre_in, eps)
+    on_cuda(x)
+    wt = w.detach()[0].permute(1, 2, 0).reshape(49, cin).to(x.dtype) \
+        .float().contiguous()
+    bias = None if b is None else b.detach().float().contiguous()
+    return torch.ops.cistar.head_cout1(x.contiguous(), wt, bias,
+                                       act == "tanh", pre_in, eps)
 
 
 def conv2d_reflect_cout1(x: torch.Tensor, w: torch.Tensor,

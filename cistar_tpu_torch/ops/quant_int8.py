@@ -27,7 +27,9 @@ rows by :func:`quantize_resblock_bn`, and the blocks run no IN.
     branch): one stage of an MSRB block, its 3×3 and 5×5 zero-pad branches
     with per-input-group scales (the UNet-MSRB trunk).
 
-On a CUDA tensor each launches the hand-written kernels of
+Each is called through its ``cistar`` custom op
+(:mod:`cistar_tpu_torch.kernels.custom_ops`): on a CUDA tensor it launches
+the hand-written kernels of
 :mod:`cistar_tpu_torch.kernels.int8_resblock` /
 :mod:`~cistar_tpu_torch.kernels.int8_atrous` /
 :mod:`~cistar_tpu_torch.kernels.int8_tiled` /
@@ -54,7 +56,10 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+import cistar_tpu_torch.kernels  # noqa: F401  (registers the ops)
 from cistar_tpu_torch.device import on_cuda
+
+cistar = torch.ops.cistar   # the kernels' custom ops (kernels/custom_ops.py)
 
 EPS = 1e-5   # instance-norm epsilon (``nn.InstanceNorm2d``'s default)
 RATES = (2, 4, 6, 8)   # the atrous branches' dilations (``MultiAtrousConv``)
@@ -523,27 +528,24 @@ def msrb_stage_plain(xq: torch.Tensor, xscales: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
-# Dispatch: CPU tensors → plain version; CUDA tensors → the kernels.
+# Dispatch (the custom ops): CPU tensors → plain version; CUDA → kernels;
+# ``on_cuda`` raises for any other device before the op is reached.
 # --------------------------------------------------------------------------- #
 def resblock_int8_bf16io(hx: torch.Tensor, qblk: QBlock, bn: bool = False
                          ) -> torch.Tensor:
     """K1: one int8 residual block with a full-precision carrier; ``bn``:
     its BatchNorm form (``sb`` from :func:`quantize_resblock_bn`)."""
-    if on_cuda(hx):
-        from cistar_tpu_torch.kernels import int8_resblock
-        return int8_resblock.resblock_int8_bf16io(hx.contiguous(), qblk, EPS,
-                                                  bn)
-    return resblock_int8_bf16io_plain(hx, qblk, bn)
+    on_cuda(hx)
+    return cistar.resblock_int8_bf16io(hx.contiguous(), qblk["w1k"],
+                                       qblk["w2k"], qblk["sb"], EPS, bn)
 
 
 def resblock_int8(hq: torch.Tensor, hs: torch.Tensor, qblk: QBlock
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: one int8 residual block with an int8 carrier."""
-    if on_cuda(hq):
-        from cistar_tpu_torch.kernels import int8_resblock
-        return int8_resblock.resblock_int8(hq.contiguous(), hs.contiguous(),
-                                           qblk, EPS)
-    return resblock_int8_plain(hq, hs, qblk)
+    on_cuda(hq)
+    return cistar.resblock_int8(hq.contiguous(), hs.contiguous(),
+                                qblk["w1k"], qblk["w2k"], qblk["sb"], EPS)
 
 
 def resblock_chain_int8_bf16io(x: torch.Tensor, qblocks: Sequence[QBlock],
@@ -567,11 +569,10 @@ def resblock_chain_int8(x: torch.Tensor, qblocks: Sequence[QBlock]
 def atrous_resblock_int8(hx: torch.Tensor, qblk: QBlock,
                          rates: Sequence[int] = RATES) -> torch.Tensor:
     """K5: one int8 atrous residual block with a full-precision carrier."""
-    if on_cuda(hx):
-        from cistar_tpu_torch.kernels import int8_atrous
-        return int8_atrous.atrous_resblock_int8(hx.contiguous(), qblk, rates,
-                                                EPS)
-    return atrous_resblock_int8_plain(hx, qblk, rates)
+    on_cuda(hx)
+    return cistar.atrous_resblock_int8(hx.contiguous(), qblk["wbk"],
+                                       qblk["wck"], qblk["sb"],
+                                       [int(r) for r in rates], EPS)
 
 
 def atrous_resblock_chain_int8(x: torch.Tensor, qblocks: Sequence[QBlock],
@@ -593,25 +594,22 @@ def multi_atrous_stage_int8(x: torch.Tensor, qstage: QBlock,
     if stride != 2 or any(r % 2 for r in rates):
         raise NotImplementedError("stage kernel requires stride=2 and even "
                                   f"rates; got stride={stride} rates={rates}")
-    rates2 = tuple(r // 2 for r in rates)
-    if on_cuda(x):
-        from cistar_tpu_torch.kernels import int8_atrous
-        return int8_atrous.multi_atrous_stage_int8(x.contiguous(), qstage,
-                                                   rates2, EPS)
-    return multi_atrous_stage_int8_plain(x[:, ::2, ::2], qstage, rates2)
+    on_cuda(x)
+    return cistar.multi_atrous_stage_int8(x.contiguous(), qstage["wbk"],
+                                          qstage["sb"],
+                                          [int(r) // 2 for r in rates], EPS)
 
 
 def resblock_int8_tiled(hx: torch.Tensor, qblk: QBlock, ct: int,
                         bn: bool = False) -> torch.Tensor:
     """K7: one cout-tiled int8 residual block, full-precision carrier; on
     CUDA its two kernels, K7a then K7b; ``bn``: their BatchNorm form."""
-    if on_cuda(hx):
-        from cistar_tpu_torch.kernels import int8_tiled
-        hx = hx.contiguous()
-        rq, rs = int8_tiled.resblock_int8_tiled_a(hx, qblk, ct, EPS, bn)
-        return int8_tiled.resblock_int8_tiled_b(rq, rs, hx, qblk, ct, EPS,
-                                                bn)
-    return resblock_int8_tiled_plain(hx, qblk, ct, bn)
+    on_cuda(hx)
+    hx = hx.contiguous()
+    rq, rs = cistar.resblock_int8_tiled_a(hx, qblk["w1k"], qblk["sb"], ct,
+                                          EPS, bn)
+    return cistar.resblock_int8_tiled_b(rq, rs, hx, qblk["w2k"], qblk["sb"],
+                                        ct, EPS, bn)
 
 
 def resblock_chain_int8_tiled(x: torch.Tensor, qblocks: Sequence[QBlock],
@@ -643,18 +641,14 @@ def msrb_stage(xq: torch.Tensor, xscales: torch.Tensor, qblk: QBlock,
                out_dtype: Optional[torch.dtype]) -> Tuple[torch.Tensor, ...]:
     """K8 twice: stage ``"a"`` (1) or ``"b"`` (2) of an MSRB block, its 3×3
     and 5×5 branches → (o3, o5, s3, s5) (``_run_msrb_stage``)."""
+    on_cuda(xq)
     sb = qblk["sb1" if stage == "a" else "sb2"]
     outs = []
     for row, kk in ((0, 3), (1, 5)):
-        key = f"w{kk}{stage}"
-        if on_cuda(xq):
-            from cistar_tpu_torch.kernels import int8_msrb
-            outs.append(int8_msrb.msrb_branch_int8(
-                xq.contiguous(), xscales.contiguous(), qblk[key + "k"], sb,
-                row, kk, ct, quant_out, out_dtype))
-        else:
-            outs.append(msrb_branch_plain(xq, xscales, qblk[key], sb, row, kk,
-                                          ct, quant_out, out_dtype))
+        outs.append(cistar.msrb_branch_int8(
+            xq.contiguous(), xscales.contiguous(), qblk[f"w{kk}{stage}k"], sb,
+            row, kk, ct, quant_out,
+            torch.float32 if out_dtype is None else out_dtype))
     (o3, s3), (o5, s5) = outs
     return o3, o5, s3, s5
 

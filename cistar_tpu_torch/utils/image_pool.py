@@ -91,3 +91,22 @@ def push_and_pop(state: PoolState, batch: torch.Tensor,
     ``active``, as the JAX step splits its key on every step."""
     use_swap, idx = draw(batch.shape[0], state.images.shape[0], generator)
     return push_and_pop_core(state, batch, use_swap, idx, active)
+
+
+def sharded_push_and_pop(state: PoolState, batch: torch.Tensor,
+                         generator: torch.Generator, mesh=None,
+                         active: Optional[torch.Tensor] = None
+                         ) -> Tuple[PoolState, torch.Tensor]:
+    """:func:`push_and_pop` of the global batch under data parallelism
+    (``mesh``, a :class:`~cistar_tpu_torch.parallel.sharding.Mesh`): the
+    ranks' fakes are gathered in rank order, every rank runs the same pool
+    with the same ``generator`` state on the whole batch, as the JAX
+    program's one pool does, and keeps its own slice of the images for D.
+    Without a process group it is :func:`push_and_pop`."""
+    from cistar_tpu_torch.parallel import sharding
+
+    state, out = push_and_pop(state, sharding.all_gather_batch(batch, mesh),
+                              generator, active)
+    if mesh is None or not mesh.grouped:
+        return state, out
+    return state, sharding.shard_batch(out, mesh)

@@ -820,14 +820,56 @@ def test_test_cli_writes_the_gallery(dataroot, tmp_path, data_type):
 
 
 @pytest.mark.parametrize("app,flag,item", [
-    (p2phd_train, ["--spatial_shard"], "item 11"),
-    (p2phd_test, ["--export_onnx", "x"], "item 11"),
-    (p2phd_test, ["--engine", "x"], "item 11"),
-    (p2phd_test, ["--onnx", "x"], "item 11"),
-    (p2phd_test, ["--spatial_shard"], "item 11")])
-def test_clis_refuse_what_is_not_ported(dataroot, tmp_path, app, flag, item):
+    (p2phd_train, ["--spatial_shard"], "item 11.5"),
+    (p2phd_test, ["--spatial_shard"], "item 11.5"),
+    (p2phd_train, ["--uda"], "item 11.5")])
+def test_clis_refuse_what_is_not_ported(dataroot, tmp_path, monkeypatch, app,
+                                        flag, item):
+    # --uda at a world size above 1 (read from torchrun's environment
+    # before any process group starts)
+    monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match=item):
         app.main(_cli_args(dataroot, tmp_path, flag))
+
+
+@pytest.fixture(scope="module")
+def trained(dataroot, tmp_path_factory):
+    """The checkpoints of one CLI epoch."""
+    ck = tmp_path_factory.mktemp("p2phd_ck")
+    p2phd_train.main(_cli_args(dataroot, ck, ["--niter", "1",
+                                              "--niter_decay", "0"]))
+    return ck
+
+
+@pytest.mark.parametrize("flag", ["--export_onnx", "--engine", "--onnx"])
+def test_test_cli_exports_and_serves(dataroot, trained, tmp_path, capsys,
+                                     flag):
+    # the flags that raised until the exported programs were ported: the
+    # UNet int8 engine exported to a .pt2, then loaded, profiled and served
+    # (--engine, or its alias --onnx); the served gallery equals the eager
+    # int8 run's, bit for bit
+    ck = trained
+    pt2 = str(tmp_path / "g.pt2")
+    test = ["--phase", "test", "--data_type", "8"]
+    assert p2phd_test.main(_cli_args(dataroot, ck, test + [
+        "--export_onnx", pt2])) == pt2
+    assert os.path.getsize(pt2) > 0
+    if flag == "--export_onnx":
+        return
+    capsys.readouterr()
+    webs = [p2phd_test.main(_cli_args(dataroot, ck, test + [
+        "--results_dir", str(tmp_path / res), *extra]))
+        for res, extra in (("eager", ()), ("engine", (flag, pt2)))]
+    out = capsys.readouterr().out
+    assert f"engine {pt2}: " in out and "ms/iter" in out
+    assert "per-op device time — plane /host:CPU (10 traced runs)" in out
+    assert "cistar::msrb_branch_int8" in out
+    pngs = [sorted(os.listdir(os.path.join(w, "images"))) for w in webs]
+    assert pngs[0] == pngs[1] and len(pngs[0]) == 9
+    for name in pngs[0]:
+        a, b = (np.asarray(Image.open(os.path.join(w, "images", name)))
+                for w in webs)
+        np.testing.assert_array_equal(a, b)
 
 
 def test_trainer_needs_cuda_without_a_device(monkeypatch, dataroot,
