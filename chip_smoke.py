@@ -447,6 +447,31 @@ Exported programs and data parallelism (``runtime/``,
     loaded program, and ms a call of both.
     One card cannot run NCCL with two ranks: world size 2 is the CPU
     tests' (gloo, ``tests/test_torch_parallel.py``).
+50. spatial sharding at world size 1 with NCCL (``spatial_path``, one
+    group for phases 50-52): the ``local`` generator of the JAX suite's
+    p2phd1024 row (ngf 32, 1024²) and r2l_MSRB_7's ``UNet`` (512²), the
+    slab forward (``parallel/spatial_models.py``) against the whole-image
+    forward on the same seeded weights, fp32 with TF32 off: max-abs within
+    ``SPATIAL_ABS`` and pixel L1 beside JAX's ``spatial256`` row; bf16 ms
+    a call and peak memory at batch 2 and 4, sharded against unsharded;
+51. the ``p2phd1024`` train step (``local``, num_D 3, batch 1) and the
+    ``r2l_MSRB_7`` step with ``spatial_mesh`` against without, held in fp32
+    and timed in bf16 as phase 49 holds and times its steps, with a
+    ``[profile]`` of each; then ``p2phd_train --spatial_shard`` (one
+    epoch) and ``p2phd_test --spatial_shard`` (its gallery) on synthetic
+    512² pairs, each a process of its own;
+52. ``R2LAE`` at r2l_MSRB_7's widths and the image critic, 512², with a
+    ``mesh`` against without (held in fp32, timed with ``--fp16``), then
+    ``p2phd_train --uda`` for both modules inside the NCCL group;
+53. the native PNG loader (``data/native_loader.py``, built with g++ and
+    libpng at first use) against the PIL decode: images/s at 512² with 8
+    threads on the card's host; where the host cannot build it, the PIL
+    fallback of ``make_cyclegan_dataset``, printed;
+54. ``ops/quant.py``'s int8 ResNet-9 (64 features, 256², batch 1) on the
+    card: every int32 product (``torch._int_mm``) equal to the CPU's exact
+    product of the same int8 operands; ms a call.
+    These paths launch no port kernel: each runs with every launch counter
+    at 0 and checks that they stay there.
 
 The fp32 reference forwards run with TF32 off, the rest under PyTorch's
 defaults. The line before the last is the card's name and power limit; the
@@ -5352,6 +5377,384 @@ def dp_path(dev, images, counters) -> None:
           flush=True)
 
 
+# Spatial sharding, UDA data parallelism, the native loader and the plain
+# int8 convs (slice 18, phases 50-54). One card cannot run two NCCL ranks,
+# so every path runs at world size 1 (NCCL, a file:// rendezvous), as phase
+# 49 does; world sizes 2 and 4 are the CPU tests' (gloo,
+# tests/test_torch_spatial*.py, tests/test_torch_uda_dp.py). Phase 50: the
+# `local` generator of benchmarks/run_suite.py's p2phd1024 row (ngf 32,
+# 1024², 3 global downs, 9 global blocks, 1 enhancer, 3 local blocks) and
+# r2l_MSRB_7's UNet (64 features, 3 MSRB blocks, 512²), slab vs whole:
+# fp32 (TF32 off) within SPATIAL_ABS, beside the JAX suite's spatial256 row
+# (benchmarks/fidelity_r5.json, pixel L1 7.1e-7 over 8 virtual devices);
+# bf16 ms a call and peak memory at SPATIAL_BATCHES.
+SPATIAL_NETS = (("local 1024² (p2phd1024)", "local",
+                 dict(ngf=32, n_downsample_global=3, n_blocks_global=9,
+                      n_local_enhancers=1, n_blocks_local=3), 1024),
+                ("UNet 512² (r2l_MSRB_7)", "UNet",
+                 dict(ngf=64, n_blocks_global=3), 512))
+SPATIAL_ABS, SPATIAL_BATCHES, SPATIAL_ITERS = 1e-4, (2, 4), 5
+JAX_SPATIAL256_PIXEL_L1 = 7.1e-7
+# Phase 51: the p2phd1024 step (num_D 3, batch 1) and the r2l_MSRB_7 step
+# (P2P_TRAIN), with spatial_mesh against without, held and timed as phase
+# 49 holds and times its steps; then both CLIs with --spatial_shard on
+# SPATIAL_CLI_PAIRS synthetic 512² pairs (5 train steps), each a process.
+SPATIAL_TRAIN = (("pix2pixHD local 1024² (p2phd1024), batch 1", "local",
+                  dict(ngf=32, n_downsample_global=3, n_blocks_global=9,
+                       n_local_enhancers=1, n_blocks_local=3, ndf=64,
+                       n_layers_d=3, num_d=3, pool_size=0,
+                       image_size=1024)),
+                 ("pix2pixHD r2l_MSRB_7 512², batch 1", "UNet",
+                  dict(P2P_TRAIN["UNet"], **P2P_TRAIN_COMMON)))
+SPATIAL_CLI_PAIRS = 8
+# Phase 52: R2LAE at r2l_MSRB_7's widths (ext_opt) and the image critic,
+# 512², a batch of UDA_DP_BATCH, with the mesh against without.
+UDA_DP_BATCH = 2
+# Phase 53: the native loader against the PIL decode on LOADER_FRAMES
+# synthetic 512² frames, LOADER_THREADS threads, batches of LOADER_BATCH.
+LOADER_FRAMES, LOADER_THREADS, LOADER_BATCH = 64, 8, 8
+# Phase 54: ops/quant.py's int8 ResNet-9 (64 features) at 256², batch 1.
+QUANT = dict(features=64, blocks=9, size=256, batch=1, iters=10)
+
+
+def no_launches(counters, label: str, fn):
+    """``fn()`` with every launch counter at 0 before (``counted``); these
+    paths launch no port kernel. Returns what ``fn`` returns."""
+    out = []
+    launches = counted(counters, lambda: out.append(fn()))
+    check(not launches, f"{label} launches no kernel (got {launches})")
+    return out[0]
+
+
+def spatial_forward(dev, images, mesh, counters) -> None:
+    """Phase 50: the slab forwards against the whole-image forwards."""
+    import torch
+
+    from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
+
+    for label, net, kw, size in SPATIAL_NETS:
+        x = images(SPATIAL_BATCHES[0], size)
+        engs = [Pix2PixHDInference(net, **kw, compute_dtype=torch.float32,
+                                   device=dev, spatial_mesh=m)
+                for m in (None, mesh)]
+        check(all(torch.equal(a, b) for a, b in zip(
+            engs[0].G.parameters(), engs[1].G.parameters())),
+            f"{label}: one set of seeded weights")
+        with fp32_exact(), cudnn_deterministic():
+            y0 = engs[0].infer_step(x)
+            y1 = no_launches(counters, f"spatial {label}",
+                             lambda: engs[1].infer_step(x))
+        d = (y1 - y0).abs()
+        print(f"[spatial] {label} batch {x.shape[0]} fp32 (TF32 off), slab "
+              f"vs whole: max-abs {d.max().item()!r}, pixel L1 "
+              f"{d.mean().item()!r} (JAX spatial256 over 8 virtual "
+              f"devices: pixel L1 {JAX_SPATIAL256_PIXEL_L1!r}); tol "
+              f"{SPATIAL_ABS}", flush=True)
+        check(tuple(y1.shape) == tuple(y0.shape) and bool(
+            torch.isfinite(y1).all()) and d.max().item() <= SPATIAL_ABS,
+            f"spatial {label}: the slab forward is the whole one")
+        del engs, y0, y1, d
+        torch.cuda.empty_cache()
+        engs = [Pix2PixHDInference(net, **kw, device=dev, spatial_mesh=m)
+                for m in (None, mesh)]
+        for n in SPATIAL_BATCHES:
+            x = images(n, size)
+            res = {}
+            for name, k in (("unsharded", 0), ("sharded (world 1)", 1),
+                            ("sharded (world 1) again", 1),
+                            ("unsharded again", 0)):
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                ms = cuda_ms(lambda: engs[k].infer_step(x), SPATIAL_ITERS)
+                res[name] = (ms, (torch.cuda.max_memory_allocated() - base)
+                             / 2 ** 20)
+            print(f"[times] spatial {label} bf16 batch {n}: " + "; ".join(
+                f"{k} {ms!r} ms a call, peak {mib:.0f} MiB above its inputs"
+                for k, (ms, mib) in res.items()), flush=True)
+        del engs
+        torch.cuda.empty_cache()
+
+
+def spatial_train(dev, mesh, counters) -> None:
+    """Phase 51: the sharded train steps against the unsharded ones, and
+    both CLIs with ``--spatial_shard``."""
+    import tempfile
+
+    import torch
+
+    from cistar_tpu_torch.engines.p2phd import Pix2PixHD
+
+    for label, net, cfg in SPATIAL_TRAIN:
+        size = cfg["image_size"]
+        radar, lidar = synthetic_pairs(1, size)
+        lab, img = (torch.from_numpy(t).to(dev) for t in (radar, lidar))
+        for cdt in (torch.float32, torch.bfloat16):
+            engs = [Pix2PixHD(net, **cfg, compute_dtype=cdt, device=dev,
+                              spatial_mesh=m) for m in (None, mesh)]
+            sts = [e.init_state(0) for e in engs]
+
+            def step(k):
+                sts[k], m, _ = engs[k].train_step(sts[k], lab, None, img)
+                return m, {"G": sts[k].opt_g, "D": sts[k].opt_d}
+
+            if cdt == torch.float32:
+                with fp32_exact(), cudnn_deterministic():
+                    no_launches(counters, f"spatial step {label}",
+                                lambda: dp_hold(f"spatial {label}, fp32",
+                                                step))
+            else:
+                dp_time(f"spatial {label} bf16",
+                        {"sharded (world 1)": lambda: step(1),
+                         "unsharded": lambda: step(0)})
+                for name, k in (("sharded (world 1)", 1), ("unsharded", 0)):
+                    wall, busy, top = profile_top(lambda: step(k))
+                    print(f"[profile] spatial {label} bf16 {name}: wall "
+                          f"{wall!r} ms, device busy {busy!r} ms; top "
+                          "device time (ms): " + "; ".join(
+                              f"{n[:48]} {t!r}" for t, n in top), flush=True)
+            del engs, sts
+            torch.cuda.empty_cache()
+
+    opt_txt = os.path.join(ROOT, "checkpoints", "r2l_MSRB_7", "opt.txt")
+    with tempfile.TemporaryDirectory() as tmp:
+        data, ck = os.path.join(tmp, "data"), os.path.join(tmp, "ck")
+        synthetic_tool().main(["--out", data, "--n", str(SPATIAL_CLI_PAIRS),
+                               "--size", "512"])
+        common = ["--load_opt", opt_txt, "--dataroot", data,
+                  "--checkpoints_dir", ck, "--spatial_shard"]
+        for app, extra in (
+                ("p2phd_train", ["--niter", "1", "--niter_decay", "0",
+                                 "--print_freq", "2"]),
+                ("p2phd_test", ["--phase", "test", "--how_many", "2",
+                                "--results_dir", os.path.join(tmp, "res")])):
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", f"cistar_tpu_torch.apps.{app}",
+                 *common, *extra], cwd=ROOT, capture_output=True, text=True)
+            dt = time.perf_counter() - t0
+            print(f"[spatial cli] {app} --spatial_shard: exit "
+                  f"{out.returncode} in {dt:.1f} s (a process of its own); "
+                  f"it printed:\n{out.stdout.strip()[-1500:]}", flush=True)
+            check(out.returncode == 0, f"{app} --spatial_shard ran: "
+                  f"{out.stderr.strip()[-2000:]}")
+        run = os.path.join(ck, "r2l_MSRB_7")
+        web = os.path.join(tmp, "res", "r2l_MSRB_7", "test_latest")
+        check(os.path.exists(os.path.join(run, "latest_net_G.npz")),
+              "p2phd_train --spatial_shard saved G")
+        pngs = [f for f in os.listdir(os.path.join(web, "images"))
+                if f.endswith("_synthesized_image.png")]
+        check(os.path.exists(os.path.join(web, "index.html"))
+              and len(pngs) == 2, "p2phd_test --spatial_shard wrote its "
+              "gallery")
+
+
+def uda_dp(dev, mesh, counters) -> None:
+    """Phase 52: R2LAE and the image critic with the mesh against without;
+    ``p2phd_train --uda`` in the NCCL group."""
+    import tempfile
+
+    import torch
+
+    from cistar_tpu_torch.apps import p2phd_train
+    from cistar_tpu_torch.engines.factory import create_uda_model
+
+    size = EXT_SIZE
+    radar, lidar = synthetic_pairs(UDA_DP_BATCH, size)
+    r, li = (torch.from_numpy(t).to(dev) for t in (radar, lidar))
+    for label, flags in (("R2LAE (r2l_MSRB_7)", ["--training_module",
+                                                  "autoencoder"]),
+                         ("R2LImageCritic (ngf 16, 5 layers)", [])):
+        for fp16 in (False, True):
+            opt = ext_opt("--uda", *flags, *(["--fp16"] if fp16 else []))
+            engs = [create_uda_model(opt), create_uda_model(opt, mesh)]
+            sts = [e.init_state(0) for e in engs]
+
+            def step(k):
+                if type(engs[k]).__name__ == "R2LImageCritic":
+                    sts[k], m = engs[k].train_step(sts[k], li, r)
+                    return m, {"D": sts[k].opt}
+                sts[k], m, _ = engs[k].train_step(sts[k], r, li)
+                return m, sts[k].opts
+
+            if not fp16:
+                with fp32_exact(), cudnn_deterministic():
+                    no_launches(counters, f"UDA DP {label}",
+                                lambda: dp_hold(f"UDA {label} {size}² batch "
+                                                f"{UDA_DP_BATCH}, fp32",
+                                                step))
+            else:
+                dp_time(f"UDA {label} {size}² batch {UDA_DP_BATCH} --fp16",
+                        {"sharded (world 1)": lambda: step(1),
+                         "unsharded": lambda: step(0)})
+            del engs, sts
+            torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        data, ck = os.path.join(tmp, "data"), os.path.join(tmp, "ck")
+        synthetic_tool().main(["--out", data, "--n", str(P2P_CLI_PAIRS),
+                               "--size", str(size)])
+        for module, labels in (("discriminator", ("img_D",)),
+                               ("autoencoder", tuple(
+                                   lab for lab, _ in p2phd_train.UDA_LABELS))):
+            args = ["--load_opt", os.path.join(ROOT, "checkpoints",
+                                               "r2l_MSRB_7", "opt.txt"),
+                    "--uda", "--dataroot", data, "--checkpoints_dir", ck,
+                    "--device", dev.type, "--niter", "1", "--niter_decay",
+                    "0", "--print_freq", "2", "--training_module", module]
+            t0 = time.perf_counter()
+            no_launches(counters, f"--uda {module}",
+                        lambda: p2phd_train.main(args))
+            dt = time.perf_counter() - t0
+            for lab in labels:
+                check(os.path.exists(os.path.join(
+                    ck, "r2l_MSRB_7", f"latest_net_{lab}.npz")),
+                    f"--uda {module} in the NCCL group wrote {lab}")
+            print(f"[uda dp] p2phd_train --uda --training_module {module} in "
+                  f"a {torch.distributed.get_backend()} group of "
+                  f"{torch.distributed.get_world_size()}: one epoch in "
+                  f"{dt:.1f} s", flush=True)
+
+
+def spatial_path(dev, images, counters) -> None:
+    """Phases 50-52 in one NCCL group of one."""
+    import tempfile
+
+    import torch
+
+    from cistar_tpu_torch.parallel import sharding
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = sharding.make_mesh(dev, 0, 1,
+                                  "file://" + os.path.join(tmp, "rendezvous"))
+        try:
+            backend = "nccl" if dev.type == "cuda" else "gloo"
+            check(mesh.grouped and torch.distributed.get_backend() == backend,
+                  f"a {backend} group of one")
+            spatial_forward(dev, images, mesh, counters)
+            print(f"[spatial] phase 50 done at "
+                  f"{time.perf_counter() - t_phase!r} s", flush=True)
+            spatial_train(dev, mesh, counters)
+            print(f"[spatial] phase 51 done at "
+                  f"{time.perf_counter() - t_phase!r} s", flush=True)
+            uda_dp(dev, mesh, counters)
+        finally:
+            sharding.close_mesh(mesh)
+    print(f"[spatial] phases 50-52 took {time.perf_counter() - t_phase!r} s",
+          flush=True)
+
+
+def loader_path() -> None:
+    """Phase 53: the native PNG loader against the PIL decode, on the
+    card machine's host."""
+    import tempfile
+
+    import numpy as np
+
+    from cistar_tpu_torch.data import datasets, native_loader
+    from cistar_tpu_torch.data import transforms as T
+
+    size = 512
+    with tempfile.TemporaryDirectory() as tmp:
+        synthetic_tool().main(["--out", tmp, "--n", str(LOADER_FRAMES),
+                               "--size", str(size)])
+        paths = sorted(
+            os.path.join(tmp, "radar", f)
+            for f in os.listdir(os.path.join(tmp, "radar")))
+        batches = [list(range(i, min(i + LOADER_BATCH, len(paths))))
+                   for i in range(0, len(paths), LOADER_BATCH)]
+
+        def pil(idx):
+            return np.stack([T.normalize(T.pil_to_array(
+                T.load_image(paths[i], "L"))).astype(np.float32)
+                for i in idx])
+
+        t0 = time.perf_counter()
+        for b in batches:
+            ref = pil(b)
+        pil_s = time.perf_counter() - t0
+        try:
+            t0 = time.perf_counter()
+            ldr = native_loader.NativePngLoader(paths, size,
+                                                n_threads=LOADER_THREADS)
+            build_s = time.perf_counter() - t0
+        except (OSError, subprocess.CalledProcessError) as e:
+            import ctypes.util
+
+            ds = datasets.make_cyclegan_dataset(tmp, size, False, "test")
+            print(f"[loader] the native library does not build on this host "
+                  f"({e!r}; png.h {os.path.exists('/usr/include/png.h')}, "
+                  f"libpng {ctypes.util.find_library('png')!r}); "
+                  "make_cyclegan_dataset serves "
+                  f"{type(ds).__name__}; PIL decode "
+                  f"{len(paths) / pil_s!r} images/s", flush=True)
+            check(type(ds).__name__ == "CycleGANImageDataset",
+                  "the PIL fallback serves without the native library")
+            return
+        ldr.get_batch(batches[0])          # warm: threads, page cache
+        t0 = time.perf_counter()
+        for b in batches:
+            got = ldr.get_batch(b)
+        nat_s = time.perf_counter() - t0
+        err = float(np.abs(got - ref).max())
+        ds = datasets.make_cyclegan_dataset(tmp, size, False, "test")
+        print(f"[loader] {LOADER_FRAMES} frames {size}², batches of "
+              f"{LOADER_BATCH}: native ({LOADER_THREADS} threads, built in "
+              f"{build_s:.1f} s) {len(paths) / nat_s!r} images/s, PIL decode "
+              f"(one thread, the PIL dataset's) {len(paths) / pil_s!r} "
+              f"images/s; last batch native vs PIL max-abs {err!r}; "
+              f"make_cyclegan_dataset serves {type(ds).__name__} "
+              f"({os.cpu_count()} host cores)", flush=True)
+        check(err <= 1e-5, "the native loader decodes as PIL does")
+        check(type(ds).__name__ == "NativeCycleGANDataset",
+              "make_cyclegan_dataset takes the native loader where it builds")
+
+
+def quant_path(dev, images, counters) -> None:
+    """Phase 54: ops/quant.py's int8 ResNet-9 on the card; every int32
+    accumulator against the exact product of the same int8 operands on the
+    CPU."""
+    import torch
+
+    from cistar_tpu_torch.models.cyclegan import ResnetGenerator
+    from cistar_tpu_torch.ops import quant
+
+    torch.manual_seed(0)
+    gen = ResnetGenerator(1, 1, QUANT["blocks"], QUANT["features"]).to(dev)
+    q = {k: {n: t.to(dev) for n, t in v.items()}
+         for k, v in quant.quantize_conv_tree(gen).items()}
+    x = images(QUANT["batch"], QUANT["size"])
+    calls, int_matmul = [], quant.int_matmul
+
+    def recording(a, b):
+        out = int_matmul(a, b)
+        calls.append((a.cpu(), b.cpu(), out.cpu()))
+        return out
+
+    quant.int_matmul = recording
+    try:
+        y = no_launches(counters, "ops/quant.py", lambda: (
+            quant.resnet_generator_int8_apply(q, x, QUANT["blocks"])))
+    finally:
+        quant.int_matmul = int_matmul
+    # |acc| ≤ 127² · K < 2^53: the fp64 product of the operands is exact
+    bad = [i for i, (a, b, acc) in enumerate(calls)
+           if not torch.equal(torch.mm(a.double(), b.double()).long(),
+                              acc.long()) or acc.dtype != torch.int32]
+    with fp32_exact():
+        ref = gen(x)
+    ms = cuda_ms(lambda: quant.resnet_generator_int8_apply(
+        q, x, QUANT["blocks"]), QUANT["iters"])
+    print(f"[quant] ops/quant.py ResNet-9 {QUANT['features']} features "
+          f"{QUANT['size']}² batch {QUANT['batch']}: {len(calls)} int32 "
+          f"products (torch._int_mm), {len(calls) - len(bad)} equal to the "
+          f"CPU's exact product of the same operands; vs the fp32 forward "
+          f"max-abs {(y - ref).abs().max().item()!r}; {ms!r} ms a call",
+          flush=True)
+    check(len(calls) == 2 * QUANT["blocks"] + 8 and not bad,
+          f"the int32 accumulators bit for bit (differ at {bad})")
+    check(bool(torch.isfinite(y).all()), "the int8 forward is finite")
+
+
 def checkpoint_path(dev, counters) -> None:
     """Phase 47: the reference's ``.pth`` files converted by
     ``apps/convert_checkpoint.py`` and served by both test CLIs, each step a
@@ -5618,6 +6021,9 @@ def main() -> int:
     checkpoint_path(dev, counters)
     export_path(dev, images, counters)
     dp_path(dev, images, counters)
+    spatial_path(dev, images, counters)
+    loader_path()
+    quant_path(dev, images, counters)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -57,8 +57,10 @@ class BaseOptions:
                             "nothing before its first step (opt.txt files "
                             "carry it)")
         p.add_argument("--spatial_shard", action="store_true",
-                       help="not ported (ROADMAP queue 1, item 11.5): "
-                            "raises")
+                       help="run the generator with the image's H axis "
+                            "split over the torchrun processes (halo-"
+                            "exchange convs, instance norms summed over "
+                            "ranks); the batch stays whole")
 
         # input/output sizes
         p.add_argument("--batchSize", type=int, default=1)

@@ -23,7 +23,13 @@ weights and quantized trunk in the file) to a ``.pt2`` and returns. ``--engine P
 (:mod:`cistar_tpu_torch.runtime.profiler`; the CUDA kernels on the card),
 and serves the frames with it; frames with an instance map take the eager
 path, as in JAX (the program takes the label alone).
-``--spatial_shard`` raises: ROADMAP queue 1, item 11.5.
+``--spatial_shard`` runs G H-sharded over the processes of ``torchrun
+--nproc_per_node N`` (one a card, NCCL; gloo with ``--device cpu``): every
+process reads the same frames, runs its slab (halo-exchange convs,
+instance norms summed over ranks) and gathers the whole image; rank 0
+writes the gallery. As in JAX it refuses ``--data_type 8`` (the int8
+kernels run whole-image); it also refuses ``--export_onnx`` / ``--engine``,
+whose program is whole-image here.
 ``--compile_timeout`` does nothing.
 """
 
@@ -33,10 +39,11 @@ import os
 import time
 
 
-def load_engine(opt):
+def load_engine(opt, spatial_mesh=None):
     """The :class:`~cistar_tpu_torch.engines.p2phd.Pix2PixHDInference` the
     options describe, with G (and G_stats) of ``<checkpoints_dir>/<name>``
-    at ``--which_epoch``, loaded tolerantly."""
+    at ``--which_epoch``, loaded tolerantly; G H-sharded over
+    ``spatial_mesh`` when given."""
     import torch
 
     from cistar_tpu_torch.core import checkpoint as ckpt
@@ -52,7 +59,8 @@ def load_engine(opt):
         # data_type 8 = int8 trunk engine (non-quantized layers run bf16)
         compute_dtype=torch.bfloat16
         if (opt.fp16 or opt.data_type in (8, 16)) else torch.float32,
-        device=opt.device or None)
+        device=opt.device or None if spatial_mesh is None
+        else spatial_mesh.device, spatial_mesh=spatial_mesh)
     save_dir = os.path.join(opt.checkpoints_dir, opt.name)
     trees = engine.jax_params()
     g = ckpt.load_network(save_dir, "G", opt.which_epoch, trees["G"])
@@ -72,11 +80,30 @@ def main(argv=None):
     opt.batchSize = 1
     opt.serial_batches = True
     opt.no_flip = True
-    if opt.spatial_shard:
-        raise NotImplementedError(
-            "--spatial_shard (the generator sharded over devices) is not "
-            "ported yet: ROADMAP queue 1, item 11.5")
+    if not opt.spatial_shard:
+        return _main(opt, None)
+    if opt.data_type == 8:
+        raise SystemExit("--spatial_shard and --data_type 8 are separate "
+                         "tiers (the int8 kernels run whole-image)")
+    if opt.export_onnx or opt.engine or opt.onnx:
+        raise SystemExit("--spatial_shard and an exported program are "
+                         "separate tiers (the program is whole-image)")
+    import torch.distributed as dist
 
+    from cistar_tpu_torch.parallel import sharding
+
+    own_group = not dist.is_initialized()
+    mesh = sharding.make_mesh(opt.device or None)
+    print(f"spatial sharding: generator H axis split over {mesh.size} "
+          "process(es) (halo-exchange convs, all-reduced IN)", flush=True)
+    try:
+        return _main(opt, mesh)
+    finally:
+        if own_group:
+            sharding.close_mesh(mesh)
+
+
+def _main(opt, mesh):
     import numpy as np
     import torch
     from PIL import Image
@@ -88,7 +115,8 @@ def main(argv=None):
     from cistar_tpu_torch.utils.metrics import HTMLGallery
 
     size = opt.r2l_res if opt.r2l else opt.fineSize
-    engine = load_engine(opt)
+    engine = load_engine(opt, mesh)
+    lead = mesh is None or mesh.rank == 0
     qblocks = None
     if opt.data_type == 8:
         qblocks = engine.quantize_generator()
@@ -149,6 +177,8 @@ def main(argv=None):
             fake = (engine.infer_step_int8(qblocks, label, inst)
                     if qblocks is not None else engine.infer_step(label, inst))
         fake = fake.cpu().numpy()
+        if not lead:
+            continue
         name = os.path.splitext(os.path.basename(batch["path"][0]))[0]
         ims, txts = [], []
         tiles = [("input_label", batch["label"][0]),
@@ -170,7 +200,8 @@ def main(argv=None):
         gallery.add_header(f"process image... {name}")
         gallery.add_images(ims, txts, ims, width=opt.display_winsize)
         print(f"process image... {batch['path'][0]}")
-    gallery.save()
+    if lead:
+        gallery.save()
     return web_dir
 
 

@@ -25,7 +25,9 @@ or ``--debug``, and at each epoch's end the latest nets (``img_D``, or
 ``E``, ``DF``, ``DR``, ``DL``, ``GL``, ``GR``) as JAX-layout ``.npz``
 files, without ``iter.txt`` or BatchNorm statistics. ``--wgan`` and
 ``--transfer`` reach their trainers through ``engines/factory.py::
-create_model``, not through this CLI, as in JAX.
+create_model``, not through this CLI, as in JAX. Under ``torchrun`` the
+UDA trainers are data-parallel too: each process steps on its slice of
+the padded global batch (``R2LAE`` / ``R2LImageCritic``'s ``mesh``).
 
 Data parallelism, the JAX CLI's batch sharding over the mesh: under
 ``torchrun --nproc_per_node N`` (one process a card, NCCL; gloo with
@@ -36,9 +38,13 @@ batch's (``Pix2PixHD``'s ``mesh``: BatchNorm statistics, gradients, the D
 gate and the metrics reduced over ranks). Rank 0 logs and writes the
 checkpoints.
 
-``--spatial_shard``, and ``--uda`` at a world size above 1, raise:
-ROADMAP queue 1, item 11.5. The JAX CLI's XLA executable cache and compile
-watchdog have no counterpart: the eager step compiles nothing.
+``--spatial_shard`` spends the processes on the image's H axis instead
+(the JAX CLI's spatial mesh): every process reads the same whole batch, G
+runs H-sharded over them (halo-exchange convs, instance norms summed over
+ranks; ``Pix2PixHD``'s ``spatial_mesh``), D and the losses run on the
+whole image on every rank. ``torchrun --nproc_per_node N`` runs it on N
+cards. The JAX CLI's XLA executable cache and compile watchdog have no
+counterpart: the eager step compiles nothing.
 """
 
 from __future__ import annotations
@@ -76,11 +82,11 @@ def load_networks(pre: str, which_epoch, engine) -> None:
     engine.load_jax_params(g, g_stats, d)
 
 
-def make_engine(opt, size: int, mesh=None):
+def make_engine(opt, size: int, mesh=None, spatial_mesh=None):
     """The :class:`~cistar_tpu_torch.engines.p2phd.Pix2PixHD` the options
     describe: fp32 under ``--compute fp32`` unless ``--fp16`` or
     ``--data_type 16`` asks for bf16, bf16 otherwise; data-parallel over
-    ``mesh`` when given."""
+    ``mesh`` or G spatially sharded over ``spatial_mesh`` when given."""
     import torch
 
     from cistar_tpu_torch.engines.factory import pix2pixhd_from_opt
@@ -88,26 +94,18 @@ def make_engine(opt, size: int, mesh=None):
     fp32 = opt.compute == "fp32" and not (opt.fp16 or opt.data_type == 16)
     return pix2pixhd_from_opt(opt, size,
                               torch.float32 if fp32 else torch.bfloat16,
-                              mesh)
+                              mesh, spatial_mesh)
 
 
 def main(argv=None):
     from cistar_tpu_torch.apps.p2phd_options import TrainOptions
 
     opt = TrainOptions().parse(argv)
-    if opt.spatial_shard:
-        raise NotImplementedError(
-            "--spatial_shard (the generator sharded over devices) is not "
-            "ported yet: ROADMAP queue 1, item 11.5")
 
     import torch.distributed as dist
 
     from cistar_tpu_torch.parallel import sharding
 
-    if opt.uda and sharding.world_size() > 1:
-        raise NotImplementedError(
-            "--uda across processes (data parallelism of the UDA trainers) "
-            "is not ported yet: ROADMAP queue 1, item 11.5")
     own_group = not dist.is_initialized()
     mesh = sharding.make_mesh(opt.device or None)
     try:
@@ -140,11 +138,16 @@ def _main(opt, mesh):
         opt.max_dataset_size = 10
 
     if opt.uda:
-        return train_uda(opt, save_dir, start_epoch)
+        return train_uda(opt, save_dir, start_epoch, mesh)
 
     lead = mesh.rank == 0
     size = opt.r2l_res if opt.r2l else opt.fineSize
-    engine = make_engine(opt, size, mesh)
+    if opt.spatial_shard:
+        print(f"spatial sharding: generator H axis split over {mesh.size} "
+              "process(es) (halo-exchange convs, all-reduced IN)", flush=True)
+        engine = make_engine(opt, size, spatial_mesh=mesh)
+    else:
+        engine = make_engine(opt, size, mesh)
     state = engine.init_state(0, image_size=size)
     if opt.continue_train or opt.load_pretrain:
         pre = opt.load_pretrain or save_dir
@@ -167,9 +170,14 @@ def _main(opt, mesh):
         state = state._replace(epoch=torch.full(
             (), epoch - 1, dtype=torch.int32, device=engine.device))
         for batch in loader:
-            arrs, _ = pad_batch_to_multiple(
-                {"label": batch["label"], "image": batch["image"]}, mesh.size)
-            local = shard_batch(arrs, mesh)
+            arrs = {"label": batch["label"], "image": batch["image"]}
+            if opt.spatial_shard:
+                # the processes are spent on the spatial axis: the batch
+                # stays whole and G shards H inside the step
+                local = arrs
+            else:
+                arrs, _ = pad_batch_to_multiple(arrs, mesh.size)
+                local = shard_batch(arrs, mesh)
             label = to_device(local["label"], engine.device)
             image = to_device(local["image"], engine.device)
             state, metrics, _ = engine.train_step(state, label, None, image)
@@ -196,36 +204,46 @@ UDA_LABELS = (("E", "e"), ("DF", "df"), ("DR", "dr"), ("DL", "dl"),
               ("GL", "g_lidar"), ("GR", "g_radar"))
 
 
-def train_uda(opt, save_dir: str, start_epoch: int):
+def train_uda(opt, save_dir: str, start_epoch: int, mesh):
     """The UDA loop (``_train_uda``, parity with ``p2pHD/train.py --uda``):
     the trainer of ``--training_module`` (``create_uda_model``), its state
     from seed 0, ``UDADataset``'s train split at ``--r2l_res``; the critic
-    steps on (lidar, radar), the autoencoder on (radar, lidar). Returns
-    the state."""
+    steps on (lidar, radar), the autoencoder on (radar, lidar). Each batch
+    is padded to a multiple of ``mesh``'s world size and each process
+    steps on its slice; rank 0 logs and saves. Returns the state."""
     from cistar_tpu_torch.apps.cyclegan_train import to_device
     from cistar_tpu_torch.core import checkpoint as ckpt
     from cistar_tpu_torch.data.datasets import Loader, UDADataset
     from cistar_tpu_torch.engines.factory import create_uda_model
+    from cistar_tpu_torch.parallel.sharding import (pad_batch_to_multiple,
+                                                    shard_batch)
     from cistar_tpu_torch.utils.metrics import MetricsLogger
 
     critic = opt.training_module == "discriminator"
-    engine = create_uda_model(opt)
+    engine = create_uda_model(opt, mesh)
     state = engine.init_state(0)
+    lead = mesh.rank == 0
     dataset = UDADataset(opt.dataroot, size=opt.r2l_res, mode="train")
     loader = Loader(dataset, opt.batchSize, shuffle=not opt.serial_batches)
     logger = MetricsLogger(save_dir, opt.niter + opt.niter_decay, len(loader),
                            start_epoch=start_epoch,
-                           log_every=max(1, opt.print_freq))
+                           log_every=max(1, opt.print_freq)) if lead else None
     print(f"#training pairs = {len(dataset)}", flush=True)
     for epoch in range(start_epoch, opt.niter + opt.niter_decay + 1):
         for batch in loader:
-            radar = to_device(batch["radar"], engine.device)
-            lidar = to_device(batch["lidar"], engine.device)
+            arrs, _ = pad_batch_to_multiple(
+                {"radar": batch["radar"], "lidar": batch["lidar"]}, mesh.size)
+            local = shard_batch(arrs, mesh)
+            radar = to_device(local["radar"], engine.device)
+            lidar = to_device(local["lidar"], engine.device)
             if critic:
                 state, metrics = engine.train_step(state, lidar, radar)
             else:
                 state, metrics, _ = engine.train_step(state, radar, lidar)
-            logger.log(metrics, n_images=radar.shape[0])
+            if lead:
+                logger.log(metrics, n_images=arrs["radar"].shape[0])
+        if not lead:
+            continue
         logger.end_epoch()
         trees = engine.jax_params()
         if critic:

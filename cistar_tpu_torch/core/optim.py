@@ -76,15 +76,18 @@ def adam_step(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
               state: AdamState, lr: torch.Tensor, mask: torch.Tensor,
               b1: float = 0.5, b2: float = 0.999, eps: float = 1e-8,
               weight_decay: float = 0.0, injected: bool = True,
-              mesh=None) -> None:
+              mesh=None, reduce: str = "mean") -> None:
     """One masked Adam step, in place on ``params`` and ``state``. ``lr``
     is an fp32 device scalar, ``mask`` a device bool. ``injected`` takes
     ``1 − b`` in fp32 from fp32 ``b`` (``inject_hyperparams``), else
     rounds the Python float ``1 − b`` once; ``weight_decay`` adds
-    ``weight_decay · p`` to the gradient first. ``mesh`` (data
-    parallelism): the flat gradient is averaged over ranks first, one
-    ``all_reduce`` (:mod:`cistar_tpu_torch.parallel.sharding`)."""
-    from cistar_tpu_torch.parallel.sharding import all_reduce_mean
+    ``weight_decay · p`` to the gradient first. ``mesh``: the flat
+    gradient is reduced over ranks first, one ``all_reduce``
+    (:mod:`cistar_tpu_torch.parallel.sharding`): averaged (``reduce``
+    ``"mean"``, data parallelism) or summed (``"sum"``, spatial sharding,
+    where each rank holds its slab's part)."""
+    from cistar_tpu_torch.parallel.sharding import (all_reduce_mean,
+                                                    all_reduce_sum)
 
     f32 = np.float32
     if injected:
@@ -92,8 +95,8 @@ def adam_step(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
     else:
         c1, c2 = float(f32(1 - b1)), float(f32(1 - b2))
     b1, b2, eps = (float(f32(v)) for v in (b1, b2, eps))
-    g = all_reduce_mean(torch.cat([t.reshape(-1) for t in grads]).float(),
-                        mesh)
+    g = {"mean": all_reduce_mean, "sum": all_reduce_sum}[reduce](
+        torch.cat([t.reshape(-1) for t in grads]).float(), mesh)
     if weight_decay:
         g = g + float(f32(weight_decay)) * torch.cat(
             [p.detach().reshape(-1) for p in params])

@@ -14,12 +14,16 @@ arrays.
   * :class:`UDADataset` ↔ the aligned dataset's UDA branch: pairs named by
     ``timestamp.txt``, the first 30% for train.
 
+  * :class:`NativeCycleGANDataset`: :class:`CycleGANImageDataset`'s
+    split and pairing, its frames decoded, resized and normalized by the
+    native C++ loader (``data/native_loader.py``) a batch at a time;
+    :func:`make_cyclegan_dataset` takes it where the library builds, the
+    PIL dataset where g++ or libpng is missing.
+
 :class:`Loader` batches, in order or shuffled anew each epoch, with
-a background prefetch thread; the caller moves each batch to the device
-(the training CLIs copy it from pinned memory without blocking). The
-native C++ PNG loader of the JAX package, and with it the loader's
-``get_batch`` path, ``NativeCycleGANDataset`` and ``make_cyclegan_dataset``
-are not ported yet (ROADMAP queue 1, item 7).
+a background prefetch thread; a dataset with ``get_batch(indices)`` (the
+native one) makes its batches itself. The caller moves each batch to the
+device (the training CLIs copy it from pinned memory without blocking).
 """
 
 from __future__ import annotations
@@ -213,6 +217,66 @@ class UDADataset:
                 "path": self.radar[index]}
 
 
+class NativeCycleGANDataset:
+    """CycleGAN dataset on the native C++ loader (libpng decode, resize and
+    normalize in a thread pool): :class:`CycleGANImageDataset`'s split and
+    pairing, the train-mode rotation in numpy after the decode, as in JAX.
+    :func:`make_cyclegan_dataset` picks it where the library builds."""
+
+    def __init__(self, root: str, size: int, unaligned: bool = False,
+                 mode: str = "train", seed: int = 0, n_threads: int = 8):
+        from cistar_tpu_torch.data.native_loader import NativePngLoader
+
+        files_a = _list_pngs(os.path.join(root, "radar"))
+        files_b = _list_pngs(os.path.join(root, "lidar"))
+        split = int(len(files_a) * 0.5)
+        test = int(len(files_a) * 0.9)
+        if mode == "train":
+            files_a, files_b = files_a[:split], files_b[:split]
+        else:
+            files_a, files_b = files_a[test:], files_b[test:]
+        self.loader_a = NativePngLoader(files_a, size, channels=1,
+                                        n_threads=n_threads)
+        self.loader_b = NativePngLoader(files_b, size, channels=1,
+                                        n_threads=n_threads)
+        self.files_a = files_a
+        self.unaligned = unaligned
+        self.mode = mode
+        self.rng = np.random.RandomState(seed)
+
+    def __len__(self) -> int:
+        return max(len(self.loader_a), len(self.loader_b))
+
+    def get_batch(self, indices) -> Dict[str, np.ndarray]:
+        ia = [i % len(self.loader_a) for i in indices]
+        if self.unaligned:
+            ib = list(self.rng.randint(0, len(self.loader_b), len(indices)))
+        else:
+            ib = [i % len(self.loader_b) for i in indices]
+        a = self.loader_a.get_batch(ia)
+        b = self.loader_b.get_batch(ib)
+        if self.mode == "train":
+            for j in range(a.shape[0]):
+                angle = self.rng.randint(-45, 46)
+                a[j] = T.rotate_image(a[j], angle)
+                b[j] = T.rotate_image(b[j], angle)
+        names = [os.path.basename(self.files_a[i]) for i in ia]
+        return {"A": a, "B": b, "name": names}
+
+
+def make_cyclegan_dataset(root: str, size: Optional[int], unaligned: bool,
+                          mode: str, prefer_native: bool = True):
+    """:class:`NativeCycleGANDataset` where the native library builds (and
+    a ``size`` is given); :class:`CycleGANImageDataset` otherwise."""
+    if prefer_native and size is not None:
+        try:
+            return NativeCycleGANDataset(root, size, unaligned, mode)
+        except Exception:
+            pass
+    return CycleGANImageDataset(root, size=size, unaligned=unaligned,
+                                mode=mode)
+
+
 class Loader:
     """Batching iterator with deterministic shuffling and background
     prefetch.
@@ -223,7 +287,9 @@ class Loader:
     NHWC batches ahead of the step, so the step never waits on PNG decode.
     With ``shuffle`` each epoch (each iteration over the loader) takes the
     order of ``RandomState(epoch)``, as the JAX loader's at its default
-    seed. The last batch may be short.
+    seed. The last batch may be short. A dataset with
+    ``get_batch(indices)`` (:class:`NativeCycleGANDataset`) assembles each
+    batch itself, with no per-item collation in Python.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
@@ -257,13 +323,17 @@ class Loader:
         batches = [idx[i:i + self.bs] for i in range(0, len(idx), self.bs)]
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = object()
+        has_batch_api = hasattr(self.ds, "get_batch")
 
         def worker():
             # An exception in __getitem__/decode must reach the consumer —
             # swallowing it would silently truncate the epoch.
             try:
                 for b in batches:
-                    q.put(self._collate([self.ds[int(i)] for i in b]))
+                    if has_batch_api:
+                        q.put(self.ds.get_batch([int(i) for i in b]))
+                    else:
+                        q.put(self._collate([self.ds[int(i)] for i in b]))
             except BaseException as exc:  # noqa: BLE001 — re-raised in consumer
                 q.put(("error", exc))
             finally:

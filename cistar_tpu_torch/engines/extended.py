@@ -26,6 +26,13 @@ the same on every device; the states hold the modules' own ``Parameter``
 tensors and the steps update them in place. ``jax_params`` /
 ``load_jax_params`` map the trainable nets (and BatchNorm statistics) to
 the JAX package's param trees and back.
+
+:class:`R2LAE` and :class:`R2LImageCritic` take a ``mesh``
+(:func:`~cistar_tpu_torch.parallel.sharding.make_mesh`, data parallelism):
+each process steps on its slice of the global batch, and the step is the
+JAX program's over the whole batch — the BatchNorm statistics sum over
+ranks, the losses and metrics are global means, the gradients are
+averaged before each Adam.
 """
 
 from __future__ import annotations
@@ -41,11 +48,14 @@ from cistar_tpu_torch.core.optim import AdamState, adam_step
 from cistar_tpu_torch.device import DeviceLike, resolve_device
 from cistar_tpu_torch.losses.gan import (gan_loss, gradient_penalty_at,
                                          l1_loss, mse_loss)
-from cistar_tpu_torch.models.pix2pixhd import (DomainFeatureDiscriminator,
+from cistar_tpu_torch.models.pix2pixhd import (BatchNorm,
+                                               DomainFeatureDiscriminator,
                                                FeatureEncoder,
                                                TransferGenerator, UDADecoder,
                                                UDAEncoder, WDiscriminator,
                                                define_d)
+from cistar_tpu_torch.parallel import sharding
+from cistar_tpu_torch.parallel.sharding import Mesh
 
 Params = Dict[str, torch.Tensor]
 Mark = Optional[Callable[[str], None]]
@@ -303,7 +313,11 @@ class R2LAE:
     ``G_radar`` / ``G_lidar`` (:class:`UDADecoder`), ``DF``
     (:class:`DomainFeatureDiscriminator`, or with ``wgan`` a
     ``WDiscriminator(activate=False, flatten=False)``), ``DR`` / ``DL``
-    (multiscale PatchGANs on the one-channel images)."""
+    (multiscale PatchGANs on the one-channel images). With ``mesh`` each
+    rank steps on its slice of the global batch: every BatchNorm reduces
+    its statistics over ranks, the losses are the rank's means and the
+    metrics global ones, and the six nets' gradients are averaged over
+    ranks, which makes the step the global batch's."""
 
     def __init__(self, input_nc: int = 1, size: int = 512,
                  n_downsample: int = 3, ngf: int = 16,
@@ -311,7 +325,7 @@ class R2LAE:
                  wgan: bool = False, ndf: int = 64, n_layers_d: int = 3,
                  num_d: int = 2, lr: float = 1e-4, beta1: float = 0.5,
                  compute_dtype: torch.dtype = torch.bfloat16, seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh: Optional[Mesh] = None):
         self.input_nc, self.size, self.n_downsample = input_nc, size, \
             n_downsample
         self.ngf, self.encoder_resblock, self.max_ch = ngf, \
@@ -325,6 +339,11 @@ class R2LAE:
         self._lr = torch.full((), lr, dtype=torch.float32,
                               device=self.device)
         self._on = torch.ones((), dtype=torch.bool, device=self.device)
+        self.mesh = mesh
+        for net in (self.E, self.G_radar, self.G_lidar, self.DF):
+            for m in net.modules():
+                if isinstance(m, BatchNorm):
+                    m.mesh = mesh
 
     def _build(self):
         e = UDAEncoder(self.input_nc, self.size, self.n_downsample, self.ngf,
@@ -445,13 +464,14 @@ class R2LAE:
         o = 0
         for k, g in zip(NETS, groups):
             adam_step(g, grads[o:o + len(g)], state.opts[k], self._lr,
-                      self._on, b1=self.beta1)
+                      self._on, b1=self.beta1, mesh=self.mesh)
             o += len(g)
         mark("adam")
-        metrics = {"gan_radar": loss_gan_radar, "gan_lidar": loss_gan_lidar,
-                   "MSE_radar": mse_radar, "MSE_lidar": mse_lidar,
-                   "w_distance_F": loss_d_encoder, "d_radar": loss_d_radar,
-                   "d_lidar": loss_d_lidar}
+        metrics = sharding.global_means(
+            {"gan_radar": loss_gan_radar, "gan_lidar": loss_gan_lidar,
+             "MSE_radar": mse_radar, "MSE_lidar": mse_lidar,
+             "w_distance_F": loss_d_encoder, "d_radar": loss_d_radar,
+             "d_lidar": loss_d_lidar}, self.mesh)
         return (state, {k: v.detach() for k, v in metrics.items()},
                 {"lidar_gen": lidar_gen.detach(),
                  "radar_gen": radar_gen.detach()})
@@ -486,12 +506,16 @@ class R2LImageCritic:
     (``udaModel.py:309-381``): ``D`` is ``WDiscriminator(ngf, n_layer,
     flatten=True)``, a batch mean; the loss is ``mean D(lidar) − mean
     D(radar) + w_lambda · GP`` (GP with λ = 1); Adam β = (0.5, 0.9) with
-    weight decay 1e-4 (``optax.chain(add_decayed_weights, adam)``)."""
+    weight decay 1e-4 (``optax.chain(add_decayed_weights, adam)``). With
+    ``mesh`` each rank steps on its slice of the global batch and the step
+    is the global batch's (the metrics global means, the gradient averaged
+    over ranks)."""
 
     def __init__(self, ngf: int = 16, n_layer: int = 5,
                  w_lambda: float = 10.0, lr: float = 1e-4,
                  compute_dtype: torch.dtype = torch.float32, seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh: Optional[Mesh] = None):
+        self.mesh = mesh
         self.ngf, self.n_layer, self.w_lambda = ngf, n_layer, w_lambda
         self.lr, self.cdt = lr, compute_dtype
         self.device = resolve_device(device)
@@ -525,32 +549,44 @@ class R2LImageCritic:
                    ) -> Tuple[CriticState, Dict[str, torch.Tensor]]:
         """One critic step on NHWC ``lidar`` (the penalty's "real") and
         ``radar``. ``eps`` (N, 1, 1, 1), the interpolation weights, is drawn
-        from ``state.gen`` unless given. ``mark(label)`` ends the phases
-        ``forward``, ``backward``, ``adam``."""
+        from ``state.gen`` unless given; with ``mesh``, ``eps`` is the
+        global batch's (drawn for it on every rank, the same draws) and the
+        rank takes its slice. ``mark(label)`` ends the phases ``forward``,
+        ``backward``, ``adam``."""
         mark = mark or (lambda name: None)
         dev = self.device
         lidar = lidar.to(dev, torch.float32)
         radar = radar.to(dev, torch.float32)
+        ranks = self.mesh.size if self.mesh is not None else 1
         if eps is None:
-            eps = torch.rand((lidar.shape[0], 1, 1, 1), generator=state.gen,
-                             device=dev)
+            eps = torch.rand((lidar.shape[0] * ranks, 1, 1, 1),
+                             generator=state.gen, device=dev)
+        if self.mesh is not None:
+            eps = sharding.shard_batch(eps, self.mesh)
 
         def critic(x):
             return self.D(x.to(self.cdt))
 
+        def global_critic(x):
+            # the global batch's mean: this rank's images weigh 1/N of the
+            # global N each
+            return critic(x) / ranks if ranks > 1 else critic(x)
+
         lidar_f = critic(lidar).float()
         radar_f = critic(radar).float()
         # the critic is a batch mean, so the penalty's gradient per image
-        # is 1/N of the per-image critic's, as in JAX
-        gp = gradient_penalty_at(critic, lidar, radar, eps.to(dev), lam=1.0)
+        # is 1/N of the per-image critic's, as in JAX; N the global batch
+        gp = gradient_penalty_at(global_critic, lidar, radar, eps.to(dev),
+                                 lam=1.0)
         distance = lidar_f.mean() - radar_f.mean() + self.w_lambda * gp
         mark("forward")
         params = list(state.d.values())
         grads = torch.autograd.grad(distance, params)
         mark("backward")
         adam_step(params, grads, state.opt, self._lr, self._on, b1=0.5,
-                  b2=0.9, weight_decay=1e-4, injected=False)
+                  b2=0.9, weight_decay=1e-4, injected=False, mesh=self.mesh)
         mark("adam")
-        metrics = {"w_distance": distance, "lidar_F": lidar_f.mean(),
-                   "radar_F": radar_f.mean(), "gp": gp}
+        metrics = sharding.global_means(
+            {"w_distance": distance, "lidar_F": lidar_f.mean(),
+             "radar_F": radar_f.mean(), "gp": gp}, self.mesh)
         return state, {k: v.detach() for k, v in metrics.items()}

@@ -28,11 +28,12 @@ def _device(opt):
 
 
 def pix2pixhd_from_opt(opt, size: int, compute_dtype: torch.dtype,
-                       mesh=None):
+                       mesh=None, spatial_mesh=None):
     """The :class:`~cistar_tpu_torch.engines.p2phd.Pix2PixHD` train step a
     ``TrainOptions`` namespace describes, at ``size``² in
     ``compute_dtype`` (each caller keeps its own dtype rule), data-parallel
-    over ``mesh`` when given."""
+    over ``mesh`` or G spatially sharded over ``spatial_mesh`` when
+    given."""
     from cistar_tpu_torch.engines.p2phd import Pix2PixHD
     from cistar_tpu_torch.losses.perceptual import make_vgg_loss
 
@@ -54,7 +55,9 @@ def pix2pixhd_from_opt(opt, size: int, compute_dtype: torch.dtype,
         compute_dtype=compute_dtype, instance_feat=opt.instance_feat,
         label_feat=opt.label_feat, load_features=opt.load_features,
         feat_num=opt.feat_num, nef=opt.nef, n_downsample_e=opt.n_downsample_E,
-        device=_device(opt) if mesh is None else mesh.device, mesh=mesh)
+        device=_device(opt) if (mesh or spatial_mesh) is None
+        else (mesh or spatial_mesh).device, mesh=mesh,
+        spatial_mesh=spatial_mesh)
 
 
 def create_model(opt):
@@ -98,15 +101,17 @@ def create_model(opt):
     return pix2pixhd_from_opt(opt, size, cdt)
 
 
-def create_uda_model(opt):
-    """``create_UDA_model``: the trainer of ``--training_module``."""
+def create_uda_model(opt, mesh=None):
+    """``create_UDA_model``: the trainer of ``--training_module``,
+    data-parallel over ``mesh`` when given."""
     from cistar_tpu_torch.engines.extended import R2LAE, R2LImageCritic
 
     cdt = torch.bfloat16 if getattr(opt, "fp16", False) else torch.float32
-    dev = _device(opt)
+    dev = _device(opt) if mesh is None else mesh.device
     if opt.training_module == "discriminator":
         return R2LImageCritic(w_lambda=getattr(opt, "w_lambda", 10.0),
-                              lr=opt.lr, compute_dtype=cdt, device=dev)
+                              lr=opt.lr, compute_dtype=cdt, device=dev,
+                              mesh=mesh)
     # autoencoder, or anything else: the shared-encoder UDA trainer
     return R2LAE(input_nc=opt.input_nc, size=opt.r2l_res,
                  n_downsample=opt.n_downsample_global, ngf=opt.ngf,
@@ -115,4 +120,4 @@ def create_uda_model(opt):
                  wgan=getattr(opt, "wgan", False), ndf=opt.ndf,
                  n_layers_d=opt.n_layers_D, num_d=opt.num_D, lr=opt.lr,
                  beta1=getattr(opt, "beta1", 0.5), compute_dtype=cdt,
-                 device=dev)
+                 device=dev, mesh=mesh)

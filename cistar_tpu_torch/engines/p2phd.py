@@ -9,7 +9,12 @@
 :meth:`~Pix2PixHDInference.infer_step` (the plain forward in the compute
 dtype) and :meth:`~Pix2PixHDInference.infer_step_int8` (the family's int8
 engine; the last three have none, as in JAX), both after the reference's
-input encoding (``pix2pixHD_model.py:119-150``).
+input encoding (``pix2pixHD_model.py:119-150``). With ``spatial_mesh`` (a
+:class:`~cistar_tpu_torch.parallel.sharding.Mesh`), the plain forward of
+``global``, ``local`` and ``UNet`` with instance norm runs H-sharded over
+the mesh's processes (:mod:`cistar_tpu_torch.parallel.spatial_models`):
+every rank holds the whole batch, runs its H-slab and gathers the whole
+output.
 
 :class:`Pix2PixHD` adds the multiscale PatchGAN discriminator, the
 instance-feature encoder netE and the train step of the reference
@@ -48,7 +53,9 @@ from cistar_tpu_torch.models.pix2pixhd import (BatchNorm, Encoder,
                                                define_g)
 from cistar_tpu_torch.ops.quant_int8 import QBlock, quantize_global_trunk
 from cistar_tpu_torch.parallel import sharding
+from cistar_tpu_torch.parallel import spatial as sp
 from cistar_tpu_torch.parallel.sharding import Mesh
+from cistar_tpu_torch.parallel.spatial_models import generator_sharded_apply
 from cistar_tpu_torch.utils.image_pool import (PoolState, init_pool,
                                                sharded_push_and_pop)
 
@@ -99,9 +106,16 @@ class Pix2PixHDInference:
                  r2l: bool = True, no_instance: bool = True,
                  compute_dtype: torch.dtype = torch.bfloat16, seed: int = 0,
                  device: DeviceLike = None, norm: str = "instance",
-                 n_scale: int = 3):
+                 n_scale: int = 3, spatial_mesh: Optional[Mesh] = None):
         if net_g not in _FAMILIES:
             raise ValueError(f"generator {net_g!r} not implemented")
+        if spatial_mesh is not None and (
+                norm != "instance" or net_g not in ("global", "local",
+                                                    "UNet")):
+            raise NotImplementedError(
+                "spatial sharding supports instance-norm global/local/"
+                f"UNet generators (got netG={net_g!r}, norm={norm!r})")
+        self.spatial_mesh = spatial_mesh
         self.net_g, self.norm, self.n_scale = net_g, norm, n_scale
         self.ngf = ngf
         self.n_downsample_global = n_downsample_global
@@ -208,11 +222,19 @@ class Pix2PixHDInference:
                 "--data_type 16/32")
         return self._quantize(self.G)
 
+    def _g(self, x: torch.Tensor) -> torch.Tensor:
+        """G's plain forward: whole-image, or H-sharded over
+        ``spatial_mesh`` (the whole output on every rank)."""
+        if self.spatial_mesh is None:
+            return self.G(x)
+        return generator_sharded_apply(self.G, x,
+                                       sp.group_of(self.spatial_mesh))
+
     def _forward(self, qblocks: Optional[List[QBlock]], label: torch.Tensor,
                  inst: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = self.encode_input(label, inst).to(self.cdt)
         if qblocks is None:
-            return self.G(x).float()
+            return self._g(x).float()
         return self._int8_fwd(self.G, qblocks, x).float()
 
     @torch.inference_mode()
@@ -275,16 +297,27 @@ class Pix2PixHD(Pix2PixHDInference):
     (the JAX step donates its state). G and D run in the compute dtype with
     fp32 params, netE in fp32; the losses, gradients and Adam states are
     fp32. Weights come from ``seed`` through :meth:`init_state`, the same
-    on every device. The arguments are the JAX engine's, less
-    ``spatial_mesh``; ``n_scale`` sets the ``transfer`` generator's
-    pyramid (``engines/extended.py::make_transfer_p2p``).
+    on every device. The arguments are the JAX engine's; ``n_scale`` sets
+    the ``transfer`` generator's pyramid
+    (``engines/extended.py::make_transfer_p2p``).
 
     With ``mesh`` (:func:`~cistar_tpu_torch.parallel.sharding.make_mesh`)
     each process steps on its slice of the global batch and the step is the
     JAX program's over the whole batch: G's training-mode BatchNorms reduce
     their statistics over ranks, the gradients are averaged over ranks
     before Adam, the D gate reads the global ``loss_D``, the pool runs on
-    the gathered fakes and the metrics are global means."""
+    the gathered fakes and the metrics are global means.
+
+    With ``spatial_mesh`` every process reads the same whole batch and G
+    runs H-sharded (its gathered fake the same on every rank); D, the
+    losses, the pool and the VGG loss run on the whole image on every
+    rank. G's (and netE's) gradients, each rank holding the part that
+    flowed through its own slab, are summed over ranks before Adam; D's,
+    each rank's the whole gradient, are averaged, so that D replicas whose
+    convs round differently from run to run stay equal; the metrics, and
+    with them the D gate, are averaged too. Every rank's parameters stay
+    equal bit for bit. ``mesh`` and ``spatial_mesh`` exclude each other,
+    as the JAX CLI spends its devices on one axis or the other."""
 
     def __init__(self, net_g: str = "global", input_nc: int = 1,
                  output_nc: int = 1, label_nc: int = 0, ngf: int = 64,
@@ -305,7 +338,11 @@ class Pix2PixHD(Pix2PixHDInference):
                  nef: int = 16, n_downsample_e: int = 4,
                  max_instances: int = 64, seed: int = 0,
                  device: DeviceLike = None, n_scale: int = 3,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None,
+                 spatial_mesh: Optional[Mesh] = None):
+        if mesh is not None and spatial_mesh is not None:
+            raise ValueError("mesh (data parallelism) and spatial_mesh "
+                             "(spatial sharding) exclude each other")
         # use_features / gen_features: pix2pixHD_model.py:26-28
         self.use_features = instance_feat or label_feat
         self.gen_features = self.use_features and not load_features
@@ -324,7 +361,8 @@ class Pix2PixHD(Pix2PixHDInference):
         super().__init__(net_g, ngf, n_downsample_global, n_blocks_global,
                          n_local_enhancers, n_blocks_local, input_nc,
                          output_nc, label_nc, r2l, no_instance,
-                         compute_dtype, seed, device, norm, n_scale)
+                         compute_dtype, seed, device, norm, n_scale,
+                         spatial_mesh)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.D = self._build_d().to(self.device)
@@ -496,7 +534,7 @@ class Pix2PixHD(Pix2PixHDInference):
         g_in = self._g_input(input_label, label, inst, image, feat)
         self.G.train()
         try:
-            fake = self.G(g_in.to(self.cdt)).float()
+            fake = self._g(g_in.to(self.cdt)).float()
         finally:
             self.G.eval()
         if self.use_ganfeat:
@@ -528,11 +566,15 @@ class Pix2PixHD(Pix2PixHDInference):
         mark("g_backward")
         g_grads = self._fix_global_mask(g_names, list(grads[:len(g_params)]),
                                         state.epoch)
+        # data parallelism averages G's gradients; spatial sharding sums
+        # the slabs' parts
+        red = self.mesh or self.spatial_mesh
+        g_red = "mean" if self.spatial_mesh is None else "sum"
         adam_step(g_params, g_grads, state.opt_g, lr_now, self._on,
-                  b1=self.beta1, mesh=self.mesh)
+                  b1=self.beta1, mesh=red, reduce=g_red)
         if self.gen_features:
             adam_step(e_params, grads[len(g_params):], state.opt_e, lr_now,
-                      self._on, b1=self.beta1, mesh=self.mesh)
+                      self._on, b1=self.beta1, mesh=red, reduce=g_red)
         mark("g_adam")
 
         # ---- D on the detached fake of the same forward (through the
@@ -558,11 +600,11 @@ class Pix2PixHD(Pix2PixHDInference):
             {"G_GAN": loss_g_gan, "G_GAN_Feat": loss_feat,
              "G_VGG": loss_vgg, "D_real": loss_d_real,
              "D_fake": loss_d_fake, "loss_D": loss_d,
-             "loss_G": loss_g_gan + loss_feat + loss_vgg}, self.mesh)
+             "loss_G": loss_g_gan + loss_feat + loss_vgg}, red)
         metrics = {k: v.detach() for k, v in metrics.items()}
         adam_step(d_params, d_grads, state.opt_d, lr_now,
                   metrics["loss_D"] >= self.d_floor, b1=self.beta1,
-                  mesh=self.mesh)
+                  mesh=red)
         mark("d_adam")
         return state._replace(pool=pool), metrics, fake
 
@@ -577,7 +619,7 @@ class Pix2PixHD(Pix2PixHDInference):
         inst = None if inst is None else inst.to(dev)
         feat = self.E(image, self._pool_ids(label, inst), self.max_instances)
         x = torch.cat([self.encode_input(label, inst), feat], dim=-1)
-        return self.G(x.to(self.cdt)).float()
+        return self._g(x.to(self.cdt)).float()
 
     @torch.inference_mode()
     def infer_with_features(self, label: torch.Tensor,
@@ -586,7 +628,7 @@ class Pix2PixHD(Pix2PixHDInference):
         """G(encode_input ‖ ``feat_map``) (``infer_with_features``)."""
         x = torch.cat([self.encode_input(label, inst),
                        feat_map.to(self.device, torch.float32)], dim=-1)
-        return self.G(x.to(self.cdt)).float()
+        return self._g(x.to(self.cdt)).float()
 
 
 def sample_features(inst: np.ndarray, clusters: Mapping[int, np.ndarray],

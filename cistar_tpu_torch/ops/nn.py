@@ -183,15 +183,19 @@ def max_pool2d(x: torch.Tensor, kernel: int, stride: Optional[int] = None,
 def _pool_counts(h: int, w: int, k: int, s: int, p: int,
                  device: torch.device) -> torch.Tensor:
     """Reciprocal valid-element counts of each output pixel of a padded
-    average pool, (ho, wo, 1) fp32 (``ops/nn.py::_pool_counts``)."""
-    padded = torch.zeros(h + 2 * p, w + 2 * p)
-    padded[p:p + h, p:p + w] = 1.0
-    ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
-    cnt = torch.zeros(ho, wo)
-    for dy in range(k):
-        for dx in range(k):
-            cnt += padded[dy:dy + (ho - 1) * s + 1:s, dx:dx + (wo - 1) * s + 1:s]
-    return (torch.ones_like(cnt) / cnt)[..., None].to(device)
+    average pool, (ho, wo, 1) fp32 (``ops/nn.py::_pool_counts``). Made
+    outside inference mode: the cached table also serves train steps,
+    which autograd may not save an inference tensor for."""
+    with torch.inference_mode(False):
+        padded = torch.zeros(h + 2 * p, w + 2 * p)
+        padded[p:p + h, p:p + w] = 1.0
+        ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+        cnt = torch.zeros(ho, wo)
+        for dy in range(k):
+            for dx in range(k):
+                cnt += padded[dy:dy + (ho - 1) * s + 1:s,
+                              dx:dx + (wo - 1) * s + 1:s]
+        return (torch.ones_like(cnt) / cnt)[..., None].to(device)
 
 
 def avg_pool2d(x: torch.Tensor, kernel: int, stride: Optional[int] = None,

@@ -18,7 +18,9 @@ collectives here.
   * :func:`all_reduce_sum` / :func:`all_reduce_mean` /
     :func:`all_gather_batch` — the collectives of the train steps and the
     sharded inference; :func:`all_reduce_sum_grad` is the sum that
-    autograd differentiates (BatchNorm's statistics).
+    autograd differentiates (BatchNorm's statistics), :func:`psum_grad`
+    the same over a process group's ranks (instance norm's statistics in
+    :mod:`cistar_tpu_torch.parallel.spatial`).
 
 A :class:`Mesh` without a process group (``make_mesh()`` of one process,
 nothing in the environment) makes every helper the identity. With a group,
@@ -159,20 +161,29 @@ def all_reduce_mean(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
 
 
 class _SumOverRanks(torch.autograd.Function):
-    """Σ over ranks, whose gradient is the Σ over ranks of the gradients:
-    each rank's input reaches every rank's output."""
+    """Σ over the ranks of ``group`` (``None``: every rank), whose gradient
+    is the Σ over those ranks of the gradients: each rank's input reaches
+    every rank's output."""
 
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, group=None):
+        ctx.group = group
         out = t.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone()
-        dist.all_reduce(grad)
-        return grad
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def psum_grad(t: torch.Tensor, group) -> torch.Tensor:
+    """Σ of ``t`` over the ranks of the process group ``group``, which
+    autograd differentiates (its backward sums the gradients over the
+    same ranks)."""
+    return _SumOverRanks.apply(t, group)
 
 
 def all_reduce_sum_grad(t: torch.Tensor, mesh: Optional[Mesh]
@@ -181,7 +192,7 @@ def all_reduce_sum_grad(t: torch.Tensor, mesh: Optional[Mesh]
     sums the gradients over ranks."""
     if mesh is None or not mesh.grouped:
         return t
-    return _SumOverRanks.apply(t)
+    return psum_grad(t, None)
 
 
 def all_gather_batch(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
