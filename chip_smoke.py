@@ -5411,8 +5411,9 @@ SPATIAL_CLI_PAIRS = 8
 # 512², a batch of UDA_DP_BATCH, with the mesh against without.
 UDA_DP_BATCH = 2
 # Phase 53: the native loader against the PIL decode on LOADER_FRAMES
-# synthetic 512² frames, LOADER_THREADS threads, batches of LOADER_BATCH.
-LOADER_FRAMES, LOADER_THREADS, LOADER_BATCH = 64, 8, 8
+# synthetic 512² frames, the loader's N_THREADS threads, batches of
+# LOADER_BATCH.
+LOADER_FRAMES, LOADER_BATCH = 64, 8
 # Phase 54: ops/quant.py's int8 ResNet-9 (64 features) at 256², batch 1.
 QUANT = dict(features=64, blocks=9, size=256, batch=1, iters=10)
 
@@ -5674,8 +5675,7 @@ def loader_path() -> None:
         pil_s = time.perf_counter() - t0
         try:
             t0 = time.perf_counter()
-            ldr = native_loader.NativePngLoader(paths, size,
-                                                n_threads=LOADER_THREADS)
+            ldr = native_loader.NativePngLoader(paths, size)
             build_s = time.perf_counter() - t0
         except (OSError, subprocess.CalledProcessError) as e:
             import ctypes.util
@@ -5698,7 +5698,7 @@ def loader_path() -> None:
         err = float(np.abs(got - ref).max())
         ds = datasets.make_cyclegan_dataset(tmp, size, False, "test")
         print(f"[loader] {LOADER_FRAMES} frames {size}², batches of "
-              f"{LOADER_BATCH}: native ({LOADER_THREADS} threads, built in "
+              f"{LOADER_BATCH}: native ({native_loader.N_THREADS} threads, built in "
               f"{build_s:.1f} s) {len(paths) / nat_s!r} images/s, PIL decode "
               f"(one thread, the PIL dataset's) {len(paths) / pil_s!r} "
               f"images/s; last batch native vs PIL max-abs {err!r}; "

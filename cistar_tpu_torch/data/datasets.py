@@ -31,6 +31,7 @@ from __future__ import annotations
 import glob
 import os
 import queue
+import subprocess
 import threading
 from typing import Dict, Iterator, List, Optional, Sequence
 
@@ -224,7 +225,7 @@ class NativeCycleGANDataset:
     :func:`make_cyclegan_dataset` picks it where the library builds."""
 
     def __init__(self, root: str, size: int, unaligned: bool = False,
-                 mode: str = "train", seed: int = 0, n_threads: int = 8):
+                 mode: str = "train"):
         from cistar_tpu_torch.data.native_loader import NativePngLoader
 
         files_a = _list_pngs(os.path.join(root, "radar"))
@@ -235,14 +236,12 @@ class NativeCycleGANDataset:
             files_a, files_b = files_a[:split], files_b[:split]
         else:
             files_a, files_b = files_a[test:], files_b[test:]
-        self.loader_a = NativePngLoader(files_a, size, channels=1,
-                                        n_threads=n_threads)
-        self.loader_b = NativePngLoader(files_b, size, channels=1,
-                                        n_threads=n_threads)
+        self.loader_a = NativePngLoader(files_a, size)
+        self.loader_b = NativePngLoader(files_b, size)
         self.files_a = files_a
         self.unaligned = unaligned
         self.mode = mode
-        self.rng = np.random.RandomState(seed)
+        self.rng = np.random.RandomState(0)
 
     def __len__(self) -> int:
         return max(len(self.loader_a), len(self.loader_b))
@@ -265,13 +264,15 @@ class NativeCycleGANDataset:
 
 
 def make_cyclegan_dataset(root: str, size: Optional[int], unaligned: bool,
-                          mode: str, prefer_native: bool = True):
+                          mode: str):
     """:class:`NativeCycleGANDataset` where the native library builds (and
-    a ``size`` is given); :class:`CycleGANImageDataset` otherwise."""
-    if prefer_native and size is not None:
+    a ``size`` is given); :class:`CycleGANImageDataset` on a host without
+    g++ or libpng (the build or the load raises ``OSError`` or
+    ``CalledProcessError``). Any other fault raises."""
+    if size is not None:
         try:
             return NativeCycleGANDataset(root, size, unaligned, mode)
-        except Exception:
+        except (OSError, subprocess.CalledProcessError):
             pass
     return CycleGANImageDataset(root, size=size, unaligned=unaligned,
                                 mode=mode)

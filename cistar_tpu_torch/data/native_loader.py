@@ -25,6 +25,10 @@ SRC = os.path.normpath(os.path.join(_NATIVE, "dataloader.cpp"))
 BUILD_DIR = os.path.normpath(os.path.join(_NATIVE, "build"))
 LIB_PATH = os.path.join(BUILD_DIR, "libcistar_loader.so")
 
+# every caller's values: one grey channel, eight decode threads, and
+# Normalize(0.5, 0.5) to [-1, 1]
+CHANNELS, N_THREADS, MEAN, STD = 1, 8, 0.5, 0.5
+
 _lib = None
 
 
@@ -63,29 +67,27 @@ def _get_lib():
 
 
 class NativePngLoader:
-    """Threaded native PNG → float32 NHWC batch loader: ``(x/255 − mean) /
-    std``, bilinearly resized to ``size``² with half-pixel centres, PIL's
-    grayscale conversion."""
+    """Threaded native PNG → float32 NHWC batch loader (:data:`N_THREADS`
+    threads): ``(x/255 − MEAN) / STD``, bilinearly resized to ``size``²
+    with half-pixel centres, PIL's grayscale conversion, one channel."""
 
-    def __init__(self, paths: Sequence[str], size: int, channels: int = 1,
-                 n_threads: int = 8, mean: float = 0.5, std: float = 0.5):
+    def __init__(self, paths: Sequence[str], size: int):
         lib = _get_lib()
         arr = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
         self._lib = lib
         self._handle = lib.loader_create(arr, len(paths), size, size,
-                                         channels, n_threads)
-        self.size, self.channels = size, channels
-        self.mean, self.std = mean, std
+                                         CHANNELS, N_THREADS)
+        self.size = size
         self.n = len(paths)
 
     def get_batch(self, indices: Sequence[int]) -> np.ndarray:
         bs = len(indices)
-        out = np.empty((bs, self.size, self.size, self.channels), np.float32)
+        out = np.empty((bs, self.size, self.size, CHANNELS), np.float32)
         idx = (ctypes.c_int * bs)(*[int(i) for i in indices])
         ok = self._lib.loader_get_batch(
             self._handle, idx, bs,
             out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-            ctypes.c_float(self.mean), ctypes.c_float(self.std))
+            ctypes.c_float(MEAN), ctypes.c_float(STD))
         if ok != bs:
             raise IOError(f"native loader decoded {ok}/{bs} images")
         return out

@@ -118,13 +118,10 @@ def _reflect_pad(xq: torch.Tensor, p: int) -> torch.Tensor:
     return xq[:, idx(xq.shape[1])][:, :, idx(xq.shape[2])]
 
 
-def int8_conv2d(x: torch.Tensor, q: QConv, stride: int = 1,
-                padding: str = "same-zero") -> torch.Tensor:
-    """Dynamic-activation int8 conv, zero "same" padding (or none), fp32
-    out."""
+def int8_conv2d(x: torch.Tensor, q: QConv, stride: int = 1) -> torch.Tensor:
+    """Dynamic-activation int8 conv, zero "same" padding, fp32 out."""
     xq, x_scale = quantize_act(x.float())
-    k = q["wq"].shape[-1]
-    p = (k - 1) // 2 if padding == "same-zero" else 0
+    p = (q["wq"].shape[-1] - 1) // 2
     acc = conv_acc(F.pad(xq, (0, 0, p, p, p, p)), q["wq"], stride)
     return _dequant(acc, x_scale, q)
 

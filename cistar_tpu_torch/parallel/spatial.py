@@ -47,6 +47,7 @@ ValueError with the shapes.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, Optional, Tuple
 
 import torch
@@ -240,29 +241,43 @@ def spatial_max_pool2(x: torch.Tensor, group=None) -> torch.Tensor:
     return tnn.max_pool2d(x, 2, 2)
 
 
+@functools.lru_cache(maxsize=None)
+def _slab_pool_counts(h: int, w: int, r: int, n: int,
+                      device: torch.device) -> torch.Tensor:
+    """The in-bounds counts of each 3×3 / 2 window of rank ``r``'s slab of
+    ``n`` (h rows, w columns, one halo row each way), (ho, wo, 1) fp32.
+    Made outside inference mode, like ``ops/nn.py::_pool_counts``: the
+    cached table also serves train steps."""
+    with torch.inference_mode(False):
+        rows = torch.arange(h + 2) + (r * h - 1)
+        cols = torch.arange(w + 2)
+        valid = (((rows >= 0) & (rows < n * h))[:, None]
+                 & ((cols >= 1) & (cols <= w))[None, :]).float()
+        return _window_sum_3s2(valid[None, ..., None])[0].to(device)
+
+
+def _window_sum_3s2(t: torch.Tensor) -> torch.Tensor:
+    """The fp32 sums of the 3×3 / 2 windows of an NHWC ``t`` already padded
+    by one row and one column each way, taps in row-major order."""
+    ho, wo = (t.shape[1] - 2) // 2, (t.shape[2] - 3) // 2 + 1
+    s = torch.zeros(t.shape[0], ho, wo, t.shape[-1], device=t.device)
+    for dy in range(3):
+        for dx in range(3):
+            s = s + t[:, dy:dy + 2 * ho - 1:2, dx:dx + 2 * wo - 1:2]
+    return s
+
+
 def spatial_avg_pool_3s2(x: torch.Tensor, group=None) -> torch.Tensor:
     """``AvgPool2d(3, stride=2, padding=1, count_include_pad=False)`` on an
     even H-slab, the pix2pixHD pyramid's downsampler: one halo row each
     way (zeros at the true edges), the fp32 window sums, divided by the
-    true in-bounds counts of each window."""
+    true in-bounds counts of each window (cached by slab shape and rank)."""
     _need(x.shape[1] % 2 == 0, "a stride-2 pool needs an even slab", x)
     r, n = rank_and_size(group)
     h, w = x.shape[1], x.shape[2]
     y = F.pad(halo_exchange(x, 1, 1, group).float(), (0, 0, 1, 1))
-    rows = torch.arange(h + 2, device=x.device) + (r * h - 1)
-    cols = torch.arange(w + 2, device=x.device)
-    valid = (((rows >= 0) & (rows < n * h))[:, None]
-             & ((cols >= 1) & (cols <= w))[None, :]).float()[None, ..., None]
-    ho, wo = h // 2, (w - 1) // 2 + 1
-
-    def window_sum(t):
-        s = torch.zeros(t.shape[0], ho, wo, t.shape[-1], device=x.device)
-        for dy in range(3):
-            for dx in range(3):
-                s = s + t[:, dy:dy + 2 * ho - 1:2, dx:dx + 2 * wo - 1:2]
-        return s
-
-    return (window_sum(y) / window_sum(valid)).to(x.dtype)
+    counts = _slab_pool_counts(h, w, r, n, x.device)
+    return (_window_sum_3s2(y) / counts).to(x.dtype)
 
 
 def scatter_slab(x: torch.Tensor, group=None) -> torch.Tensor:

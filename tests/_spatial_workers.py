@@ -298,9 +298,31 @@ def p2phd_run(net, spatial_mesh=None):
     return steps, params, eng.infer_step(train_batches(40)[0][0])
 
 
+def jax_weights_step(path, spatial_mesh=None):
+    """One ``global`` step of P2P from the JAX engine's initial weights
+    (numpy trees ``{"g", "d"}`` pickled at ``path``) on the first of
+    ``train_batches(40)``: the metrics, the fake, and Adam's first moments
+    of G and D, per parameter."""
+    import pickle
+
+    from cistar_tpu_torch.engines.p2phd import Pix2PixHD
+
+    with open(path, "rb") as f:
+        trees = pickle.load(f)
+    eng = Pix2PixHD(image_size=TRAIN_SIZE, compute_dtype=torch.float32,
+                    device="cpu", spatial_mesh=spatial_mesh, **P2P["global"])
+    st = eng.init_state(0)
+    eng.load_jax_params(trees["g"], None, trees["d"])
+    label, image = train_batches(40)[0]
+    st, m, fake = eng.train_step(st, label, None, image)
+    return ({k: float(v) for k, v in m.items()}, fake.detach(),
+            [t.clone() for t in st.opt_g.mu], [t.clone() for t in st.opt_d.mu])
+
+
 def train_worker(rank, tmp, cli_args):
     """Rank ``rank`` of TRAIN_WORLD gloo processes: the spatially sharded
-    steps of every net of P2P, then the two CLIs with ``--spatial_shard``
+    steps of every net of P2P, the step from the JAX engine's weights
+    (``tmp/jax_init.pkl``), then the two CLIs with ``--spatial_shard``
     (``cli_args``: the train CLI's and the test CLI's arguments)."""
     torch.set_num_threads(1)
     from cistar_tpu_torch.apps import p2phd_test, p2phd_train
@@ -311,6 +333,7 @@ def train_worker(rank, tmp, cli_args):
         timeout=datetime.timedelta(seconds=120))
     try:
         res = {net: p2phd_run(net, mesh) for net in P2P}
+        res["jax"] = jax_weights_step(os.path.join(tmp, "jax_init.pkl"), mesh)
         train_args, test_args = cli_args
         p2phd_train.main(train_args + ["--spatial_shard"])
         torch.distributed.barrier()

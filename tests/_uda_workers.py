@@ -64,10 +64,30 @@ def critic_run(mesh=None):
     return out
 
 
+def record_shards(log):
+    """Wrap ``sharding.shard_batch`` (which ``p2phd_train.train_uda`` looks
+    up at each call) so that the slice of every CLI batch (a dict; the
+    critic's interpolation weights are a tensor) lands in ``log``; returns
+    the original."""
+    from cistar_tpu_torch.parallel import sharding
+
+    orig = sharding.shard_batch
+
+    def spy(batch, mesh):
+        out = orig(batch, mesh)
+        if isinstance(out, dict):
+            log.append({k: torch.as_tensor(np.array(v)) for k, v in
+                        out.items()})
+        return out
+
+    sharding.shard_batch = spy
+    return orig
+
+
 def worker(rank, tmp, cli_args):
     """Rank ``rank`` of WORLD gloo processes: every case, then ``p2phd_train
-    --uda`` of each module (``cli_args``: module → arguments); the results
-    to ``tmp/rank<rank>.pt``."""
+    --uda`` of each module (``cli_args``: module → arguments), recording
+    the batch slice of each step; the results to ``tmp/rank<rank>.pt``."""
     torch.set_num_threads(1)
     from cistar_tpu_torch.apps import p2phd_train
     from cistar_tpu_torch.parallel import sharding
@@ -78,8 +98,10 @@ def worker(rank, tmp, cli_args):
     try:
         res = {"r2lae": {w: r2lae_run(w, mesh) for w in (False, True)},
                "critic": critic_run(mesh)}
-        res["cli"] = {}
+        res["cli"], res["shards"] = {}, {}
         for module, args in cli_args.items():
+            res["shards"][module] = []
+            record_shards(res["shards"][module])
             st = p2phd_train.main(args)
             res["cli"][module] = [p.detach().clone() for p in (
                 st.d.values() if module == "discriminator" else

@@ -13,11 +13,13 @@ path ran: a silent fall back to PIL would pass a parity test by accident.
   * ``make_cyclegan_dataset`` and ``Loader``'s ``get_batch`` path against
     JAX's at the same seed, aligned and unaligned, train (with the shared
     rotation) and test: the batches bit for bit, two shuffled epochs;
-  * the PIL fallback where the build fails or native is not asked for.
+  * the PIL fallback where g++ or libpng is missing, and no fallback
+    for any other fault.
 """
 
 import glob
 import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -128,9 +130,6 @@ def test_native_dataset_and_loader_match_jax(pair_root, unaligned, mode):
 
 
 def test_make_cyclegan_dataset_falls_back_to_pil(pair_root, monkeypatch):
-    ds = data.make_cyclegan_dataset(pair_root, 32, False, "test",
-                                    prefer_native=False)
-    assert type(ds) is data.CycleGANImageDataset
     assert type(data.make_cyclegan_dataset(pair_root, None, False, "test")) \
         is data.CycleGANImageDataset
     # no g++ or libpng: the build raises, and the PIL dataset serves
@@ -142,3 +141,18 @@ def test_make_cyclegan_dataset_falls_back_to_pil(pair_root, monkeypatch):
     monkeypatch.setattr(native, "build", no_toolchain)
     ds = data.make_cyclegan_dataset(pair_root, 32, False, "test")
     assert type(ds) is data.CycleGANImageDataset
+    # g++ runs but the compile fails (no png.h): the PIL dataset serves
+    monkeypatch.setattr(native, "build", lambda: (_ for _ in ()).throw(
+        subprocess.CalledProcessError(1, ["g++"])))
+    ds = data.make_cyclegan_dataset(pair_root, 32, False, "test")
+    assert type(ds) is data.CycleGANImageDataset
+
+
+def test_make_cyclegan_dataset_raises_other_faults(pair_root, monkeypatch):
+    # a fault of the native dataset itself is not hidden behind PIL
+    def broken(*args):
+        raise ValueError("a fault of the native dataset")
+
+    monkeypatch.setattr(data, "NativeCycleGANDataset", broken)
+    with pytest.raises(ValueError, match="a fault of the native dataset"):
+        data.make_cyclegan_dataset(pair_root, 32, False, "test")

@@ -23,27 +23,44 @@ run here meanwhile. Each case compares:
     for five steps; 6.0e-4 read), the galleries' file lists equal and
     their images within one grey level.
 
+One step from the JAX engine's initial weights, converted, is also held
+against the JAX engine's own spatially sharded step (``shard_map`` over 2
+of the virtual CPU devices) on the same batch, within the budgets of the
+port's one-process step against JAX's (``tests/test_torch_p2phd_train.py``):
+the metrics within 1e-4 relative, the fake within 2e-5, and Adam's first
+moments of G and D within 2e-3 of their net's largest (2.9e-7, 5.4e-7
+and 5.1e-7 read; with G's gradients averaged instead of summed over the
+ranks the moments are 0.5 off).
+
 The engine refuses what JAX's refuses (norms other than instance, other
 generators) and a data mesh beside a spatial one.
 """
 
 import multiprocessing
 import os
+import pickle
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh as JaxMesh
 from PIL import Image
 
 import _spatial_workers as W
+from cistar_tpu.engines.p2phd import Pix2PixHD as JaxP2P
 from cistar_tpu_torch.apps import p2phd_test, p2phd_train
 from cistar_tpu_torch.core import checkpoint as ckpt
+from cistar_tpu_torch.core.convert import generator_to_jax
 from cistar_tpu_torch.engines.p2phd import Pix2PixHD, Pix2PixHDInference
 from cistar_tpu_torch.parallel.sharding import Mesh
 
 METRIC_RTOL = 1e-5
 MOMENT_RTOL = 2e-5
 INFER_ATOL = 5e-4
+# the port's step against JAX's (tests/test_torch_p2phd_train.py's budgets)
+JAX_METRIC_RTOL, JAX_FAKE_ABS, JAX_GRAD_RTOL = 1e-4, 2e-5, 2e-3
 CLI_SIZE, CLI_PAIRS, CLI_LR = 32, 8, 1e-4
 JOIN_S = 240
 OPT_TXT = os.path.join(os.path.dirname(__file__), os.pardir, "checkpoints",
@@ -101,6 +118,15 @@ def runs(tmp_path_factory):
     directory)."""
     tmp = str(tmp_path_factory.mktemp("spatial_train"))
     _write_pairs(os.path.join(tmp, "data"), CLI_PAIRS, CLI_SIZE)
+    # the JAX engine, G sharded over 2 devices, and its initial weights,
+    # which the ranks load
+    jeng = JaxP2P(compute_dtype=jnp.float32, image_size=W.TRAIN_SIZE,
+                  spatial_mesh=JaxMesh(np.asarray(jax.devices()[:2]),
+                                       ("spatial",)), **W.P2P["global"])
+    jst = jeng.init_state(jax.random.PRNGKey(0))
+    with open(os.path.join(tmp, "jax_init.pkl"), "wb") as f:
+        pickle.dump({"g": jax.tree.map(np.asarray, jst.g),
+                     "d": jax.tree.map(np.asarray, jst.d)}, f)
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=W.train_worker,
                          args=(r, tmp, _cli_args(tmp, "sharded")))
@@ -108,7 +134,14 @@ def runs(tmp_path_factory):
     for p in procs:
         p.start()
     try:
-        ref = {net: W.p2phd_run(net) for net in W.P2P}
+        label, image = (jnp.asarray(a.numpy())
+                        for a in W.train_batches(40)[0])
+        jst, jm, jfake = jeng.train_step(jst, label, None, image)
+        ref = {"jax": ({k: float(v) for k, v in jm.items()},
+                       np.asarray(jfake),
+                       [jax.tree.map(np.asarray, o.inner_state[0].mu)
+                        for o in (jst.opt_g, jst.opt_d)])}
+        ref.update({net: W.p2phd_run(net) for net in W.P2P})
         train_args, test_args = _cli_args(tmp, "one")
         p2phd_train.main(train_args)
         ref["test_dir"] = p2phd_test.main(test_args)
@@ -138,6 +171,42 @@ def test_sharded_step_matches_one_process(runs, net):
             for g, w in zip(gmu, wmu, strict=True):
                 assert float((g - w).abs().max()) <= MOMENT_RTOL * max(
                     float(w.abs().max()), 1e-3)
+
+
+def _moment_trees(mus):
+    """The port's first moments of G and D (per parameter) as JAX trees:
+    through the param converters, less their image of 0."""
+    eng = Pix2PixHD(image_size=W.TRAIN_SIZE, compute_dtype=torch.float32,
+                    device="cpu", **W.P2P["global"])
+    out = []
+    for net, to_jax, mu in ((eng.G, eng._to_jax, mus[0]),
+                            (eng.D, generator_to_jax, mus[1])):
+        names = [n for n, _ in net.named_parameters()]
+        sd = net.state_dict()
+        out.append(jax.tree.map(
+            np.subtract, to_jax(dict(sd, **dict(zip(names, mu)))),
+            to_jax(dict(sd, **{n: torch.zeros_like(sd[n]) for n in names}))))
+    return out
+
+
+def test_sharded_step_matches_jax_sharded_step(runs):
+    ranks, ref, _ = runs
+    jm, jfake, jmus = ref["jax"]
+    for res in ranks:
+        m, fake, *mus = res["jax"]
+        assert m.keys() == jm.keys()
+        for k in jm:
+            assert m[k] == pytest.approx(jm[k], rel=JAX_METRIC_RTOL), k
+        np.testing.assert_allclose(fake.numpy(), jfake, rtol=0,
+                                   atol=JAX_FAKE_ABS)
+        for got, want in zip(_moment_trees(mus), jmus, strict=True):
+            lg = jax.tree_util.tree_leaves_with_path(got)
+            lw = jax.tree_util.tree_leaves_with_path(want)
+            assert [p for p, _ in lg] == [p for p, _ in lw]
+            scale = max(float(np.abs(w).max()) for _, w in lw)
+            err = max(float(np.abs(np.asarray(g) - w).max())
+                      for (_, g), (_, w) in zip(lg, lw))
+            assert scale > 0 and err <= JAX_GRAD_RTOL * scale
 
 
 @pytest.mark.parametrize("net", list(W.P2P))

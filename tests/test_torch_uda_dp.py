@@ -22,13 +22,18 @@ case compares, within PR 17's budgets:
     metrics and first-moment budgets (3.2e-6 and 2.2e-6 read);
   * ``p2phd_train --uda`` of both modules at world size 2 (4 train pairs
     of 32², batch 2, one epoch): the files of the JAX layout, the same as
-    one process writes, and the saved nets within Adam's divergence bound
-    of one process's (:func:`adam_divergence_bound`, 4.1e-4 for two
-    steps; 4.08e-4 read: biases ahead of a BatchNorm, whose gradients
-    are rounding noise, stepped ±lr apart); the ranks' nets equal bit for
-    bit.
+    one process writes; each step's metrics as rank 0 logs them (the
+    global means, from ``live_log.jsonl``) within 1e-5 relative of one
+    process's (1.5e-6 read; 1.2 and 3.9e-2 when rank 1 steps on rank 0's
+    half); each rank stepped on its own half of the step's batch, the
+    two halves in rank order the one process's batch; the saved nets
+    within Adam's divergence bound of one process's
+    (:func:`adam_divergence_bound`, 4.1e-4 for two steps; 4.08e-4 read:
+    biases ahead of a BatchNorm, whose gradients are rounding noise,
+    stepped ±lr apart); the ranks' nets equal bit for bit.
 """
 
+import json
 import multiprocessing
 import os
 
@@ -39,6 +44,7 @@ from PIL import Image
 
 import _uda_workers as W
 from cistar_tpu_torch.apps import p2phd_train
+from cistar_tpu_torch.parallel import sharding
 
 METRIC_RTOL = 1e-5
 MOMENT_RTOL = 2e-5
@@ -109,9 +115,14 @@ def runs(tmp_path_factory):
         p.start()
     try:
         ref = {"r2lae": {w: W.r2lae_run(w) for w in (False, True)},
-               "critic": W.critic_run()}
+               "critic": W.critic_run(), "shards": {}}
         for m, args in _cli_args(tmp, "one").items():
-            p2phd_train.main(args)
+            ref["shards"][m] = []
+            orig = W.record_shards(ref["shards"][m])
+            try:
+                p2phd_train.main(args)
+            finally:
+                sharding.shard_batch = orig
     finally:
         for p in procs:
             p.join(timeout=JOIN_S)
@@ -165,9 +176,21 @@ def test_critic_step_matches_one_process(runs):
     assert ref["critic"][0][0]["gp"] > 0
 
 
+def _step_metrics(run_dir):
+    """Each step's metrics from the running means that rank 0 logs after
+    every step (``--print_freq 1``, one epoch)."""
+    with open(os.path.join(run_dir, "live_log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    assert [r["batch"] for r in recs] == list(range(1, len(recs) + 1))
+    means = [{k: v for k, v in r.items()
+              if k not in ("epoch", "batch", "img_per_s")} for r in recs]
+    return [{k: (i + 1) * m[k] - (i * means[i - 1][k] if i else 0.0)
+             for k in m} for i, m in enumerate(means)]
+
+
 @pytest.mark.parametrize("module", list(MODULES))
 def test_uda_cli_world_2_matches_one_process(runs, module):
-    ranks, _, tmp = runs
+    ranks, ref, tmp = runs
     from cistar_tpu_torch.core import checkpoint as ckpt
 
     dirs = {t: os.path.join(tmp, f"{t}_{module}", "r2l_MSRB_7")
@@ -177,6 +200,18 @@ def test_uda_cli_world_2_matches_one_process(runs, module):
     assert files["sharded"] == files["one"] == sorted(
         f"latest_net_{lab}.npz" for lab in MODULES[module])
     assert not os.path.exists(os.path.join(dirs["sharded"], "iter.txt"))
+    got, want = (_step_metrics(d) for d in dirs.values())
+    assert len(got) == len(want) == CLI_STEPS
+    for g, w in zip(got, want):
+        _metrics_close(g, w)
+    # each rank stepped on its own half of every batch
+    one = ref["shards"][module]
+    assert len(one) == CLI_STEPS
+    for step, whole in enumerate(one):
+        for k, v in whole.items():
+            halves = [r["shards"][module][step][k] for r in ranks]
+            assert [h.shape[0] for h in halves] == [v.shape[0] // 2] * 2
+            assert torch.equal(torch.cat(halves), v)
     bound = adam_divergence_bound(CLI_LR, CLI_STEPS)
     for f in files["one"]:
         a, b = (ckpt.load_pytree(os.path.join(d, f)) for d in dirs.values())
