@@ -472,6 +472,23 @@ Exported programs and data parallelism (``runtime/``,
     product of the same int8 operands; ms a call.
     These paths launch no port kernel: each runs with every launch counter
     at 0 and checks that they stay there.
+55. the training-quality tools (``cistar_tpu_torch/tools/``) on short
+    versions of their runs (``quality_path``): ``p2phd_train`` at the
+    shipped r2l_MSRB_7 recipe on ``QUALITY_PAIRS`` synthetic 512² scenes,
+    niter 1 + niter_decay 1, every epoch saved, with the ms of a dataset
+    item and the s of a save beside its steps; ``eval_r2l_fidelity`` over
+    epochs 1, 2 and ``latest`` in bf16: finite rows, ``latest`` equal to
+    epoch 2 bit for bit, the first frame's metrics equal to those of
+    ``infer_step`` called directly; the same run at ``--data_type 8``,
+    the trained G through the int8 engine, counted (K8 and no other
+    kernel; these launches join K8's in the kernels' line), each epoch
+    within ``BUDGET`` of its fp32 forward in the LPIPS metric, and the
+    engine held to its plain version on the trained weights as phase 40
+    holds it, with K8's stages checked on the trained activation;
+    ``bf16_train_overlay`` on ``unet512`` for ``QUALITY_OVERLAY_STEPS``
+    steps a curve: finite, its ratios printed; ``quality_run_uda`` at
+    256², 1 epoch and 1 pre-epoch, on ``QUALITY_UDA_PAIRS`` pairs: finite
+    final rows. Only the int8 run launches a kernel.
 
 The fp32 reference forwards run with TF32 off, the rest under PyTorch's
 defaults. The line before the last is the card's name and power limit; the
@@ -5755,6 +5772,193 @@ def quant_path(dev, images, counters) -> None:
     check(bool(torch.isfinite(y).all()), "the int8 forward is finite")
 
 
+# Phase 55: the quality tools on short runs: the r2l_MSRB_7 recipe on
+# QUALITY_PAIRS synthetic 512² scenes (5 train, 3 test frames) for 1 + 1
+# epochs; the overlay's unet512 for QUALITY_OVERLAY_STEPS steps a curve;
+# the UDA driver at 256² on QUALITY_UDA_PAIRS pairs.
+QUALITY_PAIRS, QUALITY_OVERLAY_STEPS, QUALITY_UDA_PAIRS = 8, 3, 4
+# passes over the train split when timing a dataset item
+QUALITY_ITEM_PASSES = 4
+
+
+def quality_path(dev, counters) -> int:
+    """Phase 55: the training-quality tools on a short training run of the
+    shipped recipe; returns the K8 launches of serving its G."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cistar_tpu_torch.apps import p2phd_test, p2phd_train
+    from cistar_tpu_torch.core import checkpoint as ckpt
+    from cistar_tpu_torch.data.datasets import Radar2LidarDataset
+    from cistar_tpu_torch.models import fast_infer as fi
+    from cistar_tpu_torch.ops import quant_int8 as qi
+    from cistar_tpu_torch.tools import bf16_train_overlay as overlay
+    from cistar_tpu_torch.tools import eval_r2l_fidelity as ev
+    from cistar_tpu_torch.tools import quality_run_uda as uda
+    from cistar_tpu_torch.utils.fidelity import BUDGET
+
+    t_phase = time.perf_counter()
+    opt_txt = os.path.join(ROOT, "checkpoints", "r2l_MSRB_7", "opt.txt")
+    size = P2P_TRAIN_COMMON["image_size"]
+    n_blocks = P2P_TRAIN["UNet"]["n_blocks_global"]
+    with tempfile.TemporaryDirectory() as tmp:
+        data, ck = os.path.join(tmp, "data"), os.path.join(tmp, "ck")
+        synthetic_tool().main(["--out", data, "--n", str(QUALITY_PAIRS),
+                               "--size", str(size)])
+        base = ["--load_opt", opt_txt, "--dataroot", data,
+                "--checkpoints_dir", ck, "--device", dev.type]
+        t0 = time.perf_counter()
+        no_launches(counters, "the r2l_MSRB_7 recipe's training",
+                    lambda: p2phd_train.main(base + [
+                        "--niter", "1", "--niter_decay", "1",
+                        "--save_epoch_freq", "1", "--data_type", "16",
+                        "--print_freq", "5"]))
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        run = os.path.join(ck, "r2l_MSRB_7")
+        check(ev.checkpoint_epochs(run) == [1, 2, "latest"],
+              "the run saved epochs 1, 2 and latest")
+        # the run's host work beside its steps: a train item of the
+        # dataset once its frames are cached (the rotation of both), and
+        # one save of G and D
+        train_set = Radar2LidarDataset(data, size=size, mode="train")
+        n_items = QUALITY_ITEM_PASSES * len(train_set)
+        train_set[0]
+        t0 = time.perf_counter()
+        for i in range(n_items):
+            train_set[i % len(train_set)]
+        item_ms = 1e3 * (time.perf_counter() - t0) / n_items
+        trees = {lab: ckpt.load_pytree(os.path.join(
+            run, f"latest_net_{lab}.npz")) for lab in ("G", "D")}
+        t0 = time.perf_counter()
+        for lab, tree in trees.items():
+            ckpt.save_pytree(os.path.join(tmp, f"saved_net_{lab}.npz"), tree)
+        save_s = time.perf_counter() - t0
+        steps = 2 * len(train_set)
+        print(f"[quality] r2l_MSRB_7 recipe, {steps} steps at batch 1: "
+              f"{1e3 * t_train / steps:.1f} ms a step with set-up and "
+              f"saves; a train item of Radar2LidarDataset at {size}² "
+              f"(frames cached: the rotation) {item_ms!r} ms; one .npz "
+              f"save of G and D {save_s!r} s", flush=True)
+
+        # the fidelity curve in bf16
+        t0 = time.perf_counter()
+        out = no_launches(counters, "eval_r2l_fidelity --data_type 16",
+                          lambda: ev.main(base + ["--data_type", "16"]))
+        t_eval = time.perf_counter() - t0
+        rows = {r["epoch"]: r for r in out["rows"]}
+        for r in out["rows"]:
+            print(f"[quality] fidelity epoch {r['epoch']}: corr "
+                  f"{r['corr']!r} l1 {r['l1']!r} psnr {r['psnr']!r}",
+                  flush=True)
+        check(all(np.isfinite([r[k] for k in ("corr", "l1", "psnr")]).all()
+                  for r in out["rows"]), "the fidelity rows are finite")
+        check(all(rows["latest"][k] == rows[2][k] for k in ("corr", "l1",
+                                                           "psnr"))
+              and out["frames"]["latest"] == out["frames"][2],
+              "latest's row equals epoch 2's bit for bit")
+        opt = ev.EvalOptions().parse(base + ["--data_type", "16"],
+                                     save=False)
+        eng = p2phd_test.build_engine(opt)
+        p2phd_test.load_generator(eng, run, 2)
+        test_set = Radar2LidarDataset(data, size=size, mode="test")
+        frame = test_set[0]
+        fake = eng.infer_step(torch.from_numpy(frame["label"][None]).to(dev))
+        direct = ev.frame_metrics(fake.cpu().numpy()[0], frame["image"])
+        print(f"[quality] frame 0 of epoch 2: the tool's (corr, l1, mse) "
+              f"{tuple(map(float, out['frames'][2][0]))!r}, infer_step "
+              f"called directly {tuple(map(float, direct))!r}", flush=True)
+        check(tuple(direct) == tuple(out["frames"][2][0]),
+              "the tool's first frame equals infer_step called directly")
+
+        # the trained G through the int8 engine, counted
+        for m in counters:
+            m.reset_launches()
+        t0 = time.perf_counter()
+        out8 = ev.main(base + ["--data_type", "8"])
+        torch.cuda.synchronize()
+        t_int8 = time.perf_counter() - t0
+        launches = {k: v for m in counters for k, v in m.launches.items()
+                    if v}
+        n_test = len(out8["frames"][2])
+        want = {"msrb_branch_int8": 4 * n_blocks * n_test * 3}
+        print(f"[quality] eval_r2l_fidelity --data_type 8 over 3 epochs of "
+              f"{n_test} frames: launches {launches}", flush=True)
+        check(launches == want, f"the int8 eval launches {want} and no "
+              "other kernel")
+        for r in out8["rows"]:
+            h = out8["int8"][r["epoch"]]
+            print(f"[quality] int8 epoch {r['epoch']}: corr {r['corr']!r} "
+                  f"l1 {r['l1']!r} psnr {r['psnr']!r}; vs the trained G's "
+                  f"fp32 forward lpips_metric {h['lpips_metric']!r} "
+                  f"pixel_l1 {h['pixel_l1']!r} (budget {BUDGET})",
+                  flush=True)
+            check(h["lpips_metric"] < BUDGET, f"int8 epoch {r['epoch']} "
+                  "within the LPIPS budget of the trained G's fp32 forward")
+        # held to its plain version on the trained weights (phase 40's rule)
+        eng8 = p2phd_test.load_engine(ev.EvalOptions().parse(
+            base + ["--data_type", "8"], save=False))
+        gen, qb = eng8.G, eng8.quantize_generator()
+        x = torch.from_numpy(np.stack([test_set[i]["label"] for i in
+                                       range(len(test_set))])).to(dev)
+        xb = x.bfloat16()
+        y8 = eng8.infer_step_int8(qb, x)
+        skips = fi.unet_encode(gen, xb)
+        h = skips[-1]
+        xq, xs = qi.quantize_act(h[:1].contiguous())
+        k8_vs_plain(xq, xs, qb[0])
+        for q in qb:
+            h = qi.msrb_block_int8_plain(h, q, K8_TILE)
+        yp = fi.unet_decode(gen, h, skips).float()
+        with fp32_exact():
+            y32 = gen(x)
+        dk, dp = (y8 - y32).abs(), (yp - y32).abs()
+        (mk, ak), (mp, ap) = ((d.max().item(), d.mean().item())
+                              for d in (dk, dp))
+        print(f"[quality] int8 engine on the trained G vs fp32, {len(x)} "
+              f"test frames: max {mk!r} mean {ak!r}; with the plain K8 max "
+              f"{mp!r} mean {ap!r}", flush=True)
+        check(ak <= KERNEL_MEAN_RATIO * ap and mk <= mp + KERNEL_MAX_EXCESS,
+              "on the trained G, K8 adds little to the plain error")
+
+        # the bf16 / fp32 overlay
+        t0 = time.perf_counter()
+        art = no_launches(counters, "bf16_train_overlay", lambda: overlay.main(
+            ["--config", "unet512", "--steps", str(QUALITY_OVERLAY_STEPS),
+             "--out", os.path.join(tmp, "overlay.json"), "--device",
+             dev.type]))
+        t_overlay = time.perf_counter() - t0
+        check(all(np.isfinite(v).all() for c in art["curves"].values()
+                  for v in c.values()), "the overlay's curves are finite")
+        print(f"[quality] overlay unet512, {QUALITY_OVERLAY_STEPS} steps: s "
+              f"a step {art['s_per_step']}; ratios "
+              f"{ {k: v['ratio'] for k, v in art['summary'].items()} }",
+              flush=True)
+
+        # the UDA driver
+        uda_data = os.path.join(tmp, "uda_data")
+        synthetic_tool().main(["--out", uda_data, "--n",
+                               str(QUALITY_UDA_PAIRS), "--size", "256"])
+        t0 = time.perf_counter()
+        summary = no_launches(counters, "quality_run_uda", lambda: uda.main(
+            ["--dataroot", uda_data, "--size", "256", "--epochs", "1",
+             "--pre_epochs", "1", "--out", os.path.join(tmp, "uda"),
+             "--device", dev.type]))
+        t_uda = time.perf_counter() - t0
+        finals = [summary["ae"]["final"], summary["critic"]["final"],
+                  summary["transfer"]["final"]]
+        check(all(np.isfinite(list(f.values())).all() for f in finals),
+              "the UDA driver's final rows are finite")
+        print(f"[quality] UDA driver 256², 1 epoch: ae {finals[0]}, critic "
+              f"{finals[1]}, transfer {finals[2]}", flush=True)
+    print(f"[quality] phase 55 in {time.perf_counter() - t_phase:.1f} s: "
+          f"train {t_train:.1f}, eval bf16 {t_eval:.1f}, int8 {t_int8:.1f}, "
+          f"overlay {t_overlay:.1f}, UDA {t_uda:.1f} s", flush=True)
+    return launches["msrb_branch_int8"]
+
+
 def checkpoint_path(dev, counters) -> None:
     """Phase 47: the reference's ``.pth`` files converted by
     ``apps/convert_checkpoint.py`` and served by both test CLIs, each step a
@@ -6024,6 +6228,10 @@ def main() -> int:
     spatial_path(dev, images, counters)
     loader_path()
     quant_path(dev, images, counters)
+    k8 = quality_path(dev, counters)
+    for row in rows:
+        if row["name"] == "msrb_branch_int8":
+            row["launches"] += k8
 
     print(json.dumps({"kernels": rows}))
     print(smi)

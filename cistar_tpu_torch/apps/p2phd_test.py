@@ -39,36 +39,48 @@ import os
 import time
 
 
-def load_engine(opt, spatial_mesh=None):
+def build_engine(opt, spatial_mesh=None):
     """The :class:`~cistar_tpu_torch.engines.p2phd.Pix2PixHDInference` the
-    options describe, with G (and G_stats) of ``<checkpoints_dir>/<name>``
-    at ``--which_epoch``, loaded tolerantly; G H-sharded over
-    ``spatial_mesh`` when given."""
+    options describe, its weights from the seed: bf16 under ``--fp16`` or
+    ``--data_type`` 16 or 8 (the int8 engine's layers outside its trunk),
+    fp32 otherwise; G H-sharded over ``spatial_mesh`` when given."""
     import torch
 
-    from cistar_tpu_torch.core import checkpoint as ckpt
     from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
 
-    engine = Pix2PixHDInference(
+    return Pix2PixHDInference(
         opt.netG, ngf=opt.ngf, n_downsample_global=opt.n_downsample_global,
         n_blocks_global=opt.n_blocks_global,
         n_local_enhancers=opt.n_local_enhancers,
         n_blocks_local=opt.n_blocks_local, input_nc=opt.input_nc,
         output_nc=opt.output_nc, label_nc=opt.label_nc, r2l=opt.r2l,
         no_instance=opt.no_instance, norm=opt.norm,
-        # data_type 8 = int8 trunk engine (non-quantized layers run bf16)
         compute_dtype=torch.bfloat16
         if (opt.fp16 or opt.data_type in (8, 16)) else torch.float32,
         device=opt.device or None if spatial_mesh is None
         else spatial_mesh.device, spatial_mesh=spatial_mesh)
-    save_dir = os.path.join(opt.checkpoints_dir, opt.name)
+
+
+def load_generator(engine, save_dir: str, which_epoch) -> None:
+    """G (and G_stats) of ``which_epoch`` under ``save_dir`` into
+    ``engine``, loaded tolerantly."""
+    from cistar_tpu_torch.core import checkpoint as ckpt
+
     trees = engine.jax_params()
-    g = ckpt.load_network(save_dir, "G", opt.which_epoch, trees["G"])
+    g = ckpt.load_network(save_dir, "G", which_epoch, trees["G"])
     g_stats = None
     if trees["G_stats"] is not None:
-        g_stats = ckpt.load_network(save_dir, "G_stats", opt.which_epoch,
+        g_stats = ckpt.load_network(save_dir, "G_stats", which_epoch,
                                     trees["G_stats"])
     engine.load_jax_params(g, g_stats)
+
+
+def load_engine(opt, spatial_mesh=None):
+    """:func:`build_engine` with G (and G_stats) of
+    ``<checkpoints_dir>/<name>`` at ``--which_epoch``."""
+    engine = build_engine(opt, spatial_mesh)
+    load_generator(engine, os.path.join(opt.checkpoints_dir, opt.name),
+                   opt.which_epoch)
     return engine
 
 

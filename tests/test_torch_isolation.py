@@ -101,6 +101,18 @@ def test_slice16_modules_are_scanned(rel):
     assert "cistar_tpu" not in set(_imported_roots(ROOT / rel))
 
 
+# the training-quality tools (slice 19), which take a prepared --dataroot
+# and import no repo-root tool
+@pytest.mark.parametrize("rel", [
+    "cistar_tpu_torch/tools/eval_r2l_fidelity.py",
+    "cistar_tpu_torch/tools/bf16_train_overlay.py",
+    "cistar_tpu_torch/tools/quality_run_uda.py"])
+def test_slice19_tools_are_scanned(rel):
+    assert rel in PORT_FILES
+    roots = set(_imported_roots(ROOT / rel))
+    assert not {"cistar_tpu", "tools"} & roots, roots
+
+
 def test_device_none_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
