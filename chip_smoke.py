@@ -475,10 +475,11 @@ Exported programs and data parallelism (``runtime/``,
 55. the training-quality tools (``cistar_tpu_torch/tools/``) on short
     versions of their runs (``quality_path``): ``p2phd_train`` at the
     shipped r2l_MSRB_7 recipe on ``QUALITY_PAIRS`` synthetic 512² scenes,
-    niter 1 + niter_decay 1, every epoch saved, with the ms of a dataset
-    item and the s of a save beside its steps; ``eval_r2l_fidelity`` over
-    epochs 1, 2 and ``latest`` in bf16: finite rows, ``latest`` equal to
-    epoch 2 bit for bit, the first frame's metrics equal to those of
+    niter 2 + niter_decay 0 (both epochs at the recipe's LR, so that they
+    differ), every epoch saved; ``eval_r2l_fidelity`` over epochs 1, 2
+    and ``latest`` in bf16: finite rows, epoch 1's unlike epoch 2's,
+    ``latest`` equal to epoch 2 bit for bit, the first frame's metrics
+    equal to those of
     ``infer_step`` called directly; the same run at ``--data_type 8``,
     the trained G through the int8 engine, counted (K8 and no other
     kernel; these launches join K8's in the kernels' line), each epoch
@@ -5773,12 +5774,12 @@ def quant_path(dev, images, counters) -> None:
 
 
 # Phase 55: the quality tools on short runs: the r2l_MSRB_7 recipe on
-# QUALITY_PAIRS synthetic 512² scenes (5 train, 3 test frames) for 1 + 1
-# epochs; the overlay's unet512 for QUALITY_OVERLAY_STEPS steps a curve;
-# the UDA driver at 256² on QUALITY_UDA_PAIRS pairs.
+# QUALITY_PAIRS synthetic 512² scenes (5 train, 3 test frames) for 2
+# epochs at a constant LR (with niter_decay 1 the second epoch's LR is 0
+# and both epochs save the same G); the overlay's unet512 for
+# QUALITY_OVERLAY_STEPS steps a curve; the UDA driver at 256² on
+# QUALITY_UDA_PAIRS pairs.
 QUALITY_PAIRS, QUALITY_OVERLAY_STEPS, QUALITY_UDA_PAIRS = 8, 3, 4
-# passes over the train split when timing a dataset item
-QUALITY_ITEM_PASSES = 4
 
 
 def quality_path(dev, counters) -> int:
@@ -5790,7 +5791,6 @@ def quality_path(dev, counters) -> int:
     import torch
 
     from cistar_tpu_torch.apps import p2phd_test, p2phd_train
-    from cistar_tpu_torch.core import checkpoint as ckpt
     from cistar_tpu_torch.data.datasets import Radar2LidarDataset
     from cistar_tpu_torch.models import fast_infer as fi
     from cistar_tpu_torch.ops import quant_int8 as qi
@@ -5812,7 +5812,7 @@ def quality_path(dev, counters) -> int:
         t0 = time.perf_counter()
         no_launches(counters, "the r2l_MSRB_7 recipe's training",
                     lambda: p2phd_train.main(base + [
-                        "--niter", "1", "--niter_decay", "1",
+                        "--niter", "2", "--niter_decay", "0",
                         "--save_epoch_freq", "1", "--data_type", "16",
                         "--print_freq", "5"]))
         torch.cuda.synchronize()
@@ -5820,28 +5820,10 @@ def quality_path(dev, counters) -> int:
         run = os.path.join(ck, "r2l_MSRB_7")
         check(ev.checkpoint_epochs(run) == [1, 2, "latest"],
               "the run saved epochs 1, 2 and latest")
-        # the run's host work beside its steps: a train item of the
-        # dataset once its frames are cached (the rotation of both), and
-        # one save of G and D
-        train_set = Radar2LidarDataset(data, size=size, mode="train")
-        n_items = QUALITY_ITEM_PASSES * len(train_set)
-        train_set[0]
-        t0 = time.perf_counter()
-        for i in range(n_items):
-            train_set[i % len(train_set)]
-        item_ms = 1e3 * (time.perf_counter() - t0) / n_items
-        trees = {lab: ckpt.load_pytree(os.path.join(
-            run, f"latest_net_{lab}.npz")) for lab in ("G", "D")}
-        t0 = time.perf_counter()
-        for lab, tree in trees.items():
-            ckpt.save_pytree(os.path.join(tmp, f"saved_net_{lab}.npz"), tree)
-        save_s = time.perf_counter() - t0
-        steps = 2 * len(train_set)
+        steps = 2 * len(Radar2LidarDataset(data, size=size, mode="train"))
         print(f"[quality] r2l_MSRB_7 recipe, {steps} steps at batch 1: "
               f"{1e3 * t_train / steps:.1f} ms a step with set-up and "
-              f"saves; a train item of Radar2LidarDataset at {size}² "
-              f"(frames cached: the rotation) {item_ms!r} ms; one .npz "
-              f"save of G and D {save_s!r} s", flush=True)
+              "saves", flush=True)
 
         # the fidelity curve in bf16
         t0 = time.perf_counter()
@@ -5855,6 +5837,10 @@ def quality_path(dev, counters) -> int:
                   flush=True)
         check(all(np.isfinite([r[k] for k in ("corr", "l1", "psnr")]).all()
                   for r in out["rows"]), "the fidelity rows are finite")
+        check(out["frames"][1] != out["frames"][2]
+              and any(rows[1][k] != rows[2][k] for k in ("corr", "l1",
+                                                         "psnr")),
+              "epoch 1's G is not epoch 2's: the tool reads each epoch")
         check(all(rows["latest"][k] == rows[2][k] for k in ("corr", "l1",
                                                            "psnr"))
               and out["frames"]["latest"] == out["frames"][2],

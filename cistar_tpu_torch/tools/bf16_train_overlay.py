@@ -39,10 +39,11 @@ import numpy as np
 # config → (size, netG, num_D, ngf, extra Pix2PixHD arguments)
 CONFIGS = {"unet512": (512, "UNet", 2, 64, {"n_blocks_global": 3}),
            "p2phd1024": (1024, "local", 3, 32, {})}
-PERTURB_SEED = 123
+# the seeds of every curve's data stream and of the perturbation's draws
+DATA_SEED, PERTURB_SEED = 0, 123
 
 
-def data_stream(size: int, seed: int = 0
+def data_stream(size: int, seed: int
                 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Sparse positive blobs on a -1 background (``Radar2LidarDataset``'s
     range): (label, image), each (1, size, size, 1) fp32, drawn from
@@ -55,13 +56,13 @@ def data_stream(size: int, seed: int = 0
                np.where(img > 0.95, img, 0.0) * 2 - 1)
 
 
-def perturb_(params: Dict, rel: float, seed: int = PERTURB_SEED) -> None:
+def perturb_(params: Dict, rel: float) -> None:
     """Scale every non-scalar param by (1 + rel · N(0, 1)), in place; the
-    draws from a CPU ``torch.Generator`` seeded ``seed``, in the params'
-    order, so the same on every device."""
+    draws from a CPU ``torch.Generator`` seeded ``PERTURB_SEED``, in the
+    params' order, so the same on every device."""
     import torch
 
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator().manual_seed(PERTURB_SEED)
     with torch.no_grad():
         for p in params.values():
             if p.ndim > 0:
@@ -69,10 +70,11 @@ def perturb_(params: Dict, rel: float, seed: int = PERTURB_SEED) -> None:
                 p.mul_(1 + rel * noise.to(p.device, p.dtype))
 
 
-def run_curve(config: str, dtype_name: str, steps: int, data_seed: int = 0,
+def run_curve(config: str, dtype_name: str, steps: int,
               perturb: float = 0.0, device=None
               ) -> Tuple[Dict[str, List[float]], float]:
-    """``steps`` train steps of ``config`` from seed 0 in ``dtype_name``
+    """``steps`` train steps of ``config`` from seed 0 on
+    ``data_stream(size, DATA_SEED)`` in ``dtype_name``
     ("fp32" or "bf16"), G perturbed by ``perturb`` relative when given:
     the per-step metrics by name, and the mean seconds a step after the
     first."""
@@ -89,7 +91,7 @@ def run_curve(config: str, dtype_name: str, steps: int, data_seed: int = 0,
     state = eng.init_state(0, image_size=size)
     if perturb:
         perturb_(state.g, perturb)
-    stream = data_stream(size, data_seed)
+    stream = data_stream(size, DATA_SEED)
     curves: Dict[str, List[float]] = {}
     times = []
     with highest_precision() if fp32 else contextlib.nullcontext():

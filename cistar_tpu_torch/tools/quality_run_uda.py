@@ -18,8 +18,7 @@ short budget and writes the evidence under ``--out``:
     ``cross_decode.png`` (radar → radar E → lidar G, lidar → lidar E →
     radar G).
 
-The CSV columns and ``summary.json``'s keys are the JAX tool's; a run of
-some ``--phases`` merges into an existing ``summary.json``.
+The CSV columns and ``summary.json``'s keys are the JAX tool's.
 
     python -m cistar_tpu_torch.tools.quality_run_uda --dataroot D \
         [--size 256] [--epochs 10] [--pre_epochs 4] [--batch 2]
@@ -72,18 +71,6 @@ def _write_csv(path, rows):
         wtr.writerows(rows)
 
 
-def _merge_summary(out_dir, summary):
-    """Runs of some phases merge into one summary.json."""
-    path = os.path.join(out_dir, "summary.json")
-    merged = {}
-    if os.path.exists(path):
-        with open(path) as f:
-            merged = json.load(f)
-    merged.update(summary)
-    with open(path, "w") as f:
-        json.dump(merged, f, indent=1)
-
-
 def _epoch_row(epoch: int, metrics: List[Dict]) -> Dict:
     """An epoch's row: each metric's mean over its steps (read back once),
     rounded as the JAX tool rounds it."""
@@ -101,7 +88,8 @@ def _np(t):
 
 
 def main(argv=None):
-    """Runs ``--phases``; returns the summary it merges."""
+    """Runs the three phases; writes and returns ``summary.json``'s
+    contents."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataroot", required=True)
     ap.add_argument("--size", type=int, default=256)
@@ -111,12 +99,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--out",
                     default=os.path.join("chiprun_out", "quality_run_uda"))
-    ap.add_argument("--phases", default="ae,critic,transfer",
-                    help="comma subset of ae,critic,transfer")
     ap.add_argument("--device", default="", choices=["", "cuda", "cpu"],
                     help="'' runs on CUDA (no GPU raises); cpu on request")
     args = ap.parse_args(argv)
-    phases = set(args.phases.split(","))
 
     import torch
 
@@ -148,75 +133,74 @@ def main(argv=None):
                    torch.from_numpy(b["lidar"]).to(dev))
 
     # ---- 1. R2LAE (shared encoder, two decoders, domain classifier) -------
-    if "ae" in phases:
-        d = os.path.join(args.out, "ae")
-        os.makedirs(d, exist_ok=True)
-        eng = R2LAE(size=args.size, n_downsample=3, ngf=16,
-                    compute_dtype=bf16, device=dev)
-        state = eng.init_state(0)
-        rows = []
-        t0 = time.time()
-        for epoch in range(args.epochs):
-            ep = []
-            for radar, lidar in batches():
-                state, m, _ = eng.train_step(state, radar, lidar)
-                ep.append(m)
-            rows.append(_epoch_row(epoch, ep))
-            print(f"[ae] epoch {epoch}: " + ", ".join(
-                f"{k}={rows[-1][k]:.4f}" for k in sorted(ep[0])), flush=True)
-        _write_csv(os.path.join(d, "loss_log.csv"), rows)
-        # R2LAE.infer gives the same-domain reconstructions; the cross
-        # decodes swap decoders on the shared encoder's features
-        outs = eng.infer(state, test_radar, test_lidar)
-        with torch.inference_mode():
-            feat = eng.E(torch.cat([test_radar, test_lidar]).to(bf16)).float()
-            r2l = eng.G_lidar(feat[:1].to(bf16))
-            l2r = eng.G_radar(feat[1:].to(bf16))
-        _save_strip(os.path.join(d, "cross_decode.png"),
-                    [("real_radar", _np(test_radar[0])),
-                     ("recon radar->radarG", _np(outs["radar_gen"][0])),
-                     ("cross radar->lidarG", _np(r2l[0])),
-                     ("real_lidar", _np(test_lidar[0])),
-                     ("recon lidar->lidarG", _np(outs["lidar_gen"][0])),
-                     ("cross lidar->radarG", _np(l2r[0]))])
-        summary["ae"] = {"epochs": args.epochs, "final": rows[-1],
-                         "wall_s": round(time.time() - t0, 1)}
+    d = os.path.join(args.out, "ae")
+    os.makedirs(d, exist_ok=True)
+    eng = R2LAE(size=args.size, n_downsample=3, ngf=16,
+                compute_dtype=bf16, device=dev)
+    state = eng.init_state(0)
+    rows = []
+    t0 = time.time()
+    for epoch in range(args.epochs):
+        ep = []
+        for radar, lidar in batches():
+            state, m, _ = eng.train_step(state, radar, lidar)
+            ep.append(m)
+        rows.append(_epoch_row(epoch, ep))
+        print(f"[ae] epoch {epoch}: " + ", ".join(
+            f"{k}={rows[-1][k]:.4f}" for k in sorted(ep[0])), flush=True)
+    _write_csv(os.path.join(d, "loss_log.csv"), rows)
+    # R2LAE.infer gives the same-domain reconstructions; the cross
+    # decodes swap decoders on the shared encoder's features
+    outs = eng.infer(state, test_radar, test_lidar)
+    with torch.inference_mode():
+        feat = eng.E(torch.cat([test_radar, test_lidar]).to(bf16)).float()
+        r2l = eng.G_lidar(feat[:1].to(bf16))
+        l2r = eng.G_radar(feat[1:].to(bf16))
+    _save_strip(os.path.join(d, "cross_decode.png"),
+                [("real_radar", _np(test_radar[0])),
+                 ("recon radar->radarG", _np(outs["radar_gen"][0])),
+                 ("cross radar->lidarG", _np(r2l[0])),
+                 ("real_lidar", _np(test_lidar[0])),
+                 ("recon lidar->lidarG", _np(outs["lidar_gen"][0])),
+                 ("cross lidar->radarG", _np(l2r[0]))])
+    summary["ae"] = {"epochs": args.epochs, "final": rows[-1],
+                     "wall_s": round(time.time() - t0, 1)}
 
     # ---- 2. R2LImageCritic (Wasserstein distance meter) -------------------
-    if "critic" in phases:
-        d = os.path.join(args.out, "critic")
-        os.makedirs(d, exist_ok=True)
-        critic = R2LImageCritic(compute_dtype=torch.float32, device=dev)
-        cstate = critic.init_state(1)
-        crows = []
-        t0 = time.time()
-        step = 0
-        for epoch in range(args.epochs):
-            ep = []
-            for radar, lidar in batches():
-                cstate, m = critic.train_step(cstate, lidar, radar)
-                ep.append(m)
-            names = sorted(ep[0])
-            vals = torch.stack([torch.stack([m[k] for k in names])
-                                for m in ep]).cpu().tolist()
-            for v in vals:
-                crows.append({"step": step, **{k: round(x, 5) for k, x in
-                                               zip(names, v)}})
-                step += 1
-            print(f"[critic] epoch {epoch}: w_distance="
-                  f"{crows[-1]['w_distance']:.4f} (lidar_F-radar_F="
-                  f"{crows[-1]['lidar_F'] - crows[-1]['radar_F']:.4f})",
-                  flush=True)
-        _write_csv(os.path.join(d, "w_distance.csv"), crows)
-        summary["critic"] = {"steps": step, "final": crows[-1],
-                             "wall_s": round(time.time() - t0, 1)}
+    d = os.path.join(args.out, "critic")
+    os.makedirs(d, exist_ok=True)
+    critic = R2LImageCritic(compute_dtype=torch.float32, device=dev)
+    cstate = critic.init_state(1)
+    crows = []
+    t0 = time.time()
+    step = 0
+    for epoch in range(args.epochs):
+        ep = []
+        for radar, lidar in batches():
+            cstate, m = critic.train_step(cstate, lidar, radar)
+            ep.append(m)
+        names = sorted(ep[0])
+        vals = torch.stack([torch.stack([m[k] for k in names])
+                            for m in ep]).cpu().tolist()
+        for v in vals:
+            crows.append({"step": step, **{k: round(x, 5) for k, x in
+                                           zip(names, v)}})
+            step += 1
+        print(f"[critic] epoch {epoch}: w_distance="
+              f"{crows[-1]['w_distance']:.4f} (lidar_F-radar_F="
+              f"{crows[-1]['lidar_F'] - crows[-1]['radar_F']:.4f})",
+              flush=True)
+    _write_csv(os.path.join(d, "w_distance.csv"), crows)
+    summary["critic"] = {"steps": step, "final": crows[-1],
+                         "wall_s": round(time.time() - t0, 1)}
 
-    if "transfer" in phases:
-        summary["transfer"] = transfer_phase(args, dev, batches, test_radar,
-                                             test_lidar)
+    # ---- 3. the transfer pairs, then R2LTransfer ---------------------------
+    summary["transfer"] = transfer_phase(args, dev, batches, test_radar,
+                                         test_lidar)
 
     summary["total_wall_s"] = round(time.time() - t_all, 1)
-    _merge_summary(args.out, summary)
+    with open(os.path.join(args.out, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
     print(json.dumps(summary, indent=1), flush=True)
     return summary
 
