@@ -56,6 +56,7 @@ from cistar_tpu_torch.parallel import sharding
 from cistar_tpu_torch.parallel import spatial as sp
 from cistar_tpu_torch.parallel.sharding import Mesh
 from cistar_tpu_torch.parallel.spatial_models import generator_sharded_apply
+from cistar_tpu_torch.runtime import spans
 from cistar_tpu_torch.utils.image_pool import (PoolState, init_pool,
                                                sharded_push_and_pop)
 
@@ -232,10 +233,24 @@ class Pix2PixHDInference:
 
     def _forward(self, qblocks: Optional[List[QBlock]], label: torch.Tensor,
                  inst: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.encode_input(label, inst).to(self.cdt)
-        if qblocks is None:
-            return self._g(x).float()
-        return self._int8_fwd(self.G, qblocks, x).float()
+        with spans.span("p2phd.infer"):
+            with spans.span("p2phd.stage_in"):
+                if spans.active():
+                    self._count_pageable(label, inst)
+                x = self.encode_input(label, inst).to(self.cdt)
+            if qblocks is None:
+                return self._g(x).float()
+            return self._int8_fwd(self.G, qblocks, x).float()
+
+    def _count_pageable(self, *inputs: Optional[torch.Tensor]) -> None:
+        """``stage_in.pageable_bytes``: the inputs' bytes copied to the
+        device from host memory that is not pinned."""
+        if self.device.type == "cpu":
+            return
+        for t in inputs:
+            if t is not None and t.device.type == "cpu" and not t.is_pinned():
+                spans.count("stage_in.pageable_bytes",
+                            t.numel() * t.element_size())
 
     @torch.inference_mode()
     def infer_step_int8(self, qblocks: List[QBlock], label: torch.Tensor,
@@ -517,8 +532,16 @@ class Pix2PixHD(Pix2PixHDInference):
         (device scalars) and G's fake (fp32). ``mark(label)``, when given,
         is called at the end of each phase (``g_forward``, ``g_backward``,
         ``g_adam``, ``d_forward_backward``, ``d_adam``), for a per-phase
-        timing."""
-        mark = mark or (lambda name: None)
+        timing; each phase is also a span under ``p2phd.train_step``."""
+        with spans.span("p2phd.train_step"):
+            return self._train_step(state, label, inst, image, feat,
+                                    spans.phases(mark))
+
+    def _train_step(self, state: P2PState, label: torch.Tensor,
+                    inst: Optional[torch.Tensor], image: torch.Tensor,
+                    feat: Optional[torch.Tensor], phase: spans.Phases
+                    ) -> Tuple[P2PState, Dict[str, torch.Tensor],
+                               torch.Tensor]:
         dev = self.device
         label = label.to(dev, torch.float32)
         image = image.to(dev, torch.float32)
@@ -558,12 +581,12 @@ class Pix2PixHD(Pix2PixHDInference):
         if self.vgg_criterion is not None:
             loss_vgg = self.vgg_criterion(fake, image) * self.lambda_feat
         loss_g = loss_g_gan + loss_feat + loss_vgg
-        mark("g_forward")
+        phase.end("g_forward")
 
         g_names, g_params = list(state.g), list(state.g.values())
         e_params = list(state.e.values()) if self.gen_features else []
         grads = torch.autograd.grad(loss_g, g_params + e_params)
-        mark("g_backward")
+        phase.end("g_backward")
         g_grads = self._fix_global_mask(g_names, list(grads[:len(g_params)]),
                                         state.epoch)
         # data parallelism averages G's gradients; spatial sharding sums
@@ -575,7 +598,7 @@ class Pix2PixHD(Pix2PixHDInference):
         if self.gen_features:
             adam_step(e_params, grads[len(g_params):], state.opt_e, lr_now,
                       self._on, b1=self.beta1, mesh=red, reduce=g_red)
-        mark("g_adam")
+        phase.end("g_adam")
 
         # ---- D on the detached fake of the same forward (through the
         # pool), gated on loss_D >= d_loss_floor --------------------------
@@ -595,7 +618,7 @@ class Pix2PixHD(Pix2PixHDInference):
         loss_d = (loss_d_fake + loss_d_real) * 0.5
         d_params = list(state.d.values())
         d_grads = torch.autograd.grad(loss_d, d_params)
-        mark("d_forward_backward")
+        phase.end("d_forward_backward")
         metrics = sharding.global_means(
             {"G_GAN": loss_g_gan, "G_GAN_Feat": loss_feat,
              "G_VGG": loss_vgg, "D_real": loss_d_real,
@@ -605,7 +628,7 @@ class Pix2PixHD(Pix2PixHDInference):
         adam_step(d_params, d_grads, state.opt_d, lr_now,
                   metrics["loss_D"] >= self.d_floor, b1=self.beta1,
                   mesh=red)
-        mark("d_adam")
+        phase.end("d_adam", last=True)
         return state._replace(pool=pool), metrics, fake
 
     # -- inference with features ---------------------------------------------

@@ -40,7 +40,9 @@ own ReLU, the head conv alone.
     1024² config), the enhancer's blocks run as plain ops.
 
 These take their 7×7 stem and head through ``conv2d_reflect_thin``, and
-the rest in the input's dtype.
+the rest in the input's dtype. ``global`` and ``UNet`` record their
+segments as the spans ``g.encode``, ``g.trunk`` and ``g.decode``
+(:mod:`cistar_tpu_torch.runtime.spans`), as their plain forwards do.
 
   * :func:`multiscale_global_int8_apply` (``MultiscaleGlobalGenerator``,
     BatchNorm): the resnet trunk runs through the ``bn=True`` form of K1
@@ -98,6 +100,7 @@ from cistar_tpu_torch.ops.quant_int8 import (QBlock,
                                              resblock_chain_int8_bf16io,
                                              resblock_chain_int8_tiled,
                                              whole_image_resblock_fits)
+from cistar_tpu_torch.runtime import spans
 
 
 _FUSED_STAGE_IN = os.environ.get("CISTAR_FUSED_STAGE_IN", "")
@@ -459,8 +462,12 @@ def global_generator_int8_trunk_apply(gen, qblocks: Sequence[QBlock],
     :func:`~cistar_tpu_torch.ops.quant_int8.quantize_global_trunk`;
     ``cout_tile=None`` takes K7's tile as the JAX kernel path does. NHWC
     in and out, compute dtype of ``x``."""
-    return global_decode(gen, global_trunk_int8(global_encode(gen, x),
-                                                qblocks, cout_tile))
+    with spans.span("g.encode"):
+        h = global_encode(gen, x)
+    with spans.span("g.trunk"):
+        h = global_trunk_int8(h, qblocks, cout_tile)
+    with spans.span("g.decode"):
+        return global_decode(gen, h)
 
 
 def quantize_unet_msrb(gen) -> List[QBlock]:
@@ -494,11 +501,14 @@ def unet_msrb_int8_apply(gen, qblocks: Sequence[QBlock], x: torch.Tensor,
     """Forward of a port ``UNetGeneratorHD`` with its MSRB blocks in int8
     (K8; ``unet_msrb_int8_apply``). ``qblocks`` comes from
     :func:`quantize_unet_msrb`. NHWC in and out, compute dtype of ``x``."""
-    skips = unet_encode(gen, x)
-    h = skips[-1]
-    for q in qblocks:
-        h = msrb_block_int8(h, q, cout_tile)
-    return unet_decode(gen, h, skips)
+    with spans.span("g.encode"):
+        skips = unet_encode(gen, x)
+    with spans.span("g.trunk"):
+        h = skips[-1]
+        for q in qblocks:
+            h = msrb_block_int8(h, q, cout_tile)
+    with spans.span("g.decode"):
+        return unet_decode(gen, h, skips)
 
 
 # --------------------------------------------------------------------------- #

@@ -31,10 +31,15 @@ BatchNorm normalizes with the batch's statistics and updates its running
 ones. The discriminator and the encoder take instance norm only: the JAX
 engine refuses a BatchNorm discriminator, and the norm option sets both.
 The other paddings and ``AutoEncoder`` come with a later slice (ROADMAP
-queue 1, item 9).
+queue 1, item 9). ``GlobalGeneratorTrunk`` (with ``GlobalGenerator``'s
+head) and ``UNetGeneratorHD`` record their stem and downs, blocks, and
+ups and head as the spans ``g.encode``, ``g.trunk`` and ``g.decode``
+(:mod:`cistar_tpu_torch.runtime.spans`).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -42,6 +47,7 @@ from torch import nn
 from cistar_tpu_torch.ops import nn as tnn
 from cistar_tpu_torch.ops.blocks import (MSRB, Conv2d, ConvTranspose2d,
                                          ReflectConv2d, ResidualBlock)
+from cistar_tpu_torch.runtime import spans
 
 _LATER = "(ROADMAP queue 1, item 9)"
 
@@ -217,11 +223,20 @@ class GlobalGeneratorTrunk(nn.Module):
                 ngf * 2 ** (n_downsampling - i) // 2, norm)
             for i in range(n_downsampling))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.stem(x)
-        for m in (*self.down, *self.res, *self.up):
-            h = m(h)
-        return h
+    def forward(self, x: torch.Tensor,
+                head: Optional[nn.Module] = None) -> torch.Tensor:
+        """The trunk's output, or ``head``'s of it (inside ``g.decode``)."""
+        with spans.span("g.encode"):
+            h = self.stem(x)
+            for m in self.down:
+                h = m(h)
+        with spans.span("g.trunk"):
+            for m in self.res:
+                h = m(h)
+        with spans.span("g.decode"):
+            for m in self.up:
+                h = m(h)
+            return h if head is None else head(h)
 
 
 class GlobalGenerator(nn.Module):
@@ -238,7 +253,7 @@ class GlobalGenerator(nn.Module):
         self.head = _OutHead(ngf, output_nc)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(self.trunk(x))
+        return self.trunk(x, self.head)
 
 
 class LocalEnhancer(nn.Module):
@@ -363,16 +378,20 @@ class UNetGeneratorHD(nn.Module):
         self.output_layer = _OutHead(f, output_nc)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.init_block(x)
-        skips = []
-        for conv in self.down_conv:
-            h = tnn.relu(tnn.instance_norm(conv(h)))
-            skips.append(h)
-        for m in self.msrb:
-            h = m(h)
-        for convt, skip in zip(self.up_convt, reversed(skips)):
-            h = tnn.relu(tnn.instance_norm(convt(torch.cat([h, skip], -1))))
-        return self.output_layer(h)
+        with spans.span("g.encode"):
+            h = self.init_block(x)
+            skips = []
+            for conv in self.down_conv:
+                h = tnn.relu(tnn.instance_norm(conv(h)))
+                skips.append(h)
+        with spans.span("g.trunk"):
+            for m in self.msrb:
+                h = m(h)
+        with spans.span("g.decode"):
+            for convt, skip in zip(self.up_convt, reversed(skips)):
+                h = tnn.relu(tnn.instance_norm(
+                    convt(torch.cat([h, skip], -1))))
+            return self.output_layer(h)
 
 
 class AutoEncoder(nn.Module):

@@ -12,8 +12,10 @@ with ``jax.export``. The port does it with ``torch.export``:
   * :func:`load_compiled` — load a ``.pt2`` and return a callable of it;
   * :func:`profile_fn` — steady-state latency: mean / p50 / p95 / best ms;
   * :func:`cost_analysis` — the FLOPs ``FlopCounterMode`` counts, and the
-    ops it cannot count (the custom ops);
-  * :func:`profile_trace` — a ``torch.profiler`` trace in ``logdir``.
+    ops it cannot count (the custom ops).
+
+A ``torch.profiler`` trace of a function is
+:func:`cistar_tpu_torch.runtime.profiler.profile_op_table`'s ``logdir``.
 
 The JAX ``*_sharded`` pair has no counterpart here: a sharded program is
 a per-rank program (exported and loaded as above) inside the wrapper of
@@ -125,12 +127,3 @@ def cost_analysis(fn: Callable, *example_args) -> Dict[str, Any]:
             "uncounted_ops": sorted(n for n in ops.names
                                     if n.startswith("cistar::"))}
 
-
-def profile_trace(fn: Callable, *example_args, logdir: str,
-                  iters: int = 3) -> Dict[str, str]:
-    """Write a ``torch.profiler`` Chrome trace of ``iters`` calls (after
-    one warm-up call) to ``logdir/trace.json``."""
-    from cistar_tpu_torch.runtime.profiler import profile_op_table
-
-    profile_op_table(fn, *example_args, iters=iters, logdir=logdir)
-    return {"trace_dir": logdir}
