@@ -10,8 +10,8 @@ Phases, each of which raises on failure (the script catches nothing):
 2. build the CUDA kernels from ``cistar_tpu_torch/csrc`` (one ``nvcc`` per
    source, all at once, sm_90a); print what ptxas reported of the
    ``wgmma`` conv's entries in that build (registers, spills; none may
-   spill), in each of the five libraries that use it (K1/K2, K3, K5-K6,
-   K7, K8), of K6's ``wg_branch_kernel``, and of every entry of K9's and
+   spill), in each of the six libraries that use it (K1/K2, K3, K5-K6,
+   K7, K8, K10), of K6's ``wg_branch_kernel``, and of every entry of K9's and
    K4's libraries (``head_cout1``,
    ``in_act``); count the HMMA instructions of K9's bf16 kernel in the
    library's SASS (``cuobjdump``; none would fail).
@@ -100,8 +100,9 @@ JAX engine's rule sends to the cout-tiled chain, K7); and ``UNet``
     JAX package's family budget vs its fp32 module is printed;
 12. the path at its checked batch (``global`` 4, ``UNet`` 2), counted:
     one ``global`` call launches K7a 9 times and K7b 9 times, one ``UNet``
-    call K8 12 times, and no other kernel. Fidelity as in phase 4, against
-    the same engine with the plain K7 / K8;
+    call K8 12 times and K10 3 times (its downs), and no other kernel.
+    Fidelity as in phase 4, against the same engine with the plain K7 / K8
+    (and, for ``UNet``, the module's own cuDNN downs in place of K10);
 13. serve three requests through ``Pix2PixHDInference``: ``infer_step``
     and ``infer_step_int8``;
 14. times with CUDA events at the JAX suite's shapes (``global`` batch 16,
@@ -331,10 +332,11 @@ ops under autograd (no port kernel); the test CLI's int8 engine runs K8:
     ``iter.txt`` written; a ``--continue_train`` run resumes at epoch 2 from
     them;
 40. ``apps/p2phd_test.py`` on that checkpoint and 4 test pairs at
-    ``--data_type 32`` (no kernel launched) and ``8`` (12 K8 a generator
-    call and no other kernel, counted): the PNGs and the gallery written;
+    ``--data_type 32`` (no kernel launched) and ``8`` (12 K8 and 3 K10 a
+    generator call and no other kernel, counted): the PNGs and the gallery written;
     the int8 engine on those 4 frames as far from the fp32 forward as the
-    same engine with the plain K8 (phase 12's rule); K8 per launch at batch
+    same engine with the plain K8 and cuDNN's downs (phase 12's rule); K8
+    per launch at batch
     1, the CLI's batch, beside its bound, its plain version and the GEMM
     yardstick of its conv (one ``torch._int_mm`` of the im2col, as phase
     12 times it at batch 2 and 8).
@@ -386,7 +388,7 @@ device and is not driven here):
     (ResNet-9, 64 features, 8 × 256², int8 through K1), ``p2phd_global512``
     (``global``, ngf 64, 4 downsamplings, 9 blocks, 4 × 512²; K7a + K7b at
     ct 256), ``unet_msrb512`` (``UNet`` at ``r2l_MSRB_7``'s widths, 4 ×
-    512²; K8), ``local1024`` (``local``, ngf 32, 2 × 1024²; K7 at ct 128):
+    512²; K8, K10), ``local1024`` (``local``, ngf 32, 2 × 1024²; K7 at ct 128):
     for each, the fp32 forward (TF32 off), the bf16 forward and the int8
     engine (counted: the row's kernels, no other); each engine's calibrated
     LPIPS metric and pixel L1 against fp32 (``utils/fidelity.py::
@@ -403,7 +405,8 @@ device and is not driven here):
     to what ``core/convert_models.py``'s ``*_from_pth`` gives; then, each in
     a process of its own, the four side by side (``CLI_RUNNER``: the CLI's
     ``main`` with its engine's calls recorded and the launch counts
-    printed), ``p2phd_test --data_type 32`` and ``8`` (K8, 12 a frame) and
+    printed), ``p2phd_test --data_type 32`` and ``8`` (K8 12, K10 3 a
+    frame) and
     ``cyclegan_test --dtype fp32`` and ``--engine int8`` (K5 18 and K6 3 a
     frame) on 2 test frames of 512²: the fp32 outputs within
     ``CKPT_FP32_ABS`` of the twins' fp32 forwards of the same frames on the
@@ -421,7 +424,7 @@ Exported programs and data parallelism (``runtime/``,
     per-rank program of ``make_sharded_infer`` (``InferProgram``, weights
     as arguments) exported, saved and loaded (``runtime/aot.py``); then
     ``p2phd_test --data_type 8 --export_onnx`` and ``--engine`` at
-    ``r2l_MSRB_7`` (``UNet``, 512², K8) on a seeded checkpoint, through the
+    ``r2l_MSRB_7`` (``UNet``, 512², K8, K10) on a seeded checkpoint, through the
     CLI. For each: export and load seconds, eager and loaded ms a call
     (``profile_fn``), the loaded program's op table, top 8
     (``runtime/profiler.py``), which must name the case's kernels (K1; K5
@@ -481,15 +484,30 @@ Exported programs and data parallelism (``runtime/``,
     ``latest`` equal to epoch 2 bit for bit, the first frame's metrics
     equal to those of
     ``infer_step`` called directly; the same run at ``--data_type 8``,
-    the trained G through the int8 engine, counted (K8 and no other
-    kernel; these launches join K8's in the kernels' line), each epoch
+    the trained G through the int8 engine, counted (K8, K10 and no other
+    kernel; its K8 launches join K8's in the kernels' line), each epoch
     within ``BUDGET`` of its fp32 forward in the LPIPS metric, and the
-    engine held to its plain version on the trained weights as phase 40
-    holds it, with K8's stages checked on the trained activation;
+    engine held to the plain K8 with cuDNN's downs on the trained weights
+    as phase 40 holds it, with K8's stages checked on the trained
+    activation;
     ``bf16_train_overlay`` on ``unet512`` for ``QUALITY_OVERLAY_STEPS``
     steps a curve: finite, its ratios printed; ``quality_run_uda`` at
     256², 1 epoch and 1 pre-epoch, on ``QUALITY_UDA_PAIRS`` pairs: finite
     final rows. Only the int8 run launches a kernel.
+56. (run after phase 14) K10 (``kernels/conv_s2.py``), the UNet's three
+    7×7 stride-2 downs in bf16, on the path's own activations at batch 8
+    and at the test CLI's batch 1: the BN that
+    ``cistar_conv7x7s2_bf16_variant`` names at each down (``K10_BN``); the
+    kernel and the plain conv (cuDNN) each within two bf16 roundings of the
+    fp32 conv of the same bf16 values (TF32 off), and their largest
+    difference; ms a launch beside the bound, TFLOP/s, the plain conv's ms
+    and, as the yardstick, cuDNN's fastest algorithm
+    (``torch.backends.cudnn.benchmark`` on here only; the port never sets
+    it), with the kernels each mode runs; the ms of packing the three
+    weights, which ``unet_down`` does each call; ``unet_down`` raises on an
+    fp32 input and on an odd width; one int8 engine call launches K10 3
+    times; the engine as far from fp32 as the same engine with cuDNN's
+    downs (phase 4's rule).
 
 The fp32 reference forwards run with TF32 off, the rest under PyTorch's
 defaults. The line before the last is the card's name and power limit; the
@@ -617,6 +635,39 @@ LOCAL = dict(ngf=32, n_downsample_global=3, n_blocks_global=9,
 # K7's tile at 64²×512, the JAX kernel path's pick_cout_tile; the images of
 # the BatchNorm calibration batch
 BN_TILE, CALIB_BATCH = 128, 4
+
+
+def unet_int8_launches(n_blocks: int, calls: int) -> dict:
+    """The kernel launches of ``calls`` calls of the UNet int8 engine
+    (``unet_msrb_int8_apply``, 64 features, bf16): 4 K8 an MSRB block and
+    one K10 a down, 3."""
+    return {"msrb_branch_int8": 4 * n_blocks * calls,
+            "conv7x7s2_bf16": 3 * calls}
+
+
+def unet_cudnn_downs(gen, qb, x, block):
+    """The UNet int8 engine (``unet_msrb_int8_apply``) with the module's own
+    downs (cuDNN) in place of K10 and ``block(h, q)`` for each MSRB block:
+    the engine that the one with K10 and K8 is held to."""
+    from cistar_tpu_torch.models import fast_infer as fi
+
+    h = fi._in_relu(fi._thin(gen.init_block.conv, x))
+    skips = []
+    for conv in gen.down_conv:
+        h = fi._in_relu(conv(h))
+        skips.append(h)
+    h = skips[-1]
+    for q in qb:
+        h = block(h, q)
+    return fi.unet_decode(gen, h, skips)
+
+
+def k8_plain(h, q):
+    """One MSRB block through the plain K8 at ``K8_TILE``."""
+    from cistar_tpu_torch.ops import quant_int8 as qi
+
+    return qi.msrb_block_int8_plain(h, q, K8_TILE)
+
 
 # Peaks of an H100 SXM (NVIDIA data sheet; dense int8 and bf16 tensor-core
 # operations, HBM bandwidth), for the bound of each kernel.
@@ -1527,11 +1578,7 @@ def p2phd_path(family: str, images, counters) -> list:
             return fi.unet_msrb_int8_apply(gen, qb, x)
 
         def plain_engine(x):
-            skips = fi.unet_encode(gen, x)
-            h = skips[-1]
-            for q in qb:
-                h = qi.msrb_block_int8_plain(h, q, K8_TILE)
-            return fi.unet_decode(gen, h, skips)
+            return unet_cudnn_downs(gen, qb, x, k8_plain)
 
     x = images(n, size)
     xb = x.bfloat16()
@@ -1592,8 +1639,8 @@ def p2phd_path(family: str, images, counters) -> list:
     print(f"[{label}] launches {launches}", flush=True)
     want = ({"resblock_int8_tiled_a": cfg["n_blocks_global"],
              "resblock_int8_tiled_b": cfg["n_blocks_global"]}
-            if family == "global" else
-            {"msrb_branch_int8": 4 * cfg["n_blocks_global"]})
+            if family == "global" else unet_int8_launches(
+                cfg["n_blocks_global"], 1))
     check(all(launches[k] == want.get(k, 0) for k in launches),
           f"one {family} call launches {want} and no other kernel")
     with fp32_exact():
@@ -1800,6 +1847,10 @@ def p2phd_breakdown(family: str, gen, qb, x) -> None:
             for conv, v in zip(gen.down_conv, ins):
                 in_relu(conv(v))
 
+        def run_downs_k10():
+            for conv, v in zip(gen.down_conv, ins):
+                in_relu(fi.unet_down(conv, v))
+
         def run_ups():
             for convt, v, skip in zip(gen.up_convt, up_ins, reversed(skips)):
                 in_relu(convt(torch.cat([v, skip], -1)))
@@ -1818,7 +1869,7 @@ def p2phd_breakdown(family: str, gen, qb, x) -> None:
         head_in = up_ins[-1]
         segs = {"stem": (lambda: gen.init_block(x),
                          lambda: in_relu(thin(gen.init_block.conv, x))),
-                "downs": (run_downs,) * 2,
+                "downs": (run_downs, run_downs_k10),
                 "trunk": (bf16_trunk, int8_trunk),
                 "ups": (run_ups,) * 2,
                 "head": (lambda: gen.output_layer(head_in),
@@ -1829,6 +1880,184 @@ def p2phd_breakdown(family: str, gen, qb, x) -> None:
         print(f"[breakdown] {family} {engine} batch {x.shape[0]} (ms): "
               + "; ".join(f"{k} {t!r}" for k, t in ms.items())
               + f"; sum {sum(ms.values())!r}", flush=True)
+
+
+def k10_bound_ms(n: int, h: int, w: int, cin: int, cout: int) -> tuple:
+    """K10: 2·Ho·Wo·Cout·Cin·49 operations a frame at the bf16 rate against
+    the bf16 input, weights and output."""
+    ho, wo = h // 2, w // 2
+    ops = 2 * n * ho * wo * cout * cin * 49
+    nbytes = 2 * (n * h * w * cin + cout * 49 * cin + n * ho * wo * cout)
+    return bound(ops, nbytes, PEAK_BF16_FLOPS)
+
+
+@contextlib.contextmanager
+def cudnn_benchmark():
+    """cuDNN's benchmark mode (it times its algorithms and keeps the
+    fastest), for the yardstick of K10 alone: the port never sets it."""
+    import torch
+
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = saved
+
+
+# The BN of K10 at the three downs at batch 8 and 1 (the source note's
+# rule: 256 where BN 128 would take more waves of 132 blocks)
+K10_BN = {8: (128, 256, 256), 1: (128, 256, 128)}
+
+
+def k10_path(images, counters) -> list:
+    """Phase 56 (after phase 14): K10 at the UNet's three downs, on the
+    path's own activations at batch 8 and 1; its launches in an int8
+    engine call; the engine with K10 against the same engine with cuDNN's
+    downs, both against fp32. The kernels' JSON row of K10."""
+    import torch
+    import torch.nn.functional as F
+
+    from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
+    from cistar_tpu_torch.kernels import conv_s2 as ks
+    from cistar_tpu_torch.models import fast_infer as fi
+    from cistar_tpu_torch.ops import quant_int8 as qi
+
+    cfg = P2PHD["UNet"]
+    eng = Pix2PixHDInference("UNet", ngf=cfg["ngf"],
+                             n_downsample_global=cfg["n_downsample_global"],
+                             n_blocks_global=cfg["n_blocks_global"], seed=0)
+    gen, qb = eng.G, eng.quantize_generator()
+    nb = cfg["bench_batch"]
+    tot = {nb: dict.fromkeys(("ms", "plain", "lib", "bound"), 0.0),
+           1: dict.fromkeys(("ms", "plain", "lib", "bound"), 0.0)}
+    worst = 0.0
+    for n in (nb, 1):
+        xb = images(n, P2P_SIZE).bfloat16()
+        h = fi._in_relu(fi._thin(gen.init_block.conv, xb))
+        for i, conv in enumerate(gen.down_conv):
+            cout, cin = conv.weight.shape[:2]
+            shape = (*h.shape, cout)
+            bn = ks.variant_card(*shape)
+            check(ks.shape_ok(*shape) and bn == K10_BN[n][i],
+                  f"K10 takes down {i} {shape} at BN {K10_BN[n][i]} (card "
+                  f"{bn})")
+            wb = conv.weight.bfloat16()
+            wk = wb.permute(0, 2, 3, 1).reshape(cout, -1).contiguous()
+            yk = ks.conv7x7s2_bf16(h, wk, conv.bias)
+            yp = conv(h)                      # the plain conv: cuDNN
+            torch.cuda.synchronize()
+            # each within two bf16 roundings (2^-8 of the sum, 2^-8 of the
+            # result, twice) and fp32 order (2^-13 of the sum of |x·w|) of
+            # the fp32 conv of the same bf16 values
+            with fp32_exact():
+                xn = h.permute(0, 3, 1, 2).float()
+                acc = F.conv2d(xn, wb.float(), None, 2, 3).permute(0, 2, 3, 1)
+                sabs = F.conv2d(xn.abs(), wb.float().abs(), None, 2, 3
+                                ).permute(0, 2, 3, 1)
+            ref = acc + conv.bias.bfloat16().float()
+            tol = 2.0 ** -7 * (acc.abs() + ref.abs()) + 2.0 ** -13 * sabs
+            over_k = ((yk.float() - ref).abs() - tol).max().item()
+            over_p = ((yp.float() - ref).abs() - tol).max().item()
+            d = (yk.float() - yp.float()).abs()
+            rel = d.max().item() / yp.float().abs().max().item()
+            worst = max(worst, d.max().item())
+            print(f"[K10] down {i} {tuple(h.shape)} -> {cout}, BN {bn}: "
+                  f"max|kernel-plain| {d.max().item()!r} ({rel!r} of "
+                  f"max|plain|), equal {(yk == yp).float().mean().item()!r};"
+                  f" over the fp32 tolerance: kernel {over_k!r}, cuDNN "
+                  f"{over_p!r}", flush=True)
+            check(over_k <= 0 and over_p <= 0,
+                  f"K10 and cuDNN within two bf16 roundings of fp32 at down "
+                  f"{i}, batch {n}")
+            bnd, by = k10_bound_ms(*shape)
+            ms = cuda_ms(lambda: ks.conv7x7s2_bf16(h, wk, conv.bias), 20)
+            plain_ms = cuda_ms(lambda: conv(h), 5)
+            _, _, top_h = profile_top(lambda: conv(h), 2)
+            with cudnn_benchmark():
+                lib_ms = cuda_ms(lambda: conv(h), 5)
+                _, _, top_b = profile_top(lambda: conv(h), 2)
+            ops = 2 * yk.numel() * cin * 49
+            print(f"[times] conv7x7s2_bf16 down {i} {tuple(h.shape)} -> "
+                  f"{cout}: {ms!r} ms ({ops / ms / 1e9!r} TFLOP/s), bound "
+                  f"{bnd!r} ({by}); plain (cuDNN, heuristics) {plain_ms!r} "
+                  f"ms, cuDNN benchmark mode {lib_ms!r} ms", flush=True)
+            for mode, top in (("heuristics", top_h), ("benchmark", top_b)):
+                print(f"[times] cuDNN {mode} at down {i} batch {n}: "
+                      + "; ".join(f"{k[:72]} {t!r}" for t, k in top),
+                      flush=True)
+            for k, v in (("ms", ms), ("plain", plain_ms), ("lib", lib_ms),
+                         ("bound", bnd)):
+                tot[n][k] += v
+            h = fi._in_relu(yp)
+    for n, t in tot.items():
+        print(f"[times] conv7x7s2_bf16, the three downs of one call at batch "
+              f"{n}: {t['ms']!r} ms (bound {t['bound']!r}), plain "
+              f"{t['plain']!r}, cuDNN benchmark mode {t['lib']!r}",
+              flush=True)
+
+    # the weights as unet_down packs them each call
+    def pack():
+        for conv in gen.down_conv:
+            w = conv.weight.to(torch.bfloat16,
+                               memory_format=torch.channels_last)
+            w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)
+    pack_ms = cuda_ms(pack, 20)
+    print(f"[times] packing the three downs' weights (unet_down, each call): "
+          f"{pack_ms!r} ms, {pack_ms / tot[nb]['ms']!r} of K10's three "
+          f"launches at batch {nb}", flush=True)
+
+    # a CUDA input K10 does not take raises: no fallback to cuDNN
+    conv = gen.down_conv[0]
+    for what, v in (("fp32", h.new_zeros(1, 512, 512, 64, dtype=torch.float32)),
+                    ("odd W", h.new_zeros(1, 512, 511, 64))):
+        try:
+            fi.unet_down(conv, v)
+        except (TypeError, ValueError) as e:
+            print(f"[K10] unet_down on a CUDA {what} input raises: {e}",
+                  flush=True)
+        else:
+            check(False, f"unet_down raises on a CUDA {what} input")
+
+    # the engine, counted: 3 K10 launches a call
+    x = images(nb, P2P_SIZE)
+    xb = x.bfloat16()
+    for m in counters:
+        m.reset_launches()
+    y_k10 = fi.unet_msrb_int8_apply(gen, qb, xb).float()
+    torch.cuda.synchronize()
+    launches = {k: v for m in counters for k, v in m.launches.items() if v}
+    want = unet_int8_launches(cfg["n_blocks_global"], 1)
+    print(f"[K10] one UNet int8 call at batch {nb}: launches {launches}",
+          flush=True)
+    check(launches == want, f"one UNet int8 call launches {want}")
+    _, _, top = profile_top(lambda: fi.unet_msrb_int8_apply(gen, qb, xb), 64)
+    names = [k for _, k in top]
+    print(f"[K10] one UNet int8 call's kernels: {len(names)}, K10's: "
+          f"{[f'{t!r} {k[:64]}' for t, k in top if k.startswith('K10')]}",
+          flush=True)
+    check(any(k.startswith("K10") for k in names)
+          and not any("convolve_sgemm" in k for k in names),
+          "the UNet int8 call runs K10 and no legacy cuDNN conv kernel")
+
+    # fidelity: K10's engine as far from fp32 as the engine with cuDNN's
+    # downs (phase 4's rule)
+    with fp32_exact():
+        y32 = gen(x)
+    y_cudnn = unet_cudnn_downs(gen, qb, xb, qi.msrb_block_int8).float()
+    dk, dp = (y_k10 - y32).abs(), (y_cudnn - y32).abs()
+    (mk, ak), (mp, ap) = ((d.max().item(), d.mean().item()) for d in (dk, dp))
+    print(f"[K10] UNet int8 engine vs fp32 at batch {nb}: max {mk!r} mean "
+          f"{ak!r}; with cuDNN's downs max {mp!r} mean {ap!r}", flush=True)
+    check(ak <= KERNEL_MEAN_RATIO * ap and mk <= mp + KERNEL_MAX_EXCESS,
+          "K10 adds little to the int8 engine's error")
+    t = tot[nb]
+    return [{"name": "conv7x7s2_bf16", "route": "cuda",
+             "source": "cistar_tpu_torch/csrc/conv_s2.cu", "replaces": None,
+             "launches": launches["conv7x7s2_bf16"], "max_abs_err": worst,
+             "ms": t["ms"] / 3, "plain_ms": t["plain"] / 3,
+             "bound_ms": t["bound"] / 3, "bound_by": "operations",
+             "library_ms": t["lib"] / 3}]
 
 
 def fused_path(dev, images, counters) -> list:
@@ -2804,8 +3033,8 @@ argv = sys.argv[4:]
 torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
 from cistar_tpu_torch.engines.cyclegan import CycleGANInference
 from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
-from cistar_tpu_torch.kernels import (fused_conv, head_cout1, in_act,
-    int8_atrous, int8_msrb, int8_resblock, int8_tiled)
+from cistar_tpu_torch.kernels import (conv_s2, fused_conv, head_cout1,
+    in_act, int8_atrous, int8_msrb, int8_resblock, int8_tiled)
 calls = []
 def record(cls, name):
     fn = getattr(cls, name)
@@ -2820,7 +3049,7 @@ def record(cls, name):
 for cls in (CycleGANInference, Pix2PixHDInference):
     for name in ("infer_step", "infer_step_int8"):
         record(cls, name)
-mods = (fused_conv, head_cout1, in_act, int8_atrous, int8_msrb,
+mods = (conv_s2, fused_conv, head_cout1, in_act, int8_atrous, int8_msrb,
         int8_resblock, int8_tiled)
 importlib.import_module(mod).main(argv)
 if torch.cuda.is_available():
@@ -4262,9 +4491,9 @@ def p2p_cli(dev, counters) -> None:
             dt = time.perf_counter() - t0
             launches = {k: v for m in counters
                         for k, v in m.launches.items()}
-            # 4 K8 an MSRB block, 3 blocks: 12 a generator call
-            want = ({"msrb_branch_int8": 4 * P2P_TRAIN["UNet"][
-                "n_blocks_global"] * P2P_TEST_PAIRS} if data_type == 8 else {})
+            want = (unet_int8_launches(P2P_TRAIN["UNet"]["n_blocks_global"],
+                                       P2P_TEST_PAIRS)
+                    if data_type == 8 else {})
             print(f"[p2phd test cli] --data_type {data_type}: launches "
                   f"{launches}; {P2P_TEST_PAIRS} frames in {dt:.1f} s",
                   flush=True)
@@ -4286,11 +4515,7 @@ def p2p_cli(dev, counters) -> None:
                                        range(P2P_TEST_PAIRS)])).to(dev)
         xb = x.bfloat16()
         y8 = eng.infer_step_int8(qb, x)
-        skips = fi.unet_encode(gen, xb)
-        h = skips[-1]
-        for q in qb:
-            h = qi.msrb_block_int8_plain(h, q, K8_TILE)
-        yp = fi.unet_decode(gen, h, skips).float()
+        yp = unet_cudnn_downs(gen, qb, xb, k8_plain).float()
         with fp32_exact():
             y32 = gen(x)
         dk, dp = (y8 - y32).abs(), (yp - y32).abs()
@@ -4298,9 +4523,11 @@ def p2p_cli(dev, counters) -> None:
                               for d in (dk, dp))
         print(f"[p2phd test cli] int8 engine on the checkpoint vs fp32, "
               f"{P2P_TEST_PAIRS} test frames: max {mk!r} mean {ak!r}; with "
-              f"the plain K8 max {mp!r} mean {ap!r}", flush=True)
+              f"the plain K8 and cuDNN's downs max {mp!r} mean {ap!r}",
+              flush=True)
         check(ak <= KERNEL_MEAN_RATIO * ap and mk <= mp + KERNEL_MAX_EXCESS,
-              "the CLI's int8 engine: K8 adds little to the plain error")
+              "the CLI's int8 engine: K8 and K10 add little to the plain "
+              "error")
 
         # K8 at batch 1, the CLI's batch, on the checkpoint's activations
         h1 = fi.unet_encode(gen, xb[:1])[-1].contiguous()
@@ -4936,7 +5163,7 @@ def fidelity_path(dev, counters) -> None:
             *p2p("UNet", ngf=unet["ngf"],
                  n_blocks_global=unet["n_blocks_global"]),
             fi.unet_msrb_int8_apply,
-            {"msrb_branch_int8": 4 * unet["n_blocks_global"]}),
+            unet_int8_launches(unet["n_blocks_global"], 1)),
         "local1024": lambda: (
             *p2p("local", **{k: LOCAL[k] for k in (
                 "ngf", "n_downsample_global", "n_blocks_global",
@@ -5212,7 +5439,7 @@ def export_path(dev, images, counters) -> None:
         loaded = lambda: run(x)  # noqa: E731
         eager = lambda: eng.infer_step_int8(qb, x)  # noqa: E731
         launches = counted(counters, loaded)
-        want = {"msrb_branch_int8": 4 * opt.n_blocks_global}
+        want = unet_int8_launches(opt.n_blocks_global, 1)
         print(f"[export] {label}: loaded in {load_s!r} s; one loaded call "
               f"launches {launches}", flush=True)
         check(launches == want, f"{label}: the loaded program launches {want}")
@@ -5869,7 +6096,7 @@ def quality_path(dev, counters) -> int:
         launches = {k: v for m in counters for k, v in m.launches.items()
                     if v}
         n_test = len(out8["frames"][2])
-        want = {"msrb_branch_int8": 4 * n_blocks * n_test * 3}
+        want = unet_int8_launches(n_blocks, n_test * 3)
         print(f"[quality] eval_r2l_fidelity --data_type 8 over 3 epochs of "
               f"{n_test} frames: launches {launches}", flush=True)
         check(launches == want, f"the int8 eval launches {want} and no "
@@ -5891,23 +6118,20 @@ def quality_path(dev, counters) -> int:
                                        range(len(test_set))])).to(dev)
         xb = x.bfloat16()
         y8 = eng8.infer_step_int8(qb, x)
-        skips = fi.unet_encode(gen, xb)
-        h = skips[-1]
+        h = fi.unet_encode(gen, xb)[-1]
         xq, xs = qi.quantize_act(h[:1].contiguous())
         k8_vs_plain(xq, xs, qb[0])
-        for q in qb:
-            h = qi.msrb_block_int8_plain(h, q, K8_TILE)
-        yp = fi.unet_decode(gen, h, skips).float()
+        yp = unet_cudnn_downs(gen, qb, xb, k8_plain).float()
         with fp32_exact():
             y32 = gen(x)
         dk, dp = (y8 - y32).abs(), (yp - y32).abs()
         (mk, ak), (mp, ap) = ((d.max().item(), d.mean().item())
                               for d in (dk, dp))
         print(f"[quality] int8 engine on the trained G vs fp32, {len(x)} "
-              f"test frames: max {mk!r} mean {ak!r}; with the plain K8 max "
-              f"{mp!r} mean {ap!r}", flush=True)
+              f"test frames: max {mk!r} mean {ak!r}; with the plain K8 and "
+              f"cuDNN's downs max {mp!r} mean {ap!r}", flush=True)
         check(ak <= KERNEL_MEAN_RATIO * ap and mk <= mp + KERNEL_MAX_EXCESS,
-              "on the trained G, K8 adds little to the plain error")
+              "on the trained G, K8 and K10 add little to the plain error")
 
         # the bf16 / fp32 overlay
         t0 = time.perf_counter()
@@ -6033,7 +6257,7 @@ def checkpoint_path(dev, counters) -> None:
         cg_args = ["--dataroot", data, "--model_dir", mdir, "--size",
                    str(size), "--gen_type", "bilinear_content", "--device",
                    dev.type]
-        k8 = {"msrb_branch_int8": 4 * CKPT_UNET["n_res"] * CKPT_FRAMES}
+        unet8 = unet_int8_launches(CKPT_UNET["n_res"], CKPT_FRAMES)
         # 3 generator calls a frame (fake_B, fake_A, recover_B), each 6 K5
         # and 1 K6
         k56 = {"atrous_resblock_int8": 6 * 3 * CKPT_FRAMES,
@@ -6043,7 +6267,7 @@ def checkpoint_path(dev, counters) -> None:
         plan = {"p2phd_test --data_type 32": (
                     p2p, p2p_args + ["--data_type", "32"], False, {}),
                 "p2phd_test --data_type 8": (
-                    p2p, p2p_args + ["--data_type", "8"], True, k8),
+                    p2p, p2p_args + ["--data_type", "8"], True, unet8),
                 "cyclegan_test --dtype fp32": (
                     cg, cg_args + ["--dtype", "fp32"], False, {}),
                 "cyclegan_test --engine int8": (
@@ -6136,6 +6360,7 @@ def main() -> int:
         sys.exit("chip_smoke.py: no CUDA device, nothing run")
     sys.path.insert(0, ROOT)
     from cistar_tpu_torch.kernels import build
+    from cistar_tpu_torch.kernels import conv_s2 as ks
     from cistar_tpu_torch.kernels import fused_conv as kf
     from cistar_tpu_torch.kernels import head_cout1 as kh
     from cistar_tpu_torch.kernels import in_act as kn
@@ -6161,7 +6386,8 @@ def main() -> int:
           flush=True)
     for src, kernels in (
             *((s, ("wg_conv_kernel",)) for s in (
-                "int8_resblock", "conv3x3_in_act", "int8_tiled", "int8_msrb")),
+                "int8_resblock", "conv3x3_in_act", "int8_tiled", "int8_msrb",
+                "conv_s2")),
             ("int8_atrous", ("wg_conv_kernel", "wg_branch_kernel")),
             ("head_cout1", ("head_tc_kernel", "head_kernel", "sums_kernel",
                             "stats_kernel")),
@@ -6192,11 +6418,12 @@ def main() -> int:
         return (torch.rand(n, size, size, 1, generator=cpu_gen) * 2
                 - 1).to(dev)
 
-    counters = (kr, ka, kt, km, kf, kn, kh)
+    counters = (kr, ka, kt, km, kf, kn, kh, ks)
     rows = resnet_path(dev, images, counters)
     rows += bilinear_path(dev, images, counters)
     rows += p2phd_path("global", images, counters)
     rows += p2phd_path("UNet", images, counters)
+    rows += k10_path(images, counters)
     rows += fused_path(dev, images, counters)
     rows += bn_local_path(images, counters)
     with torch.enable_grad():

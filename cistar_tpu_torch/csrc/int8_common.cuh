@@ -306,13 +306,17 @@ __global__ void quant_pad_kernel(const T* __restrict__ x, long per_image,
 //   EPI_BSTATS  each branch's sum and sum of squares of f; no f written
 //   EPI_BSUM    sum_b relu((f_b - mean_b) * rsig_b) in branch order, into out
 //               as TO
+//   wg_conv_kernel, bf16 operands only (K10, conv_s2.cu):
+//   EPI_BF16    bf16(bf16(acc) + bf16(bias[c])) into out (bf16), the plain
+//               bf16 conv's two roundings; no statistics
 enum Epi {
   EPI_RAW = 0,
   EPI_STATS = 1,
   EPI_GSTATS = 2,
   EPI_GRELU = 3,
   EPI_BSTATS = 4,
-  EPI_BSUM = 5
+  EPI_BSUM = 5,
+  EPI_BF16 = 6
 };
 
 // One conv launch. Its operands; the pointers an epilogue does not use may
@@ -330,7 +334,7 @@ struct ConvArgs {
   float* st_max;
   int n, h, w, cin, cout, dil;
   const float* gs = nullptr;  // (N, groups) scale of each input group
-  void* out = nullptr;        // EPI_GRELU without WANT_MAX
+  void* out = nullptr;        // EPI_GRELU without WANT_MAX; EPI_BF16
   int groups = 1;             // input channel groups, each cin / groups wide
   int ct = 0;                 // EPI_GRELU with WANT_MAX: tile of st_max
   // wg_conv_kernel (EPI_STATS) and wg_branch_kernel: branches > 1 convs of

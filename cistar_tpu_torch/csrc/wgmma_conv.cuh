@@ -9,7 +9,8 @@
 // cistar_conv3x3_zero_s8_acc; K6, same file: its four branch convs, in
 // wg_branch_kernel below; K8, csrc/int8_msrb.cu: both branches, 3x3 and
 // 5x5, and cistar_conv_zero_grouped_s8_acc) and bf16 x bf16 -> fp32
-// (K3, csrc/conv3x3_in_act.cu).
+// (K3, csrc/conv3x3_in_act.cu; K10, csrc/conv_s2.cu: the UNet's 7x7
+// stride-2 downs, STRIDE 2 and EPI_BF16).
 //
 // Serves the TPU kernels' convs
 //   cistar_tpu/ops/quant_pallas.py::_conv9_int8 (:114-134), the conv of
@@ -98,6 +99,14 @@
 //     accumulator of a warp covers 16 rows (lane / 4 and lane / 4 + 8) of
 //     the 64, so the column sums reduce over lane bits 2-4 by shuffles,
 //     then over the 8 consumer warps in shared memory.
+//
+//   * Stride (STRIDE 2, K10): tile rows and columns are output pixels, and
+//     tap (dy, dx) of a tile at output (y0, x0) is the box at input (2*y0 +
+//     dy + pad_off, 2*x0 + dx + pad_off). The caller's map over x has
+//     element strides of 2 on W and H and a box twice as wide and high, so
+//     TMA fetches every other pixel into the same dense 128-pixel A tile.
+//     Its shapes follow conv_s2.cu's own rule (s2_shape_ok), not the one
+//     below.
 //
 // The tile rule (wg_tile_ok): W divides 128 or 128 divides W (a tile is
 // whole image rows, or 128 pixels of one row), H*W % 128 == 0 (a tile lies
@@ -222,6 +231,11 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+// v rounded to bf16 (to nearest even), back in fp32.
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // Keeps the compiler from moving an accumulator access across a wait.
 __device__ __forceinline__ void reg_fence(int& r) { asm volatile("" : "+r"(r)::"memory"); }
 __device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
@@ -434,7 +448,7 @@ __device__ __forceinline__ WgTile wg_tile(const ConvArgs& a, int tile, int mtile
 // grp] to an fp32 sum in group order; the accumulators restart from 0.
 // Epilogue fields of `a` as conv_s8_kernel's.
 template <typename T, int BN, int EPI, bool WANT_MAX, int KK = 3, typename TO = float,
-          bool PERSIST = false, int KB = WG_KBYTES>
+          bool PERSIST = false, int KB = WG_KBYTES, int STRIDE = 1>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     wg_conv_kernel(const __grid_constant__ CUtensorMap tx,
                    const __grid_constant__ CUtensorMap tw, const ConvArgs a,
@@ -489,8 +503,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
           const int grp = kt / SPG, r = kt - grp * SPG, tap = r / CPG;
           const int c0 = grp * cg + (r - tap * CPG) * KE;
           tma_load_4d(sa + s * A_BYTES, &tx, &full[s], c0,
-                      tc.x0 + (tap % KK) * tc.dil + tc.pad_off,
-                      tc.y0 + (tap / KK) * tc.dil + tc.pad_off, tc.img);
+                      tc.x0 * STRIDE + (tap % KK) * tc.dil + tc.pad_off,
+                      tc.y0 * STRIDE + (tap / KK) * tc.dil + tc.pad_off, tc.img);
           tma_load_2d(sb + s * B_BYTES, &tw, &full[s], tap * a.cin + c0, tc.wrow);
         }
       }
@@ -564,6 +578,22 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     // last group), so the producer may refill it for the next tile
     if (t == 0) mbar_arrive(&empty[(u - 1) % STAGES]);
     if constexpr (EPI == EPI_RAW) continue;
+    if constexpr (EPI == EPI_BF16) {
+      // the plain bf16 conv's roundings: the sum, then the sum + bias
+      __nv_bfloat16* const out = static_cast<__nv_bfloat16*>(a.out);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * q;
+        const float b0 = a.bias != nullptr ? bf16_round(a.bias[col]) : 0.f;
+        const float b1 = a.bias != nullptr ? bf16_round(a.bias[col + 1]) : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          store2(out + (row0 + 8 * h) * Cout + col,
+                 __fadd_rn(bf16_round(acc[4 * j + 2 * h]), b0),
+                 __fadd_rn(bf16_round(acc[4 * j + 2 * h + 1]), b1));
+      }
+      continue;
+    }
 
     // the branch's f, statistics and scale / bias rows (all at offset 0 for
     // one conv)
@@ -750,12 +780,12 @@ EncodeTiledFn encode_tiled() {
 }
 
 // One block per output tile, or (PERSIST) one per SM of the current
-// device, each walking the tiles gridDim.x apart.
+// device, each walking the tiles gridDim.x apart. a.h, a.w: the output's.
 template <typename T, int BN, int EPI, bool WANT_MAX, int KK, typename TO, bool PERSIST,
-          int KB>
+          int KB, int STRIDE = 1>
 cudaError_t wg_launch(const CUtensorMap& tx, const CUtensorMap& tw, const ConvArgs& a,
                       int padded, cudaStream_t st) {
-  auto kern = wg_conv_kernel<T, BN, EPI, WANT_MAX, KK, TO, PERSIST, KB>;
+  auto kern = wg_conv_kernel<T, BN, EPI, WANT_MAX, KK, TO, PERSIST, KB, STRIDE>;
   constexpr int smem = wg_smem_bytes<BN, PERSIST, KB>();
   static bool attr = false;
   if (!attr) {

@@ -31,6 +31,7 @@ implementations read one set of tensors.
   ``conv3x3_in_act``              K3     ``fused_conv``
   ``in_act``                      K4     ``in_act``
   ``head_cout1``                  K9     ``head_cout1``
+  ``conv7x7s2_bf16``              K10    ``conv_s2``
   ==============================  =====  ================================
 
 :data:`KERNEL_IDS` maps each op's name to its id.
@@ -42,15 +43,15 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from cistar_tpu_torch.kernels import (fused_conv, head_cout1, in_act,
-                                      int8_atrous, int8_msrb, int8_resblock,
-                                      int8_tiled)
+from cistar_tpu_torch.kernels import (conv_s2, fused_conv, head_cout1,
+                                      in_act, int8_atrous, int8_msrb,
+                                      int8_resblock, int8_tiled)
 
 KERNEL_IDS = {"resblock_int8_bf16io": "K1", "resblock_int8": "K2",
               "atrous_resblock_int8": "K5", "multi_atrous_stage_int8": "K6",
               "resblock_int8_tiled_a": "K7a", "resblock_int8_tiled_b": "K7b",
               "msrb_branch_int8": "K8", "conv3x3_in_act": "K3",
-              "in_act": "K4", "head_cout1": "K9"}
+              "in_act": "K4", "head_cout1": "K9", "conv7x7s2_bf16": "K10"}
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -294,3 +295,23 @@ _op(
     "head_cout1",
     lambda x, wt, bias, tanh, pre_in, eps: x.new_empty((*x.shape[:3], 1)),
     _k9_cpu, _k9_cuda)
+
+
+# --------------------------------------------------------------------------- #
+# K10
+# --------------------------------------------------------------------------- #
+def _k10_cpu(x: torch.Tensor, wk: torch.Tensor,
+             bias: Optional[torch.Tensor]) -> torch.Tensor:
+    from cistar_tpu_torch.ops import nn as tnn
+    cout = wk.shape[0]
+    w = wk.reshape(cout, conv_s2.KK, conv_s2.KK, -1).permute(0, 3, 1, 2)
+    return tnn.conv2d(x, w.contiguous(), bias, stride=conv_s2.STRIDE,
+                      padding=conv_s2.PAD)
+
+
+def _k10_fake(x, wk, bias):
+    n, h, w, _ = x.shape
+    return x.new_empty((n, (h + 1) // 2, (w + 1) // 2, wk.shape[0]))
+
+
+_op("conv7x7s2_bf16", _k10_fake, _k10_cpu, conv_s2.conv7x7s2_bf16)

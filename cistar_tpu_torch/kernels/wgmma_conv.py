@@ -9,7 +9,9 @@ K7a (``kernels/int8_tiled.py``) run its 3×3 form at the BN of
 groups) at BN :data:`GROUPED_BN`; K5 and K6 (``kernels/int8_atrous.py``)
 its dilated zero-pad and reflect 3×3 forms at BN 128, at the K stage of
 :func:`kbytes` (64 bytes for K6's 64 input channels); each where
-:func:`tile_ok` holds, which does not depend on the dilation. Only the
+:func:`tile_ok` holds, which does not depend on the dilation. K10
+(``kernels/conv_s2.py``) runs its 7×7 stride-2 bf16 form under a rule of
+its own (``conv_s2.shape_ok``; its BN: ``conv_s2.variant_card``). Only the
 atrous library builds the 64-byte stage: the others keep 128. Their C
 libraries answer the same question through ``cistar_resblock_conv_variant``,
 ``cistar_conv3x3_in_act_variant``, ``cistar_tiled_a_conv_variant``,

@@ -34,7 +34,8 @@ own ReLU, the head conv alone.
     engine's rule (``whole_image_resblock_fits``) takes the whole-image
     chain, else through K7 (the 1024-channel trunk of the default width);
   * :func:`unet_msrb_int8_apply` (``UNetGeneratorHD``): the MSRB blocks
-    run through K8;
+    run through K8, the three 7×7 stride-2 downs through K10
+    (:func:`unet_down`);
   * :func:`local_enhancer_int8_apply` (``LocalEnhancer``): the global
     trunk's resnet blocks dispatch as ``global``'s (K7 at the suite's
     1024² config), the enhancer's blocks run as plain ops.
@@ -476,13 +477,27 @@ def quantize_unet_msrb(gen) -> List[QBlock]:
     return [quantize_msrb(m) for m in gen.msrb]
 
 
+def unet_down(conv, h: torch.Tensor) -> torch.Tensor:
+    """One 7×7 stride-2 pad-3 down of the UNet (``conv``, a ``Conv2d``)
+    through ``cistar::conv7x7s2_bf16``: on the CPU its plain version, the
+    module's own conv; on the card K10, which raises on a dtype or shape
+    it does not take (:func:`~cistar_tpu_torch.kernels.conv_s2.shape_ok`).
+    The bf16 (Cout, 49·Cin) weight is packed anew each call."""
+    cout = conv.weight.shape[0]
+    # (Cout, 7, 7, Cin) in memory: the kernel's (Cout, 49·Cin) operand
+    w = conv.weight.to(h.dtype, memory_format=torch.channels_last)
+    wk = w.permute(0, 2, 3, 1).reshape(cout, -1)
+    return torch.ops.cistar.conv7x7s2_bf16(h.contiguous(), wk, conv.bias)
+
+
 def unet_encode(gen, x: torch.Tensor) -> List[torch.Tensor]:
-    """The stem (``conv2d_reflect_thin``) and the three downs, each with
-    IN+ReLU: the skips, the last of which is the trunk's input."""
+    """The stem (``conv2d_reflect_thin``) and the three downs
+    (:func:`unet_down`), each with IN+ReLU: the skips, the last of which is
+    the trunk's input."""
     h = _in_relu(_thin(gen.init_block.conv, x))
     skips = []
     for conv in gen.down_conv:
-        h = _in_relu(conv(h))
+        h = _in_relu(unet_down(conv, h))
         skips.append(h)
     return skips
 
@@ -499,8 +514,9 @@ def unet_decode(gen, h: torch.Tensor, skips: Sequence[torch.Tensor]
 def unet_msrb_int8_apply(gen, qblocks: Sequence[QBlock], x: torch.Tensor,
                          cout_tile: int = 128) -> torch.Tensor:
     """Forward of a port ``UNetGeneratorHD`` with its MSRB blocks in int8
-    (K8; ``unet_msrb_int8_apply``). ``qblocks`` comes from
-    :func:`quantize_unet_msrb`. NHWC in and out, compute dtype of ``x``."""
+    (K8; ``unet_msrb_int8_apply``), its downs through K10. ``qblocks``
+    comes from :func:`quantize_unet_msrb`. NHWC in and out, compute dtype of
+    ``x``."""
     with spans.span("g.encode"):
         skips = unet_encode(gen, x)
     with spans.span("g.trunk"):

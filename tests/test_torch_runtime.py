@@ -37,6 +37,7 @@ from cistar_tpu_torch.engines.p2phd import Pix2PixHDInference
 from cistar_tpu_torch.kernels.custom_ops import KERNEL_IDS
 from cistar_tpu_torch.ops import blocks
 from cistar_tpu_torch.ops import fused
+from cistar_tpu_torch.ops import nn as tnn
 from cistar_tpu_torch.ops import quant_int8 as qi
 from cistar_tpu_torch.runtime import aot, profiler
 
@@ -83,6 +84,9 @@ def _cases():
     x9 = _x(2, 8, 8, 16, seed=6, dtype=torch.bfloat16)
     w9, b9 = _x(1, 16, 7, 7, seed=7) * 0.1, _x(1, seed=8)
     wt9 = w9[0].permute(1, 2, 0).reshape(49, 16).to(x9.dtype).float()
+    x10 = _x(2, 16, 16, 8, seed=9, dtype=torch.bfloat16)
+    w10, b10 = _x(16, 8, 7, 7, seed=10) * 0.05, _x(16, seed=11)
+    wk10 = w10.permute(0, 2, 3, 1).reshape(16, -1).to(x10.dtype)
     return {
         "resblock_int8_bf16io": (
             (hx, q1["w1k"], q1["w2k"], q1["sb"], EPS, False),
@@ -126,6 +130,9 @@ def _cases():
                                                      r3, "zero")),
         "in_act": ((hx, "leaky", 0.2, None, EPS),
                    lambda: fused.fused_instance_norm_act_plain(hx, "leaky")),
+        "conv7x7s2_bf16": (
+            (x10, wk10, b10),
+            lambda: tnn.conv2d(x10, w10, b10, stride=2, padding=3)),
         "head_cout1": (
             (x9, wt9, b9, True, True, EPS),
             lambda: fused.conv2d_reflect_cout1_plain(x9, w9, b9, "tanh",
