@@ -41,9 +41,11 @@ own ReLU, the head conv alone.
     1024² config), the enhancer's blocks run as plain ops.
 
 These take their 7×7 stem and head through ``conv2d_reflect_thin``, and
-the rest in the input's dtype. ``global`` and ``UNet`` record their
-segments as the spans ``g.encode``, ``g.trunk`` and ``g.decode``
-(:mod:`cistar_tpu_torch.runtime.spans`), as their plain forwards do.
+the rest in the input's dtype. They record their segments as the spans
+``g.encode``, ``g.trunk`` and ``g.decode``
+(:mod:`cistar_tpu_torch.runtime.spans`), as their plain forwards do;
+``local`` records its fine stream (the enhancers and the head) as
+``g.enhance`` after them.
 
   * :func:`multiscale_global_int8_apply` (``MultiscaleGlobalGenerator``,
     BatchNorm): the resnet trunk runs through the ``bn=True`` form of K1
@@ -539,20 +541,23 @@ def quantize_local_enhancer(gen) -> List[QBlock]:
 
 def local_decode(gen, h: torch.Tensor, pyr: Sequence[torch.Tensor]
                  ) -> torch.Tensor:
-    """The global trunk's ups, then each enhancer on its level of the
-    input pyramid ``pyr`` (its stem through ``conv2d_reflect_thin``; its
-    resnet blocks as plain ops), the head (``conv2d_reflect_thin``) and
-    tanh."""
-    for m in gen.global_trunk.up:
-        h = m(h)
-    ne = gen.n_local_enhancers
-    for n in range(1, ne + 1):
-        d = _in_relu(_thin(gen.enhancer(n, "stem").conv, pyr[ne - n]))
-        h = gen.enhancer(n, "down")(d) + h
-        for i in range(gen.n_blocks_local):
-            h = gen.enhancer(n, f"res_{i}")(h)
-        h = gen.enhancer(n, "up")(h)
-    return tnn.tanh(_thin(gen.head.conv, h))
+    """The global trunk's ups (span ``g.decode``), then the fine stream
+    (span ``g.enhance``): each enhancer on its level of the input pyramid
+    ``pyr`` (its stem through ``conv2d_reflect_thin``, its down, the sum
+    with the coarser output, its resnet blocks as plain ops, its up), the
+    head (``conv2d_reflect_thin``) and tanh."""
+    with spans.span("g.decode"):
+        for m in gen.global_trunk.up:
+            h = m(h)
+    with spans.span("g.enhance"):
+        ne = gen.n_local_enhancers
+        for n in range(1, ne + 1):
+            d = _in_relu(_thin(gen.enhancer(n, "stem").conv, pyr[ne - n]))
+            h = gen.enhancer(n, "down")(d) + h
+            for i in range(gen.n_blocks_local):
+                h = gen.enhancer(n, f"res_{i}")(h)
+            h = gen.enhancer(n, "up")(h)
+        return tnn.tanh(_thin(gen.head.conv, h))
 
 
 def local_enhancer_int8_apply(gen, qblocks: Sequence[QBlock],
@@ -563,10 +568,12 @@ def local_enhancer_int8_apply(gen, qblocks: Sequence[QBlock],
     blocks in int8 (``local_enhancer_int8_apply``), dispatched as
     :func:`global_trunk_int8`; ``qblocks`` from
     :func:`quantize_local_enhancer`. NHWC in and out, compute dtype of
-    ``x``."""
+    ``x``. The pyramid's pools lie outside the spans."""
     pyr = gen.pyramid(x)
-    h = global_trunk_int8(trunk_encode(gen.global_trunk, pyr[-1]), qblocks,
-                          cout_tile)
+    with spans.span("g.encode"):
+        h = trunk_encode(gen.global_trunk, pyr[-1])
+    with spans.span("g.trunk"):
+        h = global_trunk_int8(h, qblocks, cout_tile)
     return local_decode(gen, h, pyr)
 
 

@@ -34,7 +34,9 @@ The other paddings and ``AutoEncoder`` come with a later slice (ROADMAP
 queue 1, item 9). ``GlobalGeneratorTrunk`` (with ``GlobalGenerator``'s
 head) and ``UNetGeneratorHD`` record their stem and downs, blocks, and
 ups and head as the spans ``g.encode``, ``g.trunk`` and ``g.decode``
-(:mod:`cistar_tpu_torch.runtime.spans`).
+(:mod:`cistar_tpu_torch.runtime.spans`); ``LocalEnhancer`` records its
+global trunk so and its fine stream (the enhancers and the head) as
+``g.enhance``.
 """
 
 from __future__ import annotations
@@ -305,14 +307,15 @@ class LocalEnhancer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pyr = self.pyramid(x)
         h = self.global_trunk(pyr[-1])
-        for n in range(1, self.n_local_enhancers + 1):
-            d = self.enhancer(n, "down")(
-                self.enhancer(n, "stem")(pyr[self.n_local_enhancers - n]))
-            h = d + h
-            for i in range(self.n_blocks_local):
-                h = self.enhancer(n, f"res_{i}")(h)
-            h = self.enhancer(n, "up")(h)
-        return self.head(h)
+        with spans.span("g.enhance"):
+            for n in range(1, self.n_local_enhancers + 1):
+                d = self.enhancer(n, "down")(
+                    self.enhancer(n, "stem")(pyr[self.n_local_enhancers - n]))
+                h = d + h
+                for i in range(self.n_blocks_local):
+                    h = self.enhancer(n, f"res_{i}")(h)
+                h = self.enhancer(n, "up")(h)
+            return self.head(h)
 
 
 class MultiscaleGlobalGenerator(nn.Module):

@@ -27,7 +27,8 @@ open spans.
 
 The port's spans: ``p2phd.infer`` (``Pix2PixHDInference.infer_step`` and
 ``infer_step_int8``) with ``p2phd.stage_in`` and the generator segments
-``g.encode`` / ``g.trunk`` / ``g.decode``; ``p2phd.train_step``
+``g.encode`` / ``g.trunk`` / ``g.decode`` (and ``g.enhance``, the fine
+stream of ``netG local``); ``p2phd.train_step``
 (``Pix2PixHD.train_step``) with its phases ``g_forward``, ``g_backward``,
 ``g_adam``, ``d_forward_backward``, ``d_adam`` (a phase that an error
 cuts short keeps the name ``phase``). Its one counter,
